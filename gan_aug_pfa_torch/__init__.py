@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of the GAN-augmented change-detection framework.
+
+Mirrors the module layout of the JAX package (``gan_aug_pfa_tpu``) so that
+each module's counterpart is easy to find, but imports only ``torch`` and
+``numpy``.  Public functions keep the JAX layout (NHWC images in [0, 1],
+``(B, H, W, 1)`` probabilities); inside, modules run NCHW.  Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``.
+
+Ported so far: the OSCD evaluation path (scan, decode-once cache, the
+SiameseUNet forward, per-sample confusion counts through a hand-written
+CUDA kernel, macro-averaged metrics, ``python -m
+gan_aug_pfa_torch.evaluate``).
+"""

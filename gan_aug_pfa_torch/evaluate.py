@@ -1,0 +1,69 @@
+"""Evaluate the change-detection model over every OSCD city.
+
+    python -m gan_aug_pfa_torch.evaluate --root-dir <root> [--json-out F]
+
+Flag names are the root ``evaluate.py``'s, for what this port supports;
+``--device`` (default ``cuda``) picks the device.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Dict, List, Optional
+
+from .config import (
+    DATASET_SUBDIR_DEFAULT,
+    DataConfig,
+    EvalConfig,
+    parse_target_size,
+)
+from .train.siamese import COMPUTE_DTYPES
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Evaluate Change Detection Model")
+    p.add_argument("--root-dir", type=str, default=".")
+    p.add_argument("--dataset-subdir", type=str,
+                   default=DATASET_SUBDIR_DEFAULT)
+    p.add_argument("--checkpoint-path", type=str, default=None,
+                   help="Model checkpoint (default "
+                        "<root>/siamese_checkpoints/best_model.pth)")
+    p.add_argument("--output-dir", type=str, default="evaluation_results")
+    p.add_argument("--batch-size", type=int, default=2)
+    p.add_argument("--target-size", type=str, default="128x128",
+                   help="Must match the size used for training")
+    p.add_argument("--threshold", type=float, default=0.5,
+                   help="decision threshold for the metrics")
+    p.add_argument("--json-out", type=str, default=None,
+                   help="also write the metrics report (overall + per-city "
+                        "means) as one JSON file at this path")
+    p.add_argument("--compute-dtype", type=str, default="bfloat16",
+                   choices=list(COMPUTE_DTYPES),
+                   help="model compute dtype for evaluation")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to run on (cuda, cuda:N or cpu)")
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
+    args = build_parser().parse_args(argv)
+    target_size = parse_target_size(args.target_size)
+    data_cfg = DataConfig(root_dir=args.root_dir,
+                          dataset_subdir=args.dataset_subdir)
+    eval_cfg = EvalConfig(
+        batch_size=args.batch_size,
+        target_size=target_size,
+        checkpoint_path=args.checkpoint_path,
+        output_dir=args.output_dir,
+        threshold=args.threshold,
+        json_out=args.json_out,
+        compute_dtype=args.compute_dtype,
+    )
+    from . import pipelines
+
+    return pipelines.run_evaluation(data_cfg, eval_cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    # run_evaluation returns None when it finds no samples or no checkpoint.
+    raise SystemExit(0 if main() is not None else 1)

@@ -1,0 +1,90 @@
+"""Siamese Attention U-Net change-detection model, NCHW (reference
+models.py:47-145; the JAX package's ``models/siamese_unet.py``).
+
+  * shared-weight encoder 64 -> 128 -> 256 -> 512 (+ bottleneck 1024)
+    applied to both images;
+  * per-level concatenation of the two branches (2048-channel bottleneck,
+    1024/512/256/128-channel skips);
+  * four additive attention gates on the concatenated skips;
+  * decoder by 2x bilinear upsample (align_corners=True) + DoubleConv;
+  * 1x1 head ``conv_last`` producing ``n_classes`` logits (no sigmoid).
+
+41,160,525 parameters, as the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.resize import upsample2x_align_corners
+from .blocks import AttentionGate, DoubleConv
+
+
+class SiameseUNet(nn.Module):
+    """``batched_encoder=True`` runs both images through the shared encoder
+    as one 2B-batch pass.  In eval mode (running-stat BN) it computes the
+    same function as the two-pass form; in train mode BN statistics would
+    be joint over both images."""
+
+    def __init__(self, n_channels: int = 3, n_classes: int = 1,
+                 batched_encoder: bool = False):
+        super().__init__()
+        self.batched_encoder = batched_encoder
+        self.dconv_down1 = DoubleConv(n_channels, 64)
+        self.dconv_down2 = DoubleConv(64, 128)
+        self.dconv_down3 = DoubleConv(128, 256)
+        self.dconv_down4 = DoubleConv(256, 512)
+        self.bottleneck = DoubleConv(512, 1024)
+
+        # Combined (two-branch concatenated) channel sizes.
+        ch_bott, ch_s4, ch_s3, ch_s2, ch_s1 = 2048, 1024, 512, 256, 128
+        self.att3 = AttentionGate(ch_bott, ch_s4, ch_s4 // 2)
+        self.att2 = AttentionGate(512, ch_s3, ch_s3 // 2)
+        self.att1 = AttentionGate(256, ch_s2, ch_s2 // 2)
+        self.att_last = AttentionGate(128, ch_s1, ch_s1 // 2)
+
+        self.dconv_up3 = DoubleConv(ch_bott + ch_s4, 512)
+        self.dconv_up2 = DoubleConv(512 + ch_s3, 256)
+        self.dconv_up1 = DoubleConv(256 + ch_s2, 128)
+        self.dconv_last = DoubleConv(128 + ch_s1, 64)
+        self.conv_last = nn.Conv2d(64, n_classes, 1)
+
+    def encode(self, x: torch.Tensor):
+        c1 = self.dconv_down1(x)
+        c2 = self.dconv_down2(F.max_pool2d(c1, 2, 2))
+        c3 = self.dconv_down3(F.max_pool2d(c2, 2, 2))
+        c4 = self.dconv_down4(F.max_pool2d(c3, 2, 2))
+        b = self.bottleneck(F.max_pool2d(c4, 2, 2))
+        return c1, c2, c3, c4, b
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        """x1, x2: (B, C, H, W) in [-1, 1]. Returns (B, n_classes, H, W)
+        logits."""
+        if self.batched_encoder:
+            b = x1.shape[0]
+            feats = self.encode(torch.cat([x1, x2], dim=0))
+            (c1a, c1b), (c2a, c2b), (c3a, c3b), (c4a, c4b), (ba, bb) = (
+                (t[:b], t[b:]) for t in feats
+            )
+        else:
+            c1a, c2a, c3a, c4a, ba = self.encode(x1)
+            c1b, c2b, c3b, c4b, bb = self.encode(x2)
+
+        up = upsample2x_align_corners(torch.cat([ba, bb], dim=1))
+        s4 = torch.cat([c4a, c4b], dim=1)
+        x = self.dconv_up3(torch.cat([up, self.att3(up, s4)], dim=1))
+
+        up = upsample2x_align_corners(x)
+        s3 = torch.cat([c3a, c3b], dim=1)
+        x = self.dconv_up2(torch.cat([up, self.att2(up, s3)], dim=1))
+
+        up = upsample2x_align_corners(x)
+        s2 = torch.cat([c2a, c2b], dim=1)
+        x = self.dconv_up1(torch.cat([up, self.att1(up, s2)], dim=1))
+
+        up = upsample2x_align_corners(x)
+        s1 = torch.cat([c1a, c1b], dim=1)
+        x = self.dconv_last(torch.cat([up, self.att_last(up, s1)], dim=1))
+        return self.conv_last(x)
