@@ -9,5 +9,8 @@ run on ``cuda`` unless the caller passes ``device="cpu"``.
 Ported so far: the OSCD evaluation path (scan, decode-once cache, the
 SiameseUNet forward, per-sample confusion counts through a hand-written
 CUDA kernel, macro-averaged metrics, ``python -m
-gan_aug_pfa_torch.evaluate``).
+gan_aug_pfa_torch.evaluate``) and Siamese training (splits, FocalDice
+through hand-written forward and backward CUDA kernels, AdamW,
+ReduceLROnPlateau, checkpoints and resume, ``python -m
+gan_aug_pfa_torch.train``).
 """

@@ -33,40 +33,44 @@ _GATE_LAYOUT = (("w_g", "bn_g", "W_g"), ("w_x", "bn_x", "W_x"),
                 ("psi", "bn_psi", "psi"))
 
 
-def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+def _t(a, dtype=np.float32) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=dtype))
 
 
-def _conv(kernel) -> torch.Tensor:
+def _conv(kernel, dtype=np.float32) -> torch.Tensor:
     """Flax HWIO kernel -> torch OIHW weight."""
-    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
+    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)), dtype)
 
 
-def _bn(out, prefix, p, s) -> None:
-    out[prefix + ".weight"] = _t(p["scale"])
-    out[prefix + ".bias"] = _t(p["bias"])
-    out[prefix + ".running_mean"] = _t(s["mean"])
-    out[prefix + ".running_var"] = _t(s["var"])
+def _bn(out, prefix, p, s, dtype) -> None:
+    out[prefix + ".weight"] = _t(p["scale"], dtype)
+    out[prefix + ".bias"] = _t(p["bias"], dtype)
+    out[prefix + ".running_mean"] = _t(s["mean"], dtype)
+    out[prefix + ".running_var"] = _t(s["var"], dtype)
     out[prefix + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
-def siamese_state_dict_from_jax(variables: Dict[str, Any]
-                                ) -> Dict[str, torch.Tensor]:
+def siamese_state_dict_from_jax(variables: Dict[str, Any],
+                                dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """``dtype``: of the floating-point tensors (float32, the model's)."""
     params, stats = variables["params"], variables["batch_stats"]
     out: Dict[str, torch.Tensor] = {}
     for name in _SIAMESE_SEQS:
         for cname, bname, ci, bi in _DC_LAYOUT:
-            out[f"{name}.{ci}.weight"] = _conv(params[name][cname]["kernel"])
-            _bn(out, f"{name}.{bi}", params[name][bname], stats[name][bname])
+            out[f"{name}.{ci}.weight"] = _conv(params[name][cname]["kernel"],
+                                               dtype)
+            _bn(out, f"{name}.{bi}", params[name][bname], stats[name][bname],
+                dtype)
     for name in _SIAMESE_GATES:
         for cname, bname, tattr in _GATE_LAYOUT:
             out[f"{name}.{tattr}.0.weight"] = _conv(
-                params[name][cname]["kernel"])
-            out[f"{name}.{tattr}.0.bias"] = _t(params[name][cname]["bias"])
+                params[name][cname]["kernel"], dtype)
+            out[f"{name}.{tattr}.0.bias"] = _t(params[name][cname]["bias"],
+                                               dtype)
             _bn(out, f"{name}.{tattr}.1", params[name][bname],
-                stats[name][bname])
-    out["conv_last.weight"] = _conv(params["conv_head"]["kernel"])
-    out["conv_last.bias"] = _t(params["conv_head"]["bias"])
+                stats[name][bname], dtype)
+    out["conv_last.weight"] = _conv(params["conv_head"]["kernel"], dtype)
+    out["conv_last.bias"] = _t(params["conv_head"]["bias"], dtype)
     return out
 
 

@@ -1,8 +1,12 @@
-"""End-to-end pipelines.  Ported so far: evaluation (the JAX package's
-``pipelines.run_evaluation``, pipelines.py:755-991), on the cached path.
+"""End-to-end pipelines.  Ported so far, on the device-resident cached
+path: Siamese training (the JAX package's ``run_siamese_training``,
+pipelines.py:88-392) and evaluation (``run_evaluation``,
+pipelines.py:755-991).
 
-Not ported yet: visualizations, ``--post-process``, ``--ensemble``,
-``--threshold-sweep``, ``--stream``, serving artifacts and single-pair
+Not ported yet: augmentation and tuning, ``--stream``, the run log, the
+profiler and NaN checks, deferred and background checkpoint writes, the
+SIGTERM handler; for evaluation visualizations, ``--post-process``,
+``--ensemble``, ``--threshold-sweep``, serving artifacts and single-pair
 evaluation.
 """
 
@@ -11,20 +15,23 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from . import checkpoint as ckpt
-from .config import DataConfig, EvalConfig
+from .config import DataConfig, EvalConfig, SiameseTrainConfig
 from .data.loader import CachedDataset, build_cached_dataset
 from .data.scanner import create_sample_lists
 from .device import resolve_device
 from .metrics import METRIC_KEYS, metrics_from_counts
 from .models.siamese_unet import SiameseUNet
 from .ops.kernels.confusion_counts import confusion_counts_batch
-from .train.siamese import predict
+from .train.optim import get_learning_rate
+from .train.plateau import EarlyStopping, make_plateau_scheduler
+from .train.siamese import SiameseTrainer, predict
 
 
 @dataclasses.dataclass
@@ -46,6 +53,130 @@ class DeviceCache:
 
     def __len__(self) -> int:
         return self.img1.shape[0]
+
+
+def run_siamese_training(
+    data_cfg: DataConfig,
+    train_cfg: SiameseTrainConfig,
+    verbose: bool = True,
+    device="cuda",
+    initial_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+) -> Optional[Dict]:
+    """Train the SiameseUNet on the train cities, validating on the val
+    cities each epoch (reference train.py:258-322).  ``initial_state_dict``
+    replaces the seeded init (a JAX init carried across with
+    ``interop.siamese_state_dict_from_jax``, say).  Returns the history
+    {"train_loss", "val_loss", "best_val_loss", "trainer"}, or None when
+    the train split is empty."""
+    dev = resolve_device(device)
+    checkpoint_dir = os.path.join(data_cfg.root_dir, train_cfg.checkpoint_dir)
+    os.makedirs(checkpoint_dir, exist_ok=True)
+
+    train_samples = create_sample_lists(
+        data_cfg.root_dir, data_cfg.dataset_subdir, data_cfg.synthetic_data_dir,
+        mode="train", use_synthetic=data_cfg.use_synthetic, verbose=verbose,
+    )
+    val_samples = create_sample_lists(
+        data_cfg.root_dir, data_cfg.dataset_subdir, data_cfg.synthetic_data_dir,
+        mode="val", verbose=verbose,
+    )
+    if not train_samples:
+        print("Error: Training dataset is empty. Check paths and data.")
+        return None
+    if not val_samples:
+        print("Warning: Validation dataset is empty. Check paths and data.")
+    train_ds = build_cached_dataset(train_samples, data_cfg.target_size,
+                                    verbose=verbose)
+    val_ds = build_cached_dataset(val_samples, data_cfg.target_size,
+                                  verbose=verbose)
+    if verbose:
+        print(f"Dataset loaded: {len(train_ds)} train samples, "
+              f"{len(val_ds)} val samples.")
+
+    trainer = SiameseTrainer(train_cfg, dev)
+    if initial_state_dict is not None:
+        trainer.model.load_state_dict(initial_state_dict, strict=True)
+    scheduler = make_plateau_scheduler(
+        trainer.optimizer, train_cfg.plateau_factor,
+        train_cfg.plateau_patience)
+    stopper = EarlyStopping(train_cfg.early_stop_patience)
+    start_epoch = 1
+    best_val_loss = float("inf")
+    if train_cfg.resume:
+        path = ckpt.find_checkpoint(checkpoint_dir, "last_state")
+        if path:
+            extra = ckpt.restore_train_state(
+                path, trainer.model, trainer.optimizer, scheduler, stopper)
+            start_epoch = extra["epoch"] + 1
+            best_val_loss = extra["best_val_loss"]
+            if verbose:
+                print(f"Resumed from {path} at epoch {start_epoch}.")
+
+    dev_train = DeviceCache.from_dataset(train_ds, dev)
+    dev_val = DeviceCache.from_dataset(val_ds, dev) if len(val_ds) else None
+    # The epoch order's only source; a resumed run starts it afresh, as
+    # the JAX package does (pipelines.py:180).
+    epoch_rng = np.random.RandomState(train_cfg.seed)
+    history = {"train_loss": [], "val_loss": []}
+    history["best_val_loss"] = _run_siamese_epochs(
+        trainer, train_cfg, scheduler, stopper, start_epoch, best_val_loss,
+        dev_train, dev_val, epoch_rng, checkpoint_dir, history, verbose)
+    history["trainer"] = trainer
+    if verbose:
+        print("Training finished.")
+    return history
+
+
+def _run_siamese_epochs(trainer, train_cfg, scheduler, stopper, start_epoch,
+                        best_val_loss, dev_train, dev_val, epoch_rng,
+                        checkpoint_dir, history, verbose) -> float:
+    """The epoch loop (pipelines.py:221-392 without the deferred, async,
+    preemption and run-log paths).  Returns the best validation loss."""
+    for epoch in range(start_epoch, train_cfg.num_epochs + 1):
+        lr_now = get_learning_rate(trainer.optimizer)
+        if verbose:
+            print(f"\nEpoch {epoch}/{train_cfg.num_epochs} - LR: {lr_now:.1e}")
+        t0 = time.perf_counter()
+        train_loss = trainer.train_epoch(dev_train, epoch_rng)
+        val_loss = trainer.validate(dev_val) if dev_val is not None else 0.0
+        dt = time.perf_counter() - t0
+        history["train_loss"].append(train_loss)
+        history["val_loss"].append(val_loss)
+        if verbose:
+            print(f"Epoch {epoch} - Train Loss: {train_loss:.4f}, "
+                  f"Val Loss: {val_loss:.4f} ({dt:.2f}s)")
+        scheduler.step(val_loss)
+        early_stopped = dev_val is not None and stopper.step(val_loss)
+        if val_loss < best_val_loss:
+            best_val_loss = val_loss
+            path = os.path.join(checkpoint_dir,
+                                ckpt.checkpoint_name("best_model"))
+            ckpt.save_model(path, trainer.model)
+            if verbose:
+                print(f"Best model saved to {path} (Val Loss: "
+                      f"{best_val_loss:.4f})")
+        if epoch % train_cfg.save_every == 0:
+            path = os.path.join(
+                checkpoint_dir, ckpt.checkpoint_name(f"model_epoch_{epoch}"))
+            ckpt.save_model(path, trainer.model)
+            if verbose:
+                print(f"Checkpoint saved to {path}")
+        # The resume state, on the save_every cadence, at the last epoch
+        # and on early stop.
+        if (epoch % train_cfg.save_every == 0
+                or epoch == train_cfg.num_epochs or early_stopped):
+            ckpt.save_train_state(
+                os.path.join(checkpoint_dir,
+                             ckpt.checkpoint_name("last_state")),
+                trainer.model, trainer.optimizer, scheduler, stopper, epoch,
+                best_val_loss)
+        if early_stopped:
+            if verbose:
+                print(f"Early stopping at epoch {epoch}: no val-loss "
+                      f"improvement in {stopper.patience} epochs (best "
+                      f"{best_val_loss:.4f}).")
+            break
+    return best_val_loss
 
 
 def evaluate_cached(model: torch.nn.Module, cache: DeviceCache,
@@ -109,7 +240,8 @@ def run_evaluation(
     # The reference evaluates ALL cities despite 'validation' naming
     # (evaluate.py:315-320) — quirk preserved.
     samples = create_sample_lists(
-        data_cfg.root_dir, data_cfg.dataset_subdir, verbose=verbose
+        data_cfg.root_dir, data_cfg.dataset_subdir,
+        data_cfg.synthetic_data_dir, mode="all", verbose=verbose,
     )
     if not samples:
         print("Error: No validation samples found. Check dataset paths and "

@@ -75,7 +75,8 @@ def test_png_decoder_rejects_unsupported(tmp_path, kind):
 
 
 def test_scan_matches_jax(oscd_tree):
-    got = ts.create_sample_lists(str(oscd_tree), SUBDIR, verbose=False)
+    got = ts.create_sample_lists(str(oscd_tree), SUBDIR, mode="all",
+                                 verbose=False)
     want = js.create_sample_lists(str(oscd_tree), SUBDIR, "synthetic_data",
                                   mode="all", verbose=False)
     assert [(s.img1, s.img2, s.label, s.city) for s in got] == [
@@ -100,13 +101,15 @@ def test_scan_skips_unreadable_pair(tmp_path):
         if broken:
             with open(img_base / city / "pair" / "img2.png", "wb") as f:
                 f.write(b"garbage")
-    got = ts.create_sample_lists(str(root), SUBDIR, verbose=False)
+    got = ts.create_sample_lists(str(root), SUBDIR, mode="all",
+                                 verbose=False)
     assert [s.city for s in got] == ["paris"]
 
 
 @pytest.mark.parametrize("size", [(32, 32), (24, 40)])
 def test_cache_matches_jax_bit_for_bit(oscd_tree, size):
-    samples = ts.create_sample_lists(str(oscd_tree), SUBDIR, verbose=False)
+    samples = ts.create_sample_lists(str(oscd_tree), SUBDIR, mode="all",
+                                 verbose=False)
     got = tl.build_cached_dataset(samples, size, verbose=False)
     want = jl.build_cached_dataset(
         js.create_sample_lists(str(oscd_tree), SUBDIR, "synthetic_data",
@@ -120,7 +123,8 @@ def test_cache_matches_jax_bit_for_bit(oscd_tree, size):
 
 
 def test_cache_skips_failed_sample(oscd_tree, tmp_path, capsys):
-    samples = ts.create_sample_lists(str(oscd_tree), SUBDIR, verbose=False)
+    samples = ts.create_sample_lists(str(oscd_tree), SUBDIR, mode="all",
+                                 verbose=False)
     missing = ts.Sample(str(tmp_path / "nope.png"), samples[0].img2,
                         samples[0].label, "ghost")
     ds = tl.build_cached_dataset(samples[:2] + [missing], (16, 16),
@@ -128,3 +132,61 @@ def test_cache_skips_failed_sample(oscd_tree, tmp_path, capsys):
     assert len(ds) == 2 and "ghost" not in ds.cities
     assert "Failed to load sample for city ghost" in capsys.readouterr().out
     assert os.path.exists(samples[0].img1)
+
+
+def _triplets(samples):
+    return [(s.img1, s.img2, s.label, s.city) for s in samples]
+
+
+@pytest.mark.parametrize("use_synthetic", [False, True])
+@pytest.mark.parametrize("mode", ["train", "val", "test", "all"])
+def test_splits_match_jax(oscd_tree, mode, use_synthetic):
+    """Every mode of create_sample_lists, with and without the synthetic
+    corpus (which only the train split takes)."""
+    got = ts.create_sample_lists(str(oscd_tree), SUBDIR, "synthetic_data",
+                                 mode=mode, use_synthetic=use_synthetic,
+                                 verbose=False)
+    want = js.create_sample_lists(str(oscd_tree), SUBDIR, "synthetic_data",
+                                  mode=mode, use_synthetic=use_synthetic,
+                                  verbose=False)
+    assert _triplets(got) == _triplets(want)
+    n_synth = sum(s.is_synthetic for s in got)
+    assert n_synth == (4 if mode == "train" and use_synthetic else 0)
+    if mode == "test":
+        assert all(s.label is None for s in got)
+
+
+def test_synthetic_scan_pairs_by_basename_and_skips(oscd_tree, tmp_path,
+                                                    capsys):
+    """A synthetic img1 without its img2 or label is skipped; a missing
+    synthetic directory leaves the real train split with a warning."""
+    synth = tmp_path / "synth"
+    for city in ("paris", "pisa"):
+        (synth / "images" / city).mkdir(parents=True)
+        (synth / "labels" / city).mkdir(parents=True)
+    img = np.zeros((8, 8, 3), np.uint8)
+    for i in range(3):
+        chip_smoke.write_png(str(synth / "images" / "paris" /
+                                 f"img1_synth_{i}.png"), img)
+        if i != 1:  # no img2 for sample 1
+            chip_smoke.write_png(str(synth / "images" / "paris" /
+                                     f"img2_synth_{i}.png"), img)
+        if i != 2:  # no label for sample 2
+            chip_smoke.write_png(str(synth / "labels" / "paris" /
+                                     f"cm_synth_{i}.png"), img[..., 0])
+    for name in ("img1_synth_0.png", "img2_synth_0.png"):
+        chip_smoke.write_png(str(synth / "images" / "pisa" / name), img)
+    chip_smoke.write_png(str(synth / "labels" / "pisa" / "cm_synth_0.png"),
+                         img[..., 0])
+    images, labels = str(synth / "images"), str(synth / "labels")
+    got = ts.scan_dataset(images, labels, is_synthetic=True, verbose=False)
+    want = js.scan_dataset(images, labels, is_synthetic=True, verbose=False)
+    assert _triplets(got) == _triplets(want)
+    assert [s.city for s in got] == ["paris_synth", "pisa_synth"]
+
+    got = ts.create_sample_lists(str(oscd_tree), SUBDIR, "nowhere",
+                                 mode="train", use_synthetic=True)
+    assert "Synthetic image directory not found" in capsys.readouterr().out
+    assert _triplets(got) == _triplets(js.create_sample_lists(
+        str(oscd_tree), SUBDIR, "synthetic_data", mode="train",
+        verbose=False))

@@ -54,7 +54,7 @@ def _port_eval_cfg(pth, work, **kw):
 
 def _port_probs(root, pth):
     ds = build_cached_dataset(
-        create_sample_lists(root, SUBDIR, verbose=False),
+        create_sample_lists(root, SUBDIR, mode="all", verbose=False),
         SIZE, verbose=False)
     model = tck.restore_model_only(pth, SiameseUNet(batched_encoder=True))
     probs = predict(model, torch.from_numpy(ds.img1),

@@ -31,9 +31,10 @@ def _randomize_bn(tree, rng):
             for k, v in tree.items()}
 
 
-def jax_siamese_variables(seed=0, size=32):
+def jax_siamese_variables(seed=0, size=32, head_scale=HEAD_SCALE):
     """{"params", "batch_stats"} of the JAX SiameseUNet (fp32), numpy
-    leaves, with seeded random BN scale/bias/mean/var."""
+    leaves, with seeded random BN scale/bias/mean/var and the head's
+    kernel scaled by ``head_scale``."""
     model = SiameseUNet(3, 1, dtype=jnp.float32)
     x = jnp.zeros((1, size, size, 3), jnp.float32)
     v = jax.jit(lambda k: model.init(k, x, x, train=False))(
@@ -43,7 +44,7 @@ def jax_siamese_variables(seed=0, size=32):
     v = {"params": _randomize_bn(v["params"], rng),
          "batch_stats": _randomize_bn(v["batch_stats"], rng)}
     head = v["params"]["conv_head"]
-    v["params"]["conv_head"] = {"kernel": head["kernel"] * HEAD_SCALE,
+    v["params"]["conv_head"] = {"kernel": head["kernel"] * head_scale,
                                 "bias": np.zeros_like(head["bias"])}
     v = jax.tree.map(lambda a: np.asarray(a, np.float32), v)
     calib = rng.rand(2, 2, size, size, 3).astype(np.float32) * 2 - 1
