@@ -27,7 +27,17 @@ Phases, each of which fails the run if it fails:
    after; check the losses and checkpoints, resume for one epoch, evaluate
    the trained ``best_model.pth``; compare 3 fp32 train steps on the card
    with the CPU's; time training throughput at batch 4 and 16 and profile
-   one epoch.
+   one epoch;
+7. drive the augmented training path, ``python -m gan_aug_pfa_torch.train
+   --augment`` (native resolution, padded to the train split's largest
+   extent, resized to 128x128) for 4 epochs, then one epoch of ``--augment
+   --no-native-aug``, with the photometric and fused-loss counts set to 0
+   just before each and read just after; compare the augmented batch of
+   each chain and its first fp32 train step on the card with the CPU's;
+   time augmented training at batch 4 and profile one epoch;
+8. hold both photometric kernels against their plain versions on the card
+   (six jitter orders, both sigma edges, ragged native extents) and time
+   them at the main paths' shapes and at 16x3x1024x1024.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -77,6 +87,14 @@ FWD_SFU_OPS, BWD_SFU_OPS = 7, 11
 # differs only by the forward's rounding; later ones also by Adam's
 # updates of parameters whose gradient is rounding noise (up to lr each).
 TRAIN_STEP1_RTOL, TRAIN_STEP_RTOL = 1e-5, 1e-3
+# The photometric kernels vs their plain versions: the contrast mean is
+# summed in another order and nvcc fuses multiply-adds.
+PHOTOMETRIC_ATOL = 2e-6
+# The augmented batch, card vs CPU: the geometric stages compute the same
+# coordinates on both (separate IEEE operations, trig in float64), so the
+# images differ by the photometric kernels' rounding, and labels by a
+# nearest sample that a coordinate rounding moves, at most 0.1%.
+CHAIN_ATOL, LABEL_MISMATCH_SHARE = 1e-4, 1e-3
 
 
 def write_png(path, arr):
@@ -399,28 +417,130 @@ def loss_timings(torch, fl, shape, gen):
     return out
 
 
-def photometric_bounds(batch=4):
-    """Bounds of the two photometric TPU kernels not ported yet
-    (gan_aug_pfa_tpu/ops/pallas_kernels/photometric.py), per call on
-    ``batch`` images at 128x128 and 256x256: (B, 3, H, W) float32 read and
-    written once plus (B, 8) float32 parameters.  fp32 operations an
-    element: brightness 3 (multiply, clip), contrast 6 and saturation 6
-    (the gray value, a blend, a clip), the separable 3x3 blur 10 (two
-    passes of a multiply and two multiply-adds); the native-extent kernel
-    adds 5 for its mask and dynamic reflect-101 edge."""
-    out = {}
-    for name, ops in (("photometric_flip_chw", 25),
-                      ("photometric_native_chw", 30)):
-        for side in (128, 256):
-            n = batch * 3 * side * side
-            nbytes = 8 * n + 32 * batch
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops * n / FP32_OPS_PER_S * 1e3
-            out[f"{name} {batch}x3x{side}x{side}"] = {
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bytes": nbytes, "ops_ms": ops_ms}
-    return out
+def photometric_bound(extents, native):
+    """Least time (ms) of one photometric call on images whose work covers
+    ``extents`` (h, w) each: three float32 channels read and written once
+    in each extent (the native kernel leaves the padded tail alone), plus
+    one (8,) float32 parameter row an image.  fp32 operations a pixel and
+    channel: brightness 3, contrast 6 and saturation 6 (gray, blend,
+    clip), the separable blur 10; the native kernel's mask and dynamic
+    edge 5 more."""
+    pixels = sum(h * w for h, w in extents)
+    nbytes = 24 * pixels + 32 * len(extents)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (30 if native else 25) * 3 * pixels / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops_ms": ops_ms}
+
+
+def photometric_rows(torch, b, order, extents=None, sigma_first=0.1,
+                     seed=SEED):
+    """(B, 8) rows: factors of 0.7 or 1.3 (the clips engage), the given
+    order, sigma alternating 0.1 / 1.0 from ``sigma_first``; native
+    extents, else the four flip combinations in turn."""
+    rng = np.random.RandomState(seed)
+    rows = np.zeros((b, 8), np.float32)
+    rows[:, :3] = np.where(rng.rand(b, 3) > 0.5, 1.3, 0.7)
+    rows[:, 3] = order
+    rows[:, 4] = np.resize([sigma_first, 1.1 - sigma_first], b)
+    if extents is None:
+        rows[:, 5] = np.resize([1, 0, 1, 0], b)
+        rows[:, 6] = np.resize([1, 1, 0, 0], b)
+    else:
+        ext = np.asarray(extents, np.float32)
+        rows[:, 5:7] = ext
+        rows[:, 7] = ext[:, 0] * ext[:, 1]
+    return torch.from_numpy(rows).cuda()
+
+
+def phase_photometric(torch, ph, native_shape, native_extents):
+    """Both photometric kernels vs their plain versions on the card,
+    within PHOTOMETRIC_ATOL inside each native extent, over the six jitter
+    orders and both sigma edges; equal bits on a rerun.  Then timings of
+    kernel, wrapper, plain version and a yardstick at the main paths'
+    shapes and at 16x3x1024x1024."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    b, _, hp, wp = native_shape
+    cases = [("native", (b, 3, hp, wp), native_extents),
+             ("native", (4, 3, 400, 400), [[201, 397], [400, 400],
+                                           [256, 130], [399, 200]]),
+             ("flip", (4, 3, 128, 128), None),
+             ("flip", (3, 3, 37, 53), None)]
+    errs = {"native": 0.0, "flip": 0.0}
+    for kind, shape, extents in cases:
+        extents = ([[min(h, shape[2]), min(w, shape[3])] for h, w in extents]
+                   if extents else [[shape[2], shape[3]]] * shape[0])
+        fn, ref = ((ph.photometric_native_chw, ph.photometric_native_reference)
+                   if kind == "native" else
+                   (ph.photometric_flip_chw, ph.photometric_flip_reference))
+        x = torch.rand(shape, generator=gen, device="cuda")
+        worst = 0.0
+        for order in range(6):
+            for sigma_first in (0.1, 1.0):
+                rows = photometric_rows(
+                    torch, shape[0], order,
+                    extents if kind == "native" else None, sigma_first,
+                    seed=order)
+                got, again = fn(x, rows), fn(x, rows)
+                torch.cuda.synchronize()
+                want = ref(x, rows)
+                for i, (h, w) in enumerate(extents):
+                    worst = max(worst, float(
+                        (got[i, :, :h, :w] - want[i, :, :h, :w]).abs().max()))
+                    if not torch.equal(got[i, :, :h, :w],
+                                       again[i, :, :h, :w]):
+                        raise AssertionError(f"{kind} {shape}: rerun differs")
+        errs[kind] = max(errs[kind], worst)
+        print(f"photometric {kind} kernel {shape} extents {extents}: "
+              f"max_abs_err={worst} over 6 orders x 2 sigma edges "
+              f"{'OK' if worst <= PHOTOMETRIC_ATOL else 'MISMATCH'}")
+        if worst > PHOTOMETRIC_ATOL:
+            raise AssertionError(f"photometric {kind} kernel != plain "
+                                 f"version at {shape}: {worst}")
+
+    timings = {}
+    big = (16, 3, 1024, 1024)
+    for kind, shape, extents in (
+            ("native", native_shape, native_extents),
+            ("native", big, [[1024, 1024]] * 16),
+            ("flip", (4, 3, 128, 128), None), ("flip", big, None)):
+        native = kind == "native"
+        if extents:
+            extents = [[min(h, shape[2]), min(w, shape[3])]
+                       for h, w in extents]
+        x = torch.rand(shape, generator=gen, device="cuda")
+        rows = photometric_rows(torch, shape[0], 3, extents)
+        scratch, native_fn, flip_fn = ph._kernels()
+        c_fn = native_fn if native else flip_fn
+        out = torch.empty_like(x)
+        partials = torch.empty(scratch(*shape[:1], *shape[2:]),
+                               device="cuda")
+        yard = torch.empty_like(x)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def kernel_only():
+            return c_fn(x.data_ptr(), rows.data_ptr(), shape[0], shape[2],
+                        shape[3], partials.data_ptr(), out.data_ptr(), stream)
+
+        if kernel_only() != 0:
+            raise AssertionError(f"photometric {kind} launch failed")
+        wrapper, plain = ((ph.photometric_native_chw,
+                           ph.photometric_native_reference) if native else
+                          (ph.photometric_flip_chw,
+                           ph.photometric_flip_reference))
+        t = photometric_bound(extents or [shape[2:]] * shape[0], native)
+        t.update({
+            "ms": time_ms(torch, kernel_only),
+            "wrapper_ms": time_ms(torch, lambda: wrapper(x, rows)),
+            "plain_ms": time_ms(torch, lambda: plain(x, rows), iters=20,
+                                warmup=3),
+            "library_ms": time_ms(torch, lambda: torch.mul(x, 1.5, out=yard)),
+        })
+        timings[(kind, shape)] = t
+        print(f"photometric {kind} timing {shape}: {json.dumps(t)}")
+    return errs, timings
 
 
 def phase_model(torch, SiameseUNet, predict):
@@ -672,10 +792,188 @@ def train_throughput(torch, ds):
     return result
 
 
+def reset_photometric_counts(ph):
+    for fn in (ph.photometric_native_chw, ph.photometric_flip_chw):
+        fn.calls = fn.launches = 0
+
+
+def photometric_counts(ph):
+    return {name: (fn.calls, fn.launches) for name, fn in (
+        ("native", ph.photometric_native_chw),
+        ("flip", ph.photometric_flip_chw))}
+
+
+def phase_aug_training(torch, root):
+    """The augmented training path through its CLI, in this process: 4
+    epochs of ``--augment`` (native resolution, the default) over the 11
+    train and 3 val cities, then one epoch of ``--augment
+    --no-native-aug``.  Every count is set to 0 just before each run and
+    read just after it."""
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
+    from gan_aug_pfa_torch.ops.kernels.fused_loss import FocalDiceLossFn
+    from gan_aug_pfa_torch.train import __main__ as train_cli
+
+    write_oscd_tree(root)
+    runs = {}
+    for name, flags, epochs in (
+            ("native", [], 4),
+            ("fixed_size", ["--no-native-aug", "--checkpoint-dir",
+                            "fixed_checkpoints"], 1)):
+        reset_photometric_counts(ph)
+        FocalDiceLossFn.fwd_launches = FocalDiceLossFn.bwd_launches = 0
+        t0 = time.time()
+        history = train_cli.main(["--root-dir", root, "--augment",
+                                  "--num-epochs", str(epochs),
+                                  "--save-every", "2", *flags])
+        wall = time.time() - t0
+        counts = photometric_counts(ph)
+        loss = (FocalDiceLossFn.fwd_launches, FocalDiceLossFn.bwd_launches)
+        print(f"augmented training ({name}): train main wall {wall:.2f} s, "
+              f"photometric (calls, launches) {counts}, fused-loss "
+              f"launches {loss}, train loss {history['train_loss']}, val "
+              f"loss {history['val_loss']}")
+        # 11 train pairs at batch 4: 3 steps an epoch, 2 images a step.
+        steps = 3 * epochs
+        want = {"native": (2 * steps, 4 * steps), "flip": (0, 0)}
+        if name == "fixed_size":
+            want = {"native": (0, 0), "flip": (2 * steps, 4 * steps)}
+        if counts != want or loss != (4 * epochs, steps):
+            raise AssertionError(f"{name}: photometric {counts}, expected "
+                                 f"{want}; fused loss {loss}")
+        losses = history["train_loss"] + history["val_loss"]
+        if len(losses) != 2 * epochs or not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: losses {losses}")
+        runs[name] = {"counts": counts, "loss_launches": loss, "wall": wall}
+    for name in ("best_model", "model_epoch_2", "model_epoch_4",
+                 "last_state"):
+        if not os.path.exists(os.path.join(root, "siamese_checkpoints",
+                                           name + ".pth")):
+            raise AssertionError(f"{name}.pth not written")
+    if not os.path.exists(os.path.join(root, "fixed_checkpoints",
+                                       "best_model.pth")):
+        raise AssertionError("fixed-size run wrote no best_model.pth")
+    return runs
+
+
+def aug_batches(torch, native_ds, fixed_ds, device):
+    """Bs-4 augmented batches of the native and the fixed-size chain on
+    ``device`` from one CPU draw each, and the caches they came from."""
+    from gan_aug_pfa_torch.data import transforms as T
+    from gan_aug_pfa_torch.pipelines import DeviceCache, NativeDeviceCache
+
+    out = {}
+    for name, cache_cls, ds in (("native", NativeDeviceCache, native_ds),
+                                ("fixed_size", DeviceCache, fixed_ds)):
+        cache = cache_cls.from_dataset(ds, device)
+        idx = torch.arange(4, device=device)
+        if name == "native":
+            sizes = torch.from_numpy(ds.sizes[:4]).long()
+        else:
+            sizes = torch.tensor([list(ds.img1.shape[1:3])] * 4)
+        params = T.sample_augment_params(
+            torch.Generator().manual_seed(SEED), sizes)
+        params = {k: v.to(device) for k, v in params.items()}
+        nhwc = (cache.img1[:4].permute(0, 2, 3, 1),
+                cache.img2[:4].permute(0, 2, 3, 1), cache.labels[:4])
+        if name == "native":
+            batch = T.augment_batch_native(*nhwc, sizes.to(device),
+                                           (128, 128), params)
+        else:
+            batch = T.augment_batch(*nhwc, params)
+        out[name] = (cache, idx, params, batch)
+    return out
+
+
+def phase_aug_card_vs_cpu(torch, native_ds, fixed_ds):
+    """One drawn parameter dict per chain: the augmented batch on the card
+    (kernels) vs the CPU (plain versions), then the first fp32 augmented
+    train step's loss on each from one seeded init."""
+    from gan_aug_pfa_torch.config import SiameseTrainConfig
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+
+    card = aug_batches(torch, native_ds, fixed_ds, "cuda")
+    cpu = aug_batches(torch, native_ds, fixed_ds, "cpu")
+    result = {}
+    for name in card:
+        g, c = card[name][3], cpu[name][3]
+        img_err = max(float((a.cpu() - b).abs().max())
+                      for a, b in zip(g[:2], c[:2]))
+        mismatch = float((g[2].cpu() != c[2]).float().mean())
+        losses = []
+        for batches, device in ((card, "cuda"), (cpu, "cpu")):
+            cache, idx, params, _ = batches[name]
+            trainer = SiameseTrainer(
+                SiameseTrainConfig(compute_dtype="float32"), device,
+                augment=True,
+                native_out_size=(128, 128) if name == "native" else None)
+            losses.append(float(trainer.train_step(cache, idx, params)))
+        rel = abs(losses[0] - losses[1]) / abs(losses[1])
+        print(f"augmented {name} batch card vs CPU: max |dimg| {img_err} "
+              f"(tolerance {CHAIN_ATOL}), label mismatch share {mismatch}; "
+              f"first fp32 step loss {losses[0]} vs {losses[1]}, relative "
+              f"{rel} (tolerance {TRAIN_STEP1_RTOL})")
+        if (img_err > CHAIN_ATOL or mismatch > LABEL_MISMATCH_SHARE
+                or rel > TRAIN_STEP1_RTOL):
+            raise AssertionError(f"augmented {name} chain on the card "
+                                 "disagrees with the CPU")
+        result[name] = {"img_err": img_err, "label_mismatch": mismatch,
+                        "step1_rel": rel}
+    return result
+
+
+def aug_throughput(torch, native_ds):
+    """Augmented (native) train steps/s and pairs/s at bs 4, bf16, over a
+    device cache of 16 copies of the train pairs: one warm-up pass, then
+    PASSES timed passes; then a profile of one epoch of the plain train
+    split with the photometric kernels' and the gathers' device shares."""
+    from gan_aug_pfa_torch.config import SiameseTrainConfig
+    from gan_aug_pfa_torch.pipelines import NativeDeviceCache
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+
+    cache = NativeDeviceCache.from_dataset(native_ds, "cuda")
+    reps = 16
+    big = NativeDeviceCache(cache.img1.repeat(reps, 1, 1, 1),
+                            cache.img2.repeat(reps, 1, 1, 1),
+                            cache.labels.repeat(reps, 1, 1),
+                            cache.sizes.repeat(reps, 1))
+    trainer = SiameseTrainer(SiameseTrainConfig(), "cuda", augment=True,
+                             native_out_size=(128, 128))
+    rng = np.random.RandomState(SEED)
+    trainer.train_epoch(big, rng)
+    walls = []
+    for _ in range(PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_epoch(big, rng)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    steps = -(-len(big) // 4)
+    steps_s = [steps / w for w in walls]
+    pairs_s = [len(big) / w for w in walls]
+    print(f"augmented train throughput (native {tuple(cache.img1.shape[2:])} "
+          f"-> 128x128, bf16, {len(big)} pairs, bs 4): median "
+          f"{float(np.median(steps_s)):.2f} steps/s, "
+          f"{float(np.median(pairs_s)):.1f} pairs/s over {PASSES} passes, "
+          f"range [{min(pairs_s):.1f}, {max(pairs_s):.1f}] pairs/s")
+    trainer.train_epoch(cache, rng)
+    busy_us, kernels = device_breakdown(
+        torch, lambda: trainer.train_epoch(cache, rng),
+        f"one bs-4 augmented train epoch ({len(cache)} pairs, 3 steps, "
+        "bf16)", ("photometric",))
+    for label, names in (("photometric kernels", ("photometric",)),
+                         ("gathers (geometric stages)", ("gather",))):
+        us = sum(e.self_device_time_total for e in kernels
+                 if any(n in e.key for n in names))
+        print(f"  share of device time in {label}: {us:.1f} us, "
+              f"{100 * us / busy_us:.2f}%")
+    return float(np.median(steps_s))
+
+
 def device_breakdown(torch, fn, label, ours, top=8):
     """Trace ``fn`` with torch.profiler: wall time, summed device kernel
     time (busy share) and the kernels that take the most device time, with
-    the port's kernels (names containing one of ``ours``) always shown."""
+    the port's kernels (names containing one of ``ours``) always shown.
+    Returns the device kernel time (us) and the profiler's kernel rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -699,6 +997,7 @@ def device_breakdown(torch, fn, label, ours, top=8):
     for e in ranked[:top] + [e for e in mine if e not in ranked[:top]]:
         print(f"  {e.self_device_time_total:9.1f} us  {e.count:4d}x  "
               f"{e.key[:100]}")
+    return busy_us, kernels
 
 
 def main():
@@ -708,12 +1007,16 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA card", file=sys.stderr)
         return 2
-    from gan_aug_pfa_torch.data.loader import build_cached_dataset
+    from gan_aug_pfa_torch.data.loader import (
+        build_cached_dataset,
+        build_padded_native_dataset,
+    )
     from gan_aug_pfa_torch.data.scanner import create_sample_lists
     from gan_aug_pfa_torch.models import SiameseUNet
     from gan_aug_pfa_torch.ops.kernels import build
     from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
     from gan_aug_pfa_torch.ops.kernels import fused_loss as fl
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
     from gan_aug_pfa_torch.train.siamese import predict
 
     smi = subprocess.run(
@@ -725,7 +1028,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.time()
-    logs = build.build([cc.NAME, fl.NAME])
+    logs = build.build([cc.NAME, fl.NAME, ph.NAME])
     print(f"kernel build: {time.time() - t0:.1f} s "
           f"({', '.join(logs) or 'already built'})")
     for name, log in logs.items():
@@ -745,8 +1048,17 @@ def main():
             (128, 128), verbose=False)
     phase_train_card_vs_cpu(torch, train_ds)
     train_throughput(torch, train_ds)
-    print("bounds of the TPU kernels not ported yet: "
-          + json.dumps(photometric_bounds()))
+    with tempfile.TemporaryDirectory() as root:
+        aug_runs = phase_aug_training(torch, root)
+        native_ds = build_padded_native_dataset(
+            create_sample_lists(root, "Onera Satellite Change Detection "
+                                "Dataset", mode="train", verbose=False),
+            verbose=False)
+    phase_aug_card_vs_cpu(torch, native_ds, train_ds)
+    aug_throughput(torch, native_ds)
+    native_shape = (4, 3, *native_ds.img1.shape[1:3])
+    photo_errs, photo_t = phase_photometric(
+        torch, ph, native_shape, native_ds.sizes[:4].tolist())
 
     eval_t = timings[(2, 128, 128)]
     kernels = [{
@@ -786,6 +1098,32 @@ def main():
             "library_ms": t["library_ms"],
             "library_call": library + " (a yardstick of the same bytes)",
             "shape": list(TRAIN_SHAPE),
+        })
+    for kind, fn, line, shape, run in (
+            ("native", ph.photometric_native_chw, 237, native_shape,
+             "native"),
+            ("flip", ph.photometric_flip_chw, 99, (4, 3, 128, 128),
+             "fixed_size")):
+        t = photo_t[(kind, shape)]
+        calls, launches = aug_runs[run]["counts"][kind]
+        kernels.append({
+            "name": fn.__name__,
+            "route": "cuda",
+            "source": "gan_aug_pfa_torch/csrc/photometric.cu",
+            "replaces":
+                f"gan_aug_pfa_tpu/ops/pallas_kernels/photometric.py:{line}",
+            "launches": launches,
+            "calls": calls,
+            "max_abs_err": photo_errs[kind],
+            "ms": t["ms"],
+            "kernel_ms": t["ms"],
+            "wrapper_ms": t["wrapper_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_call": "torch.mul (a yardstick of the same bytes)",
+            "shape": list(shape),
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

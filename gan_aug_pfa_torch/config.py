@@ -35,6 +35,12 @@ class DataConfig:
     synthetic_data_dir: str = SYNTHETIC_DATA_DIR_DEFAULT
     target_size: Tuple[int, int] = (128, 128)
     use_synthetic: bool = False
+    # Joint augmentation of the train split (data/transforms.py).
+    augment: bool = False
+    # Augment each sample at its native resolution and resize to target as
+    # chain step 5 (the reference's order, dataset.py:172-193); False
+    # augments the target-size cache instead.  Read only with augment.
+    native_aug: bool = True
 
 
 @dataclasses.dataclass

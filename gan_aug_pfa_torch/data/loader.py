@@ -5,7 +5,9 @@ Each PNG is decoded once and resized on the host with the reference's
 numerics: bilinear, align_corners=False, coefficients in float64 and the
 lerp in float32 for images after /255; legacy nearest for labels, which
 are binarized at >128 before the resize (reference dataset.py:31-33 then
-146).  The pipeline moves the cache to the device once.
+146).  The pipeline moves the cache to the device once.  For
+native-resolution augmentation, ``build_padded_native_dataset`` keeps each
+sample at its decoded size in a zero-padded buffer instead.
 """
 
 from __future__ import annotations
@@ -135,4 +137,95 @@ def build_cached_dataset(
             f"Cached {len(ds)} samples at {target_size[0]}x{target_size[1]} "
             f"({ds.img1.nbytes * 2 / 1e6:.1f} MB of image data)."
         )
+    return ds
+
+
+@dataclasses.dataclass
+class PaddedNativeDataset:
+    """A native-resolution dataset: each sample decoded at its original
+    size into the top-left corner of a zero-padded (Hmax, Wmax) buffer,
+    with its true size.  Feeds the native-resolution augmentation chain
+    (``data/transforms.augment_batch_native``)."""
+
+    img1: np.ndarray  # (N, Hmax, Wmax, 3) float32 in [0, 1], zero-padded
+    img2: np.ndarray  # (N, Hmax, Wmax, 3)
+    labels: Optional[np.ndarray]  # (N, Hmax, Wmax) int32 in {0, 1}
+    sizes: np.ndarray  # (N, 2) int32 native (h, w)
+    cities: List[str]
+
+    def __len__(self) -> int:
+        return self.img1.shape[0]
+
+
+def _load_native(s: Sample):
+    """One triplet at native size.  img2 and the label are brought to
+    img1's extent when they differ, with a printed warning each."""
+    i1 = png.decode_rgb(s.img1).astype(np.float32) / 255.0
+    i2 = png.decode_rgb(s.img2).astype(np.float32) / 255.0
+    if i1.shape != i2.shape:
+        # Joint augmentation needs one canvas per pair: keep the pair and
+        # resize img2 with the cache's bilinear resize.
+        print(f"img1/img2 native sizes differ for {s.city} ({i1.shape} vs "
+              f"{i2.shape}); resizing img2 to img1's extent for "
+              "native-resolution augmentation.")
+        i2 = _resize_bilinear_np(i2, (i1.shape[0], i1.shape[1]))
+    lb = None
+    if s.label is not None:
+        lb = (png.decode_gray(s.label) > 128).astype(np.int32)
+        if lb.shape != i1.shape[:2]:
+            print(f"label native size differs for {s.city} ({lb.shape} vs "
+                  f"{i1.shape[:2]}); nearest-resizing the label to img1's "
+                  "extent.")
+            lb = _resize_nearest_np(lb, (i1.shape[0], i1.shape[1]))
+    return i1, i2, lb
+
+
+def build_padded_native_dataset(
+    samples: List[Sample], pad_multiple: int = 8, verbose: bool = True
+) -> PaddedNativeDataset:
+    """Decode every sample once at native size into a padded dense cache
+    whose extent is the largest native one rounded up to ``pad_multiple``.
+    Unreadable samples are skipped with a warning, as in
+    ``build_cached_dataset``."""
+
+    def load_one(s):
+        try:
+            return _load_native(s)
+        except Exception as e:  # noqa: BLE001 — parity with reference skip
+            print(f"Failed to load sample for city {s.city}: {e}. Skipping.")
+            return None
+
+    with ThreadPoolExecutor(max_workers=min(8, max(1, len(samples)))) as ex:
+        results = list(ex.map(load_one, samples))
+    loaded = [(s, r) for s, r in zip(samples, results) if r is not None]
+    if not loaded:
+        return PaddedNativeDataset(
+            np.zeros((0, 0, 0, 3), np.float32),
+            np.zeros((0, 0, 0, 3), np.float32),
+            None, np.zeros((0, 2), np.int32), [],
+        )
+    has_labels = all(r[2] is not None for _, r in loaded)
+
+    def up(n):
+        return -(-n // pad_multiple) * pad_multiple
+
+    hmax = up(max(r[0].shape[0] for _, r in loaded))
+    wmax = up(max(r[0].shape[1] for _, r in loaded))
+    n = len(loaded)
+    img1 = np.zeros((n, hmax, wmax, 3), np.float32)
+    img2 = np.zeros((n, hmax, wmax, 3), np.float32)
+    labels = np.zeros((n, hmax, wmax), np.int32) if has_labels else None
+    sizes = np.zeros((n, 2), np.int32)
+    for i, (_, (i1, i2, lb)) in enumerate(loaded):
+        h, w = i1.shape[:2]
+        img1[i, :h, :w] = i1
+        img2[i, :h, :w] = i2
+        if has_labels:
+            labels[i, :h, :w] = lb
+        sizes[i] = (h, w)
+    ds = PaddedNativeDataset(img1, img2, labels, sizes,
+                             [s.city for s, _ in loaded])
+    if verbose:
+        print(f"Cached {n} samples at native size (padded to {hmax}x{wmax}, "
+              f"{img1.nbytes * 2 / 1e6:.1f} MB of image data).")
     return ds

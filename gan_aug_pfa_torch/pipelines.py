@@ -1,13 +1,12 @@
 """End-to-end pipelines.  Ported so far, on the device-resident cached
-path: Siamese training (the JAX package's ``run_siamese_training``,
-pipelines.py:88-392) and evaluation (``run_evaluation``,
-pipelines.py:755-991).
+path: Siamese training with and without augmentation (the JAX package's
+``run_siamese_training``, pipelines.py:88-392) and evaluation
+(``run_evaluation``, pipelines.py:755-991).
 
-Not ported yet: augmentation and tuning, ``--stream``, the run log, the
-profiler and NaN checks, deferred and background checkpoint writes, the
-SIGTERM handler; for evaluation visualizations, ``--post-process``,
-``--ensemble``, ``--threshold-sweep``, serving artifacts and single-pair
-evaluation.
+Not ported yet: tuning, ``--stream``, the run log, the profiler and NaN
+checks, deferred and background checkpoint writes, the SIGTERM handler;
+for evaluation visualizations, ``--post-process``, ``--ensemble``,
+``--threshold-sweep``, serving artifacts and single-pair evaluation.
 """
 
 from __future__ import annotations
@@ -23,7 +22,12 @@ import torch
 
 from . import checkpoint as ckpt
 from .config import DataConfig, EvalConfig, SiameseTrainConfig
-from .data.loader import CachedDataset, build_cached_dataset
+from .data.loader import (
+    CachedDataset,
+    PaddedNativeDataset,
+    build_cached_dataset,
+    build_padded_native_dataset,
+)
 from .data.scanner import create_sample_lists
 from .device import resolve_device
 from .metrics import METRIC_KEYS, metrics_from_counts
@@ -53,6 +57,22 @@ class DeviceCache:
 
     def __len__(self) -> int:
         return self.img1.shape[0]
+
+
+@dataclasses.dataclass
+class NativeDeviceCache(DeviceCache):
+    """The padded native-size dataset on the device: images NCHW float32
+    in [0, 1], labels float32 in {0, 1}, each sample in the top-left corner
+    of its buffer, and ``sizes`` (N, 2) int64, its native (h, w)."""
+
+    sizes: torch.Tensor
+
+    @classmethod
+    def from_dataset(cls, ds: PaddedNativeDataset,
+                     device) -> "NativeDeviceCache":
+        cache = DeviceCache.from_dataset(ds, device)
+        return cls(cache.img1, cache.img2, cache.labels,
+                   torch.from_numpy(ds.sizes).to(device, torch.int64))
 
 
 def run_siamese_training(
@@ -85,15 +105,21 @@ def run_siamese_training(
         return None
     if not val_samples:
         print("Warning: Validation dataset is empty. Check paths and data.")
-    train_ds = build_cached_dataset(train_samples, data_cfg.target_size,
-                                    verbose=verbose)
+    native = data_cfg.augment and data_cfg.native_aug
+    if native:
+        train_ds = build_padded_native_dataset(train_samples, verbose=verbose)
+    else:
+        train_ds = build_cached_dataset(train_samples, data_cfg.target_size,
+                                        verbose=verbose)
     val_ds = build_cached_dataset(val_samples, data_cfg.target_size,
                                   verbose=verbose)
     if verbose:
         print(f"Dataset loaded: {len(train_ds)} train samples, "
               f"{len(val_ds)} val samples.")
 
-    trainer = SiameseTrainer(train_cfg, dev)
+    trainer = SiameseTrainer(
+        train_cfg, dev, augment=data_cfg.augment,
+        native_out_size=data_cfg.target_size if native else None)
     if initial_state_dict is not None:
         trainer.model.load_state_dict(initial_state_dict, strict=True)
     scheduler = make_plateau_scheduler(
@@ -112,11 +138,14 @@ def run_siamese_training(
             if verbose:
                 print(f"Resumed from {path} at epoch {start_epoch}.")
 
-    dev_train = DeviceCache.from_dataset(train_ds, dev)
+    dev_train = (NativeDeviceCache if native else DeviceCache).from_dataset(
+        train_ds, dev)
     dev_val = DeviceCache.from_dataset(val_ds, dev) if len(val_ds) else None
-    # The epoch order's only source; a resumed run starts it afresh, as
-    # the JAX package does (pipelines.py:180).
+    # The epoch order's and the augmentation's only sources; a resumed run
+    # starts both afresh, as the JAX package restarts its epoch order and
+    # PRNGKey(seed) (pipelines.py:148, 180).
     epoch_rng = np.random.RandomState(train_cfg.seed)
+    trainer.generator.manual_seed(train_cfg.seed)
     history = {"train_loss": [], "val_loss": []}
     history["best_val_loss"] = _run_siamese_epochs(
         trainer, train_cfg, scheduler, stopper, start_epoch, best_val_loss,

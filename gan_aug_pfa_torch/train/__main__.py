@@ -4,10 +4,13 @@
 
 Flag names are the root ``train.py``'s.  ``--device`` (default ``cuda``)
 picks the device; without a card the run raises unless ``--device cpu``
-is given.  ``--fused-loss`` is accepted so that the JAX package's command
-lines run unchanged: on the card the loss always runs the fused kernels.
-Flags of paths not ported yet (``--tune``, ``--augment`` and the others
-below) exit non-zero with "not ported yet".
+is given.  ``--augment`` turns on joint augmentation, at native
+resolution unless ``--no-native-aug``.  ``--fused-loss`` and
+``--[no-]pallas-augment`` are accepted so that the JAX package's command
+lines run unchanged: on the card the loss always runs the fused kernels
+and augmentation the photometric kernels.  Flags of paths not ported yet
+(``--tune``, ``--stream`` and the others below) exit non-zero with "not
+ported yet".
 """
 
 from __future__ import annotations
@@ -27,10 +30,9 @@ from .siamese import COMPUTE_DTYPES
 # The root train.py's flags whose paths are not ported yet, with the value
 # that leaves them off.
 _NOT_PORTED = {
-    "tune": False, "augment": False, "native_aug": None, "stream": "hbm",
-    "n_trials": None, "parallel_trials": None, "pallas_augment": None,
-    "batched_encoder": False, "profile_dir": None, "debug_nans": False,
-    "concat_free": False, "momentum_dtype": None, "flat_opt_state": False,
+    "tune": False, "stream": "hbm", "n_trials": None,
+    "parallel_trials": None, "batched_encoder": False, "profile_dir": None,
+    "debug_nans": False, "concat_free": False, "momentum_dtype": None, "flat_opt_state": False,
     "defer_best_ckpt": False, "remat": False, "grad_accum": 1,
     "async_ckpt": False, "log_jsonl": None,
 }
@@ -75,10 +77,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "validation-loss improvement (0 = off)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
+    p.add_argument("--augment", action="store_true",
+                   help="joint augmentation of the training pairs (the "
+                        "reference augments only under --tune)")
+    p.add_argument("--native-aug", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="with --augment, augment each pair at its native "
+                        "resolution and resize to the target size as "
+                        "chain step 5 (the reference's order; default); "
+                        "--no-native-aug augments the target-size cache")
     p.add_argument("--fused-loss", action="store_true",
                    help="accepted for the JAX package's command lines; "
                         "on the card the loss always runs the fused "
                         "FocalDice kernels")
+    p.add_argument("--pallas-augment", action="store_true", default=None,
+                   help="accepted for the JAX package's command lines; "
+                        "on the card augmentation always runs the "
+                        "photometric kernels")
+    p.add_argument("--no-pallas-augment", dest="pallas_augment",
+                   action="store_false",
+                   help="accepted for the JAX package's command lines, as "
+                        "--pallas-augment")
     p.add_argument("--no-data-parallel", action="store_true",
                    help="accepted for the JAX package's command lines; "
                         "the port trains on one device")
@@ -87,17 +106,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "the port has no compilation cache")
     not_ported = p.add_argument_group(
         "not ported yet (using one exits non-zero)")
-    for flag in ("--tune", "--augment", "--batched-encoder", "--debug-nans",
+    for flag in ("--tune", "--batched-encoder", "--debug-nans",
                  "--concat-free", "--flat-opt-state", "--defer-best-ckpt",
                  "--remat", "--async-ckpt"):
         not_ported.add_argument(flag, action="store_true")
-    not_ported.add_argument("--native-aug",
-                            action=argparse.BooleanOptionalAction,
-                            default=None)
-    not_ported.add_argument("--pallas-augment", action="store_true",
-                            default=None)
-    not_ported.add_argument("--no-pallas-augment", dest="pallas_augment",
-                            action="store_false")
     not_ported.add_argument("--stream", type=str, default="hbm")
     not_ported.add_argument("--n-trials", type=int, default=None)
     not_ported.add_argument("--parallel-trials", type=int, default=None)
@@ -125,6 +137,8 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
         synthetic_data_dir=args.synthetic_data_dir,
         target_size=target_size,
         use_synthetic=args.use_synthetic,
+        augment=args.augment,
+        native_aug=args.native_aug,
     )
     train_cfg = SiameseTrainConfig(
         batch_size=args.batch_size,

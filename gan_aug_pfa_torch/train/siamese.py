@@ -3,15 +3,20 @@
 
 ``SiameseTrainer`` holds the model, the optimizer and the loss.  A train
 step gathers its batch from the device cache by a device index tensor,
-normalizes to [-1, 1], runs the train-mode forward under
-``compute_precision``, the FocalDice loss through the fused kernels'
-wrapper, the backward and the optimizer step.  The epoch loss is the mean
-of the per-batch losses (reference train.py:147), read once per epoch.
+augments it (``augment=True``) or normalizes it to [-1, 1], runs the
+train-mode forward under ``compute_precision``, the FocalDice loss through
+the fused kernels' wrapper, the backward and the optimizer step.  The
+epoch loss is the mean of the per-batch losses (reference train.py:147),
+read once per epoch.
+
+Augmentation draws its parameters on the device from the trainer's
+``generator`` and runs the chain of ``data/transforms.py``: on the padded
+native-size cache with ``native_out_size``, else on the target-size cache.
+Validation never augments.
 
 Training runs the two-pass encoder (``batched_encoder=False``): each image
 gets its own train-mode BatchNorm statistics, as in the reference.  The
-JAX package's augmentation, streaming, mesh and per-step profiling paths
-are not ported.
+JAX package's streaming, mesh and per-step profiling paths are not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +28,12 @@ import torch
 from torch import nn
 
 from ..config import SiameseTrainConfig
-from ..data.transforms import normalize
+from ..data.transforms import (
+    augment_batch,
+    augment_batch_native,
+    normalize,
+    sample_augment_params,
+)
 from ..device import resolve_device
 from ..models.siamese_unet import SiameseUNet
 from ..ops.kernels.fused_loss import focal_dice_loss_fused
@@ -87,9 +97,21 @@ class SiameseTrainer:
     optimizer is built over its parameters, so weights loaded later with
     ``model.load_state_dict`` stay the ones it updates."""
 
-    def __init__(self, config: SiameseTrainConfig, device="cuda"):
+    def __init__(self, config: SiameseTrainConfig, device="cuda",
+                 augment: bool = False, native_out_size=None):
+        """``native_out_size`` = (H, W) switches the augmented train step
+        to the native-resolution chain: the train cache must then be a
+        ``pipelines.NativeDeviceCache``, and each batch is augmented at
+        its native size and resized to (H, W)."""
         self.config = config
         self.device = resolve_device(device)
+        self.augment = augment
+        self.native_out_size = (tuple(native_out_size)
+                                if augment and native_out_size else None)
+        # The augmentation parameters' only source; the pipeline reseeds
+        # it when a run starts.
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(config.seed)
         self.model = self.init_model(config.seed).to(self.device)
         self.optimizer = make_optimizer(
             config.optimizer, self.model.parameters(), config.learning_rate,
@@ -111,13 +133,42 @@ class SiameseTrainer:
         """FocalDice of (B, 1, H, W) logits against (B, H, W) labels."""
         return focal_dice_loss_fused(logits, labels, **self.loss_kwargs)
 
-    def train_step(self, cache, idx: torch.Tensor) -> torch.Tensor:
-        """One optimization step on the cache rows ``idx`` (a device index
-        tensor).  Returns the batch loss as a detached 0-dim device tensor
-        (no host sync)."""
-        img1 = normalize(cache.img1.index_select(0, idx))
-        img2 = normalize(cache.img2.index_select(0, idx))
+    def _batch(self, cache, idx: torch.Tensor, params=None):
+        """The train step's input: the cache rows ``idx`` (a device index
+        tensor), augmented with ``params`` (drawn from ``generator`` when
+        None) or normalized.  Returns NCHW images in [-1, 1] and labels."""
+        img1 = cache.img1.index_select(0, idx)
+        img2 = cache.img2.index_select(0, idx)
         labels = cache.labels.index_select(0, idx)
+        if not self.augment:
+            return normalize(img1), normalize(img2), labels
+        if self.native_out_size is not None:
+            sizes = cache.sizes.index_select(0, idx)
+        else:
+            # Filled on the device: no host-to-device copy in a step.
+            sizes = torch.full((idx.shape[0], 2), img1.shape[2],
+                               device=self.device)
+            sizes[:, 1] = img1.shape[3]
+        if params is None:
+            params = sample_augment_params(self.generator, sizes)
+        # The chain takes NHWC views of the NCHW rows and ends in the
+        # [-1, 1] normalize.
+        nhwc = (img1.permute(0, 2, 3, 1), img2.permute(0, 2, 3, 1), labels)
+        if self.native_out_size is not None:
+            img1, img2, labels = augment_batch_native(
+                *nhwc, sizes, self.native_out_size, params)
+        else:
+            img1, img2, labels = augment_batch(*nhwc, params)
+        return img1.permute(0, 3, 1, 2), img2.permute(0, 3, 1, 2), labels
+
+    def train_step(self, cache, idx: torch.Tensor,
+                   params=None) -> torch.Tensor:
+        """One optimization step on the cache rows ``idx`` (a device index
+        tensor), augmented with ``params`` (a ``sample_augment_params``
+        dict; drawn from ``generator`` when None) if the trainer augments.
+        Returns the batch loss as a detached 0-dim device tensor (no host
+        sync)."""
+        img1, img2, labels = self._batch(cache, idx, params)
         self.model.train()
         # At float32 the backward's convolutions run without TF32 too.
         with (tf32_off() if self.config.compute_dtype == "float32"

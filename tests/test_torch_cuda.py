@@ -142,3 +142,86 @@ def test_fused_loss_backward_under_bf16_autocast(cuda):
     # Equal up to one bf16 rounding step of values that agree in fp32.
     assert float((got - want).abs().max()) <= 2 ** -8 * float(
         want.abs().max())
+
+
+# The photometric kernels: every jitter order, both sigma edges, factors
+# that engage the clips; native extents ragged against the 32x32 tiles.
+NATIVE_CASES = [
+    (4, 32, 32, [[32, 32], [25, 29], [16, 31], [31, 16]]),
+    (4, 400, 400, [[201, 397], [400, 400], [256, 130], [399, 200]]),
+]
+
+
+def _photometric_rows(b, order, sizes=None, seed=0):
+    """(B, 8) rows: factors 0.7 / 1.3 alternating, sigma 0.1 / 1.0, the
+    given order; native extents from ``sizes``, else both flips mixed."""
+    rng = np.random.RandomState(seed)
+    rows = np.zeros((b, 8), np.float32)
+    rows[:, :3] = np.where(rng.rand(b, 3) > 0.5, 1.3, 0.7)
+    rows[:, 3] = order
+    rows[:, 4] = np.resize([0.1, 1.0], b)
+    if sizes is None:
+        rows[:, 5] = np.resize([1, 0, 1, 0], b)
+        rows[:, 6] = np.resize([1, 1, 0, 0], b)
+    else:
+        sizes = np.asarray(sizes, np.float32)
+        rows[:, 5:7] = sizes
+        rows[:, 7] = sizes[:, 0] * sizes[:, 1]
+    return torch.from_numpy(rows).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(NATIVE_CASES)))
+@pytest.mark.parametrize("order", range(6))
+def test_photometric_native_kernel_matches_plain_version(cuda, case, order):
+    """Within 2e-6 inside each native extent; one call, two launches."""
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
+
+    b, hp, wp, sizes = NATIVE_CASES[case]
+    x = torch.from_numpy(np.random.RandomState(order).rand(
+        b, 3, hp, wp).astype(np.float32)).cuda()
+    rows = _photometric_rows(b, order, sizes, seed=order)
+    calls, launches = (ph.photometric_native_chw.calls,
+                       ph.photometric_native_chw.launches)
+    got = ph.photometric_native_chw(x, rows)
+    torch.cuda.synchronize()
+    assert (ph.photometric_native_chw.calls,
+            ph.photometric_native_chw.launches) == (calls + 1, launches + 2)
+    want = ph.photometric_native_reference(x, rows)
+    again = ph.photometric_native_chw(x, rows)
+    for i, (h, w) in enumerate(sizes):
+        err = float((got[i, :, :h, :w] - want[i, :, :h, :w]).abs().max())
+        assert err <= 2e-6, (i, err)
+        assert torch.equal(got[i, :, :h, :w], again[i, :, :h, :w])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 3, 128, 128), (3, 3, 37, 53)])
+@pytest.mark.parametrize("order", range(6))
+def test_photometric_flip_kernel_matches_plain_version(cuda, shape, order):
+    """Within 2e-6 everywhere, flips included; one call, two launches."""
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
+
+    x = torch.from_numpy(np.random.RandomState(order).rand(
+        *shape).astype(np.float32)).cuda()
+    rows = _photometric_rows(shape[0], order, seed=order + 6)
+    calls, launches = (ph.photometric_flip_chw.calls,
+                       ph.photometric_flip_chw.launches)
+    got = ph.photometric_flip_chw(x, rows)
+    torch.cuda.synchronize()
+    assert (ph.photometric_flip_chw.calls,
+            ph.photometric_flip_chw.launches) == (calls + 1, launches + 2)
+    want = ph.photometric_flip_reference(x, rows)
+    assert float((got - want).abs().max()) <= 2e-6
+
+
+@pytest.mark.cuda
+def test_photometric_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
+
+    x = torch.rand(2, 3, 8, 8, device="cuda")
+    rows = _photometric_rows(2, 0, [[8, 8], [8, 8]])
+    for bad_x, bad_rows in ((x.double(), rows), (x.transpose(2, 3), rows),
+                            (x, rows[:1]), (x, rows.cpu())):
+        with pytest.raises((TypeError, ValueError)):
+            ph.photometric_native_chw(bad_x, bad_rows)

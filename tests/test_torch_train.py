@@ -520,7 +520,7 @@ def test_cli_trains_saves_and_resumes(oscd_tree, tmp_path):
                for s in state["optimizer"]["state"].values())
 
 
-@pytest.mark.parametrize("flags", [["--tune"], ["--augment"],
+@pytest.mark.parametrize("flags", [["--tune"], ["--remat"],
                                    ["--stream", "host"],
                                    ["--log-jsonl", "run.jsonl"]])
 def test_cli_rejects_flags_not_ported(flags, capsys):
@@ -528,6 +528,17 @@ def test_cli_rejects_flags_not_ported(flags, capsys):
         train_cli.main(flags)
     assert exc.value.code != 0
     assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--pallas-augment", "--no-pallas-augment"])
+def test_cli_accepts_pallas_augment_flags(flag, tmp_path, capsys):
+    """Accepted for the JAX package's command lines: on an empty root the
+    run parses, finds no train split and returns None."""
+    assert train_cli.main(["--root-dir", str(tmp_path), "--device", "cpu",
+                           "--augment", flag]) is None
+    out = capsys.readouterr()
+    assert "not ported yet" not in out.err
+    assert "Training dataset is empty" in out.out
 
 
 def test_cli_default_device_is_cuda_and_never_falls_back(oscd_tree):
