@@ -32,18 +32,24 @@ Phases, each of which fails the run if it fails:
    --augment`` (native resolution, padded to the train split's largest
    extent, resized to 128x128) for 4 epochs, then one epoch of ``--augment
    --no-native-aug``, with the photometric and fused-loss counts set to 0
-   just before each and read just after; compare the augmented batch of
-   each chain and its first fp32 train step on the card with the CPU's;
-   time augmented training at batch 4 and profile one epoch;
+   just before each and read just after (one launch a photometric call);
+   compare the augmented batch of each chain and its first fp32 train step
+   on the card with the CPU's; time augmented training at batch 4 and
+   profile one epoch;
 8. hold both photometric kernels against their plain versions on the card
-   (six jitter orders, both sigma edges, ragged native extents) and time
-   them at the main paths' shapes and at 16x3x1024x1024.
+   (six jitter orders, both sigma edges, ragged native extents, extents of
+   1 and 2, unaligned rows, every plan: resident, resident split over
+   several clusters an image, streamed) and time them at the main
+   paths' shapes and at 16x3x1024x1024, back to back and inside a CUDA
+   graph (device time alone), beside a ``torch.mul`` of the same bytes.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero.
 """
 
+import dataclasses
+import functools
 import json
 import os
 import struct
@@ -454,27 +460,75 @@ def photometric_rows(torch, b, order, extents=None, sigma_first=0.1,
     return torch.from_numpy(rows).cuda()
 
 
+def graph_ms(torch, fn, calls=20, replays=10):
+    """Mean device time of ``fn`` with no host time between calls: ``calls``
+    calls captured in one CUDA graph, replayed ``replays`` times."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+# The photometric correctness cases: the main paths' shapes, ragged native
+# extents, extents of 1 and 2 rows or columns, rows that are not 16-byte
+# aligned, batches of 1 and 3, whose images the resident plan splits over
+# several clusters, and 1024x1024 and 700x1023 images, which take the
+# streamed plan (bands of a few rows among them, which fit the ring whole).
+PHOTOMETRIC_CASES = [
+    ("native", (4, 3, 400, 400), [[201, 397], [400, 400], [256, 130],
+                                  [399, 200]]),
+    ("native", (3, 3, 392, 400), [[392, 400], [1, 2], [255, 203]]),
+    ("native", (1, 3, 392, 400), [[392, 400]]),
+    ("native", (4, 3, 8, 8), [[1, 1], [2, 2], [1, 8], [8, 2]]),
+    ("native", (2, 3, 1024, 1024), [[1024, 1024], [777, 1001]]),
+    ("native", (4, 3, 1024, 1024), [[1, 1], [2, 1024], [40, 1000],
+                                    [100, 3]]),
+    ("native", (2, 3, 700, 1023), [[700, 1023], [699, 517]]),
+    ("flip", (4, 3, 128, 128), None),
+    ("flip", (3, 3, 37, 53), None),
+    ("flip", (3, 3, 128, 128), None),
+    ("flip", (2, 3, 1024, 1024), None),
+    ("flip", (2, 3, 700, 1023), None),
+]
+
+
 def phase_photometric(torch, ph, native_shape, native_extents):
     """Both photometric kernels vs their plain versions on the card,
     within PHOTOMETRIC_ATOL inside each native extent, over the six jitter
-    orders and both sigma edges; equal bits on a rerun.  Then timings of
-    kernel, wrapper, plain version and a yardstick at the main paths'
-    shapes and at 16x3x1024x1024."""
+    orders and both sigma edges, in every plan (resident, split, streamed);
+    equal bits on a rerun.  Then timings of kernel, wrapper, plain version
+    and a yardstick at the main paths' shapes and at 16x3x1024x1024, each
+    with its launch plan."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    b, _, hp, wp = native_shape
-    cases = [("native", (b, 3, hp, wp), native_extents),
-             ("native", (4, 3, 400, 400), [[201, 397], [400, 400],
-                                           [256, 130], [399, 200]]),
-             ("flip", (4, 3, 128, 128), None),
-             ("flip", (3, 3, 37, 53), None)]
     errs = {"native": 0.0, "flip": 0.0}
-    for kind, shape, extents in cases:
+    modes = set()
+    for kind, shape, extents in [("native", native_shape, native_extents),
+                                 *PHOTOMETRIC_CASES]:
         extents = ([[min(h, shape[2]), min(w, shape[3])] for h, w in extents]
                    if extents else [[shape[2], shape[3]]] * shape[0])
         fn, ref = ((ph.photometric_native_chw, ph.photometric_native_reference)
                    if kind == "native" else
                    (ph.photometric_flip_chw, ph.photometric_flip_reference))
+        plan = ph.plan_launch(shape[0], *shape[2:])
+        modes.add(plan.mode + (" split" if plan.split > 1 else ""))
         x = torch.rand(shape, generator=gen, device="cuda")
         worst = 0.0
         for order in range(6):
@@ -493,15 +547,18 @@ def phase_photometric(torch, ph, native_shape, native_extents):
                                        again[i, :, :h, :w]):
                         raise AssertionError(f"{kind} {shape}: rerun differs")
         errs[kind] = max(errs[kind], worst)
-        print(f"photometric {kind} kernel {shape} extents {extents}: "
-              f"max_abs_err={worst} over 6 orders x 2 sigma edges "
+        print(f"photometric {kind} kernel {shape} ({plan.mode}) extents "
+              f"{extents}: max_abs_err={worst} over 6 orders x 2 sigma edges "
               f"{'OK' if worst <= PHOTOMETRIC_ATOL else 'MISMATCH'}")
         if worst > PHOTOMETRIC_ATOL:
             raise AssertionError(f"photometric {kind} kernel != plain "
                                  f"version at {shape}: {worst}")
+    if modes != {"resident", "resident split", "streamed"}:
+        raise AssertionError(f"photometric cases ran plans {modes}")
 
     timings = {}
     big = (16, 3, 1024, 1024)
+    native_fn, flip_fn, _ = ph._kernels()
     for kind, shape, extents in (
             ("native", native_shape, native_extents),
             ("native", big, [[1024, 1024]] * 16),
@@ -510,33 +567,41 @@ def phase_photometric(torch, ph, native_shape, native_extents):
         if extents:
             extents = [[min(h, shape[2]), min(w, shape[3])]
                        for h, w in extents]
+        b, _, hp, wp = shape
         x = torch.rand(shape, generator=gen, device="cuda")
-        rows = photometric_rows(torch, shape[0], 3, extents)
-        scratch, native_fn, flip_fn = ph._kernels()
+        rows = photometric_rows(torch, b, 3, extents)
+        plan = ph.plan_launch(b, hp, wp)
         c_fn = native_fn if native else flip_fn
         out = torch.empty_like(x)
-        partials = torch.empty(scratch(*shape[:1], *shape[2:]),
-                               device="cuda")
         yard = torch.empty_like(x)
+
+        def kernel_on(stream):
+            return c_fn(x.data_ptr(), rows.data_ptr(), b, hp, wp,
+                        *plan.c_args(), out.data_ptr(), stream)
+
+        # Back to back on the current stream, read once; in the graph, on
+        # the capturing stream.
         stream = torch.cuda.current_stream().cuda_stream
-
-        def kernel_only():
-            return c_fn(x.data_ptr(), rows.data_ptr(), shape[0], shape[2],
-                        shape[3], partials.data_ptr(), out.data_ptr(), stream)
-
+        kernel_only = functools.partial(kernel_on, stream)
         if kernel_only() != 0:
             raise AssertionError(f"photometric {kind} launch failed")
         wrapper, plain = ((ph.photometric_native_chw,
                            ph.photometric_native_reference) if native else
                           (ph.photometric_flip_chw,
                            ph.photometric_flip_reference))
-        t = photometric_bound(extents or [shape[2:]] * shape[0], native)
+        t = photometric_bound(extents or [shape[2:]] * b, native)
         t.update({
             "ms": time_ms(torch, kernel_only),
+            "graph_ms": graph_ms(torch, lambda: kernel_on(
+                torch.cuda.current_stream().cuda_stream)),
             "wrapper_ms": time_ms(torch, lambda: wrapper(x, rows)),
             "plain_ms": time_ms(torch, lambda: plain(x, rows), iters=20,
                                 warmup=3),
             "library_ms": time_ms(torch, lambda: torch.mul(x, 1.5, out=yard)),
+            "library_graph_ms": graph_ms(
+                torch, lambda: torch.mul(x, 1.5, out=yard)),
+            "plan": dataclasses.asdict(plan),
+            "active_clusters": ph.active_clusters(native, b, hp, wp, plan),
         })
         timings[(kind, shape)] = t
         print(f"photometric {kind} timing {shape}: {json.dumps(t)}")
@@ -832,11 +897,12 @@ def phase_aug_training(torch, root):
               f"photometric (calls, launches) {counts}, fused-loss "
               f"launches {loss}, train loss {history['train_loss']}, val "
               f"loss {history['val_loss']}")
-        # 11 train pairs at batch 4: 3 steps an epoch, 2 images a step.
+        # 11 train pairs at batch 4: 3 steps an epoch, 2 images a step, one
+        # launch a call.
         steps = 3 * epochs
-        want = {"native": (2 * steps, 4 * steps), "flip": (0, 0)}
+        want = {"native": (2 * steps, 2 * steps), "flip": (0, 0)}
         if name == "fixed_size":
-            want = {"native": (0, 0), "flip": (2 * steps, 4 * steps)}
+            want = {"native": (0, 0), "flip": (2 * steps, 2 * steps)}
         if counts != want or loss != (4 * epochs, steps):
             raise AssertionError(f"{name}: photometric {counts}, expected "
                                  f"{want}; fused loss {loss}")
@@ -1117,13 +1183,16 @@ def main():
             "max_abs_err": photo_errs[kind],
             "ms": t["ms"],
             "kernel_ms": t["ms"],
+            "graph_ms": t["graph_ms"],
             "wrapper_ms": t["wrapper_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "library_graph_ms": t["library_graph_ms"],
             "library_call": "torch.mul (a yardstick of the same bytes)",
             "shape": list(shape),
+            "plan": t["plan"],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

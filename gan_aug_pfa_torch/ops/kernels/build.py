@@ -5,7 +5,11 @@ builds into its own shared library under ``gan_aug_pfa_torch/_build/``, at
 first use, from the sources in the checkout alone:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so \\
+         csrc/<name>.cu
+
+``-Xptxas -v`` makes the compiler's output name each kernel's registers,
+shared memory and spills; ``build`` returns that output.
 
 The library name carries a hash of the source and the flags, so an edited
 source builds anew.  ``build`` starts one ``nvcc`` for each source at once.  Nothing here
@@ -27,7 +31,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -23,11 +23,18 @@ store index.  ``photometric_native_batch`` and ``photometric_flip_batch``
 are the NHWC forms.
 
 The wrappers dispatch on the images' device: CUDA tensors always go to the
-kernels (``csrc/photometric.cu``, two launches a call; a failed build or
-launch raises), CPU tensors to the plain versions, which also take float64
-images.  ``photometric_native_chw.calls`` / ``.launches`` and
+kernels (``csrc/photometric.cu``, one launch a call; a failed build, a plan
+the card cannot schedule or a refused launch raises), CPU tensors to the
+plain versions, which also take float64 images.
+``photometric_native_chw.calls`` / ``.launches`` and
 ``photometric_flip_chw.calls`` / ``.launches`` count the kernels' calls
 and launches.
+
+Each launch runs one thread-block cluster per image, each block of the
+cluster on a band of the image's rows, the band held in shared memory
+(resident) or passed through a ring of rows there (streamed);
+``plan_launch`` makes the plan from (B, Hp, Wp) alone, so it holds for
+every native extent h <= Hp.
 
 Bound by bytes: 24 bytes a pixel (three float32 channels read and written
 once) plus 32 an image, 0.47 us for 4x3x128x128 at 3.35 TB/s.
@@ -36,14 +43,33 @@ once) plus 32 an image, 0.47 us for 4x3x128x128 at 3.35 TB/s.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import List, Tuple
 
 import torch
 
 from . import build
 
 NAME = "photometric"
-_LAUNCHES_PER_CALL = 2
+_LAUNCHES_PER_CALL = 1
+THREADS = 512  # a block at most (kMaxThreads in csrc/photometric.cu)
+MAX_CLUSTER = 16  # blocks a cluster; above 8 a non-portable size on sm_90
+# Resident mode splits an image over up to MAX_SPLIT clusters (kMaxSplit)
+# while the card holds them all at once: a resident block of 512 threads
+# takes over 100 registers a thread, so one block an SM, and an H100 then
+# holds 7 clusters of 16 blocks (cudaOccupancyMaxActiveClusters).
+MAX_SPLIT = 4
+CLUSTERS_AT_ONCE = 7
+# Shared memory a block may take on sm_90 (sharedMemPerBlockOptin), and the
+# share of it the plan gives the rows: 1 KB stays for the kernel's static
+# shared memory (its barriers and sums, under 200 bytes).
+MAX_SHARED_BYTES = 232_448
+BAND_LIMIT = MAX_SHARED_BYTES - 1024
+# Streamed mode's ring: MIN_SLOTS..MAX_SLOTS rows (kMinSlots, kMaxSlots in
+# the source) in about RING_BYTES, so that several blocks share an SM.
+MIN_SLOTS, MAX_SLOTS = 4, 8
+RING_BYTES = 48 * 1024
 # torchvision ColorJitter's six orders: 0 brightness, 1 contrast,
 # 2 saturation.
 _JITTER_ORDERS = ((0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1),
@@ -162,42 +188,131 @@ def photometric_flip_reference(imgs: torch.Tensor,
     return torch.where(flip_v, x.flip(2), x)
 
 
+# -- the launch plan -------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """One launch: ``grid`` = B * ``split`` * ``cluster`` blocks of
+    ``threads`` threads, ``split`` clusters an image, block r of each on
+    rows ``bands(h)[r]``, whose gray it sums.  ``smem_bytes`` of shared
+    memory hold ``slots`` rows of all three channels (16-byte rows).
+
+    resident  the rows a block jitters, blurs and stores (part j of its
+              band in the image's cluster j) and 2 halo rows fit: it reads
+              them once, and the rest of its band from device memory for
+              the sum, where another cluster of the image holds them;
+    streamed  the band does not fit (``split`` 1): it passes twice (for the
+              mean, then for the rest) through a ring of ``slots`` rows.
+    """
+
+    mode: str
+    threads: int
+    cluster: int
+    split: int
+    band_rows: int
+    slots: int
+    smem_bytes: int
+    grid: int
+
+    def bands(self, h: int) -> List[Tuple[int, int]]:
+        """Row ranges [y0, y1) of the cluster's blocks for an extent of h
+        rows, as the kernel splits it (empty ranges at the end)."""
+        per = -(-h // self.cluster)
+        return [(min(h, r * per), min(h, r * per + per))
+                for r in range(self.cluster)]
+
+    def parts(self, y0: int, y1: int) -> List[Tuple[int, int]]:
+        """The rows of band [y0, y1) that each of an image's clusters
+        jitters, blurs and stores, as the kernel splits them."""
+        n = y1 - y0
+        return [(y0 + n * j // self.split, y0 + n * (j + 1) // self.split)
+                for j in range(self.split)]
+
+    def c_args(self) -> Tuple[int, int, int, int, int, int]:
+        """(threads, cluster, split, band_rows, resident, smem_bytes), the C
+        entry points' plan arguments."""
+        return (self.threads, self.cluster, self.split, self.band_rows,
+                int(self.mode == "resident"), self.smem_bytes)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_launch(b: int, hp: int, wp: int) -> LaunchPlan:
+    """The plan for (b, 3, hp, wp) images: clusters of min(16, hp) blocks,
+    each block on a band of ceil(hp / cluster) rows.  Resident where the
+    band and its halo rows fit a block's shared memory, with the most
+    clusters an image (up to MAX_SPLIT, at most one a band row) of which
+    the card holds all b * split at once.  Else streamed, one cluster an
+    image, a thread a float4 group of a row (64 to 512).  Rows too wide for
+    a ring of MIN_SLOTS have no plan."""
+    if min(b, hp, wp) < 1:
+        raise ValueError(f"no plan for {b} images of {hp}x{wp}")
+    cluster = min(MAX_CLUSTER, hp)
+    band = -(-hp // cluster)
+    groups = -(-wp // 4)
+    row = 3 * 4 * 4 * groups  # bytes of a shared row, 16-byte aligned
+    if (band + 2) * row <= BAND_LIMIT:
+        split = max(1, min(MAX_SPLIT, band, CLUSTERS_AT_ONCE // b))
+        slots = -(-band // split) + 2
+        return LaunchPlan("resident", THREADS, cluster, split, band, slots,
+                          slots * row, b * split * cluster)
+    slots = max(MIN_SLOTS, min(MAX_SLOTS, RING_BYTES // row))
+    if slots * row > BAND_LIMIT:
+        raise ValueError(f"no plan for rows of {wp} px: {MIN_SLOTS} rows "
+                         f"take more than {BAND_LIMIT} bytes")
+    threads = min(THREADS, max(64, 32 * -(-groups // 32)))
+    return LaunchPlan("streamed", threads, cluster, 1, band, slots,
+                      slots * row, b * cluster)
+
+
 # -- the kernels ----------------------------------------------------------
+
+_PLAN_ARGTYPES = [ctypes.c_int] * 6
 
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    """The C entry points (scratch size, native, flip), built and bound on
-    first use."""
+    """The C entry points (native, flip, active clusters), built and bound
+    on first use."""
     lib = build.load(NAME)
-    scratch = lib.photometric_scratch_floats
-    scratch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    scratch.restype = ctypes.c_int
     fns = []
     for fn in (lib.photometric_native_f32, lib.photometric_flip_f32):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, *_PLAN_ARGTYPES,
                        ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns.append(fn)
-    return scratch, fns[0], fns[1]
+    active = lib.photometric_active_clusters
+    active.argtypes = [ctypes.c_int] * 4 + _PLAN_ARGTYPES
+    active.restype = ctypes.c_int
+    return fns[0], fns[1], active
+
+
+def active_clusters(native: bool, b: int, hp: int, wp: int,
+                    plan: LaunchPlan) -> int:
+    """How many of the plan's clusters the current card holds at once
+    (cudaOccupancyMaxActiveClusters); raises on a CUDA error."""
+    n = _kernels()[2](int(native), b, hp, wp, *plan.c_args())
+    if n < 0:
+        raise RuntimeError(f"{NAME} plan {plan}: CUDA error {-n}")
+    return n
 
 
 def launch(imgs: torch.Tensor, params: torch.Tensor,
            native: bool) -> torch.Tensor:
-    """Both launches of one call on checked float32 CUDA tensors."""
-    scratch, native_fn, flip_fn = _kernels()
+    """The one launch of a call on checked float32 CUDA tensors."""
+    native_fn, flip_fn, _ = _kernels()
     b, _, h, w = imgs.shape
+    plan = plan_launch(b, h, w)
     out = torch.empty_like(imgs)
-    partials = torch.empty(scratch(b, h, w), dtype=torch.float32,
-                           device=imgs.device)
     with torch.cuda.device(imgs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = (native_fn if native else flip_fn)(
-            imgs.data_ptr(), params.data_ptr(), b, h, w, partials.data_ptr(),
+            imgs.data_ptr(), params.data_ptr(), b, h, w, *plan.c_args(),
             out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{NAME} kernel launch failed ({plan}): CUDA "
+                           f"error {err}")
     return out
 
 

@@ -6,6 +6,8 @@ with a card and PyTorch alone:
 
 Without a card every test skips (the kernels have no CPU mode)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -145,11 +147,29 @@ def test_fused_loss_backward_under_bf16_autocast(cuda):
 
 
 # The photometric kernels: every jitter order, both sigma edges, factors
-# that engage the clips; native extents ragged against the 32x32 tiles.
+# that engage the clips.  Native extents ragged against the bands, of 1 and
+# 2 rows or columns, and at the training path's padded shape (extents of
+# 200-399 px); 1024x1024 and 700x1023 images take the streamed plan (the
+# latter with rows that are not 16-byte aligned, as 37x53 in the resident
+# plan), the rest the resident one, batches of 1 to 3 split over 2 to 4
+# clusters an image.
 NATIVE_CASES = [
     (4, 32, 32, [[32, 32], [25, 29], [16, 31], [31, 16]]),
     (4, 400, 400, [[201, 397], [400, 400], [256, 130], [399, 200]]),
+    (4, 392, 400, [[392, 400], [200, 399], [317, 262], [255, 203]]),
+    (3, 392, 400, [[392, 400], [1, 2], [255, 203]]),
+    (2, 392, 400, [[392, 400], [17, 399]]),
+    (1, 392, 400, [[392, 400]]),
+    (4, 8, 8, [[1, 1], [2, 2], [1, 8], [8, 2]]),
+    (2, 2, 2, [[1, 2], [2, 1]]),
+    (1, 1, 1, [[1, 1]]),
+    (2, 1024, 1024, [[1024, 1024], [777, 1001]]),
+    (4, 1024, 1024, [[1, 1], [2, 1024], [40, 1000], [100, 3]]),
+    (2, 700, 1023, [[700, 1023], [699, 517]]),
 ]
+FLIP_SHAPES = [(4, 3, 128, 128), (3, 3, 128, 128), (1, 3, 128, 128),
+               (3, 3, 37, 53), (2, 3, 2, 2), (1, 3, 1, 5), (2, 3, 1024, 1024),
+               (2, 3, 700, 1023), (4, 3, 70, 1024)]
 
 
 def _photometric_rows(b, order, sizes=None, seed=0):
@@ -174,7 +194,8 @@ def _photometric_rows(b, order, sizes=None, seed=0):
 @pytest.mark.parametrize("case", range(len(NATIVE_CASES)))
 @pytest.mark.parametrize("order", range(6))
 def test_photometric_native_kernel_matches_plain_version(cuda, case, order):
-    """Within 2e-6 inside each native extent; one call, two launches."""
+    """Within 2e-6 inside each native extent and the same bits on a rerun;
+    one call, one launch."""
     from gan_aug_pfa_torch.ops.kernels import photometric as ph
 
     b, hp, wp, sizes = NATIVE_CASES[case]
@@ -186,7 +207,7 @@ def test_photometric_native_kernel_matches_plain_version(cuda, case, order):
     got = ph.photometric_native_chw(x, rows)
     torch.cuda.synchronize()
     assert (ph.photometric_native_chw.calls,
-            ph.photometric_native_chw.launches) == (calls + 1, launches + 2)
+            ph.photometric_native_chw.launches) == (calls + 1, launches + 1)
     want = ph.photometric_native_reference(x, rows)
     again = ph.photometric_native_chw(x, rows)
     for i, (h, w) in enumerate(sizes):
@@ -196,10 +217,11 @@ def test_photometric_native_kernel_matches_plain_version(cuda, case, order):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 3, 128, 128), (3, 3, 37, 53)])
+@pytest.mark.parametrize("shape", FLIP_SHAPES)
 @pytest.mark.parametrize("order", range(6))
 def test_photometric_flip_kernel_matches_plain_version(cuda, shape, order):
-    """Within 2e-6 everywhere, flips included; one call, two launches."""
+    """Within 2e-6 everywhere, flips included, and the same bits on a
+    rerun; one call, one launch."""
     from gan_aug_pfa_torch.ops.kernels import photometric as ph
 
     x = torch.from_numpy(np.random.RandomState(order).rand(
@@ -210,9 +232,51 @@ def test_photometric_flip_kernel_matches_plain_version(cuda, shape, order):
     got = ph.photometric_flip_chw(x, rows)
     torch.cuda.synchronize()
     assert (ph.photometric_flip_chw.calls,
-            ph.photometric_flip_chw.launches) == (calls + 1, launches + 2)
+            ph.photometric_flip_chw.launches) == (calls + 1, launches + 1)
     want = ph.photometric_flip_reference(x, rows)
     assert float((got - want).abs().max()) <= 2e-6
+    assert torch.equal(got, ph.photometric_flip_chw(x, rows))
+
+
+@pytest.mark.cuda
+def test_photometric_plans_schedule_on_the_card(cuda):
+    """The main paths' plans and the streamed one fit the card: each holds
+    at least one cluster at once (a cluster of 16 is non-portable)."""
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
+
+    for native, (b, hp, wp) in ((True, (4, 392, 400)),
+                                (False, (4, 128, 128)),
+                                (True, (16, 1024, 1024))):
+        plan = ph.plan_launch(b, hp, wp)
+        assert ph.active_clusters(native, b, hp, wp, plan) >= 1, plan
+
+
+@pytest.mark.cuda
+def test_photometric_kernel_refuses_a_plan_that_does_not_fit(cuda):
+    """The C entry point checks the plan: too little shared memory for the
+    band or the ring, too few rows to cover the image, too many threads, or
+    a split the mode does not take is an error, not a fallback."""
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
+
+    native_fn, _, _ = ph._kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    for hp, wp in ((64, 64), (1024, 1024)):
+        x = torch.rand(2, 3, hp, wp, device="cuda")
+        rows = _photometric_rows(2, 0, [[hp, wp], [hp - 4, wp // 2]])
+        out = torch.empty_like(x)
+        plan = ph.plan_launch(2, hp, wp)
+        row_bytes = 3 * 4 * wp
+        short = plan.smem_bytes - (16 if plan.mode == "resident"
+                                   else row_bytes)
+        split = 5 if plan.mode == "resident" else 2
+        for bad in (dataclasses.replace(plan, smem_bytes=short),
+                    dataclasses.replace(plan, band_rows=plan.band_rows - 1),
+                    dataclasses.replace(plan, threads=1024),
+                    dataclasses.replace(plan, split=split)):
+            assert native_fn(x.data_ptr(), rows.data_ptr(), 2, hp, wp,
+                             *bad.c_args(), out.data_ptr(), stream) != 0
+        assert native_fn(x.data_ptr(), rows.data_ptr(), 2, hp, wp,
+                         *plan.c_args(), out.data_ptr(), stream) == 0
 
 
 @pytest.mark.cuda
