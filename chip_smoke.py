@@ -10,9 +10,11 @@ Phases, each of which fails the run if it fails:
    ``csrc/`` with nvcc, one process per source, all at once;
 3. hold each kernel against its plain PyTorch version on the card (exact
    integer equality for the confusion counts; the fused FocalDice loss
-   within the JAX package's fused-loss tolerances, forward and backward)
-   and time kernel, wrapper, plain version and one PyTorch call with CUDA
-   events;
+   within the JAX package's fused-loss tolerances, forward and backward,
+   float32 and bf16 logits, aligned and misaligned views, equal bits on a
+   rerun and in a CUDA graph's replay, no cast kernel around a bf16 loss)
+   and time kernel (back to back and inside a CUDA graph), wrapper, plain
+   version and one PyTorch call with CUDA events;
 4. run the full-width SiameseUNet forward (fp32, TF32 off) on the card and
    on the CPU and compare the probabilities;
 5. drive the evaluation path, ``python -m gan_aug_pfa_torch.evaluate`` at
@@ -23,8 +25,9 @@ Phases, each of which fails the run if it fails:
    throughput at batch 2 and 16;
 6. drive the training path, ``python -m gan_aug_pfa_torch.train`` at its
    defaults (128x128, batch 4, bf16) for 4 epochs over a generated tree,
-   with the fused-loss launch counts set to 0 just before and read just
-   after; check the losses and checkpoints, resume for one epoch, evaluate
+   with the fused-loss (calls, launches) set to 0 just before and read just
+   after (one launch a call); check the losses and checkpoints, resume for
+   one epoch, evaluate
    the trained ``best_model.pth``; compare 3 fp32 train steps on the card
    with the CPU's; time training throughput at batch 4 and 16 and profile
    one epoch;
@@ -85,10 +88,13 @@ TRAIN_SHAPE = (4, 1, 128, 128)  # the train step's logits at the defaults
 LOSS_CASES = [((1, 1, 7, 9), False), (TRAIN_SHAPE, False),
               ((3, 1, 37, 53), True), ((4, 1, 512, 512), False),
               ((16, 1, 1024, 1024), False)]
-# Special-function operations an element: sigmoid (exp, reciprocal),
-# softplus (exp, log), pt (exp) and u^gamma (log, exp); the backward adds
-# u^(gamma-1) (log, exp) and two divisions (reciprocals).
-FWD_SFU_OPS, BWD_SFU_OPS = 7, 11
+BIG_LOSS_SHAPE = (16, 1, 1024, 1024)
+LOSS_DTYPES = ("float32", "bfloat16")  # the logits'; targets are float32
+# Special-function results an element the function needs: exp(-|x|), one
+# reciprocal (sigmoid, and 1 - sigmoid), log2(1 + exp(-|x|)) (softplus),
+# exp(-bce) (pt), log2(u) and exp2 for u^gamma; the backward one exp2 more
+# for u^(gamma-1) from the same log2(u).
+FWD_SFU_OPS, BWD_SFU_OPS = 6, 7
 # Card vs CPU, 3 fp32 train steps from one init: the first step's loss
 # differs only by the forward's rounding; later ones also by Adam's
 # updates of parameters whose gradient is rounding noise (up to lr each).
@@ -265,6 +271,9 @@ def phase_kernel(torch, cc):
         ops_ms = 6 * b * hw / FP32_OPS_PER_S * 1e3
         timings[shape] = {
             "ms": time_ms(torch, kernel_only),
+            "graph_ms": graph_ms(torch, lambda: fn(
+                p.data_ptr(), t.data_ptr(), 0.5, b, hw, counts.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)),
             "wrapper_ms": time_ms(
                 torch, lambda: cc.confusion_counts_batch(p, t, 0.5)),
             "plain_ms": time_ms(
@@ -280,15 +289,17 @@ def phase_kernel(torch, cc):
     return max_err, timings
 
 
-def loss_inputs(torch, shape, gen, misaligned=False):
-    """Logits (B, 1, H, W) with saturated entries of +-1e4 and binary
-    targets (B, H, W), as the train step passes them; ``misaligned``
-    gives views 4 bytes past a 16-byte boundary."""
+def loss_inputs(torch, shape, gen, misaligned=False, dtype="float32"):
+    """Logits (B, 1, H, W) of ``dtype`` with saturated entries of +-1e4 and
+    float32 binary targets (B, H, W), as the train step passes them;
+    ``misaligned`` gives views one element past a 16-byte boundary (4 bytes
+    for float32 logits and the targets, 2 for bfloat16 logits)."""
     n = int(np.prod(shape))
     extra = 1 if misaligned else 0
     x = torch.randn(n + extra, generator=gen, device="cuda") * 4
     x[::101] = 1e4
     x[50::101] = -1e4
+    x = x.to(getattr(torch, dtype))
     t = (torch.rand(n + extra, generator=gen, device="cuda") > 0.7).float()
     if misaligned:
         x, t = x[1:], t[1:]
@@ -296,52 +307,96 @@ def loss_inputs(torch, shape, gen, misaligned=False):
     return x.view(shape), t.view(b, h, w)
 
 
+def loss_errors(torch, fl, xf, tf, gamma, loss, dx, g):
+    """Kernel results against the plain version on the same values, at the
+    tolerances of tests/test_pallas.py: the loss within 1e-6 relative, dx
+    within 1e-5 of max|dx| (1e-3 from 2^20 elements on, where dx is
+    O(1e-7) and the sums' rounding shows), plus one bf16 rounding step of
+    each value where dx is bf16 (both sides round their float32 dx to
+    nearest even).  Returns |dloss|, max|ddx|, the part of |ddx| above the
+    rounding step, the dx tolerance, the plain loss and whether all
+    hold."""
+    beta, alpha, smooth = (LOSS_KW["beta"], LOSS_KW["focal_alpha"],
+                           LOSS_KW["dice_smooth"])
+    n = xf.numel()
+    ref_sums = fl.focal_dice_sums_reference(xf, tf, gamma, alpha)
+    ref_loss = float(fl._finalize(ref_sums, n, beta, smooth))
+    want = fl.focal_dice_grad_reference(xf, tf, ref_sums, g, beta, gamma,
+                                        alpha, smooth).float()
+    diff = (dx.float() - want).abs()
+    step = 2 ** -7 * want.abs() if xf.dtype == torch.bfloat16 else 0.0
+    excess = float((diff - step).max())
+    tol = (1e-3 if n >= 1 << 20 else 1e-5) * float(want.abs().max())
+    dloss = abs(float(loss) - ref_loss)
+    ok = (np.isfinite(float(loss)) and bool(dx.isfinite().all())
+          and dx.dtype == xf.dtype and dloss < 1e-6 * max(1.0, abs(ref_loss))
+          and excess <= tol)
+    return dloss, float(diff.max()), excess, tol, ref_loss, ok
+
+
 def phase_loss_kernel(torch, fl):
     """Fused FocalDice kernels vs the plain version on the card, forward
-    and backward, at the tolerances of tests/test_pallas.py: the loss
-    within 1e-6 relative, dx within 1e-5 of max|dx| (1e-3 from 2^20
-    elements on, where dx is O(1e-7) and the sums' rounding shows).  Each
-    forward is also run twice and must give the same bits."""
+    and backward (``loss_errors``), at every LOSS_CASES shape, both gammas,
+    float32 and bfloat16 logits, aligned and misaligned views; each
+    forward and backward run twice must give the same bits, and so must a
+    CUDA graph's replays.  Then the wrapper under autograd, the launches of
+    a bf16 loss under autocast (the two kernels and no cast), and the
+    timings."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     beta, alpha, smooth = (LOSS_KW["beta"], LOSS_KW["focal_alpha"],
                            LOSS_KW["dice_smooth"])
-    errs = {"fwd": 0.0, "bwd": 0.0}
+    g = torch.tensor(0.73, device="cuda")
+    errs = {(k, d): 0.0 for k in ("fwd", "bwd") for d in LOSS_DTYPES}
     for shape, misaligned in LOSS_CASES:
-        for gamma in GAMMAS:
-            x, t = loss_inputs(torch, shape, gen, misaligned)
-            xf, tf = x.reshape(-1), t.reshape(-1)
-            if misaligned and xf.data_ptr() % 16 == 0:
-                raise AssertionError("misaligned case is 16-byte aligned")
-            n = xf.numel()
-            hyper = (beta, gamma, alpha, smooth)
-            g = torch.tensor(0.73, device="cuda")
-            loss, sums = fl.launch_forward(xf, tf, *hyper)
-            dx = fl.launch_backward(xf, tf, sums, g, *hyper)
-            loss2, sums2 = fl.launch_forward(xf, tf, *hyper)
+        for dtype in LOSS_DTYPES:
+            for gamma in GAMMAS:
+                x, t = loss_inputs(torch, shape, gen, misaligned, dtype)
+                xf, tf = x.reshape(-1), t.reshape(-1)
+                if misaligned and xf.data_ptr() % 16 == 0:
+                    raise AssertionError("misaligned case is 16-byte aligned")
+                hyper = (beta, gamma, alpha, smooth)
+                loss, sums = fl.launch_forward(xf, tf, *hyper)
+                dx = fl.launch_backward(xf, tf, sums, g, *hyper)
+                loss2, sums2 = fl.launch_forward(xf, tf, *hyper)
+                dx2 = fl.launch_backward(xf, tf, sums2, g, *hyper)
+                torch.cuda.synchronize()
+                dloss, ddx, excess, tol, ref_loss, ok = loss_errors(
+                    torch, fl, xf, tf, gamma, loss, dx, g)
+                errs["fwd", dtype] = max(errs["fwd", dtype], dloss)
+                errs["bwd", dtype] = max(errs["bwd", dtype], ddx)
+                ok = (ok and torch.equal(loss, loss2)
+                      and torch.equal(sums, sums2) and torch.equal(dx, dx2))
+                print(f"loss kernel {shape} {dtype} gamma={gamma:.4f} "
+                      f"misaligned={misaligned} plan {fl.plan_for(xf, tf)}: "
+                      f"loss {float(loss):.7f} vs {ref_loss:.7f} (|d| "
+                      f"{dloss:.2e}), max|ddx| {ddx:.2e}, beyond a bf16 "
+                      f"step {excess:.2e} (tol {tol:.2e}) "
+                      f"{'OK' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(
+                        f"fused loss kernels != plain version at {shape}, "
+                        f"{dtype}, gamma={gamma}")
+
+    # Forward and backward captured in one CUDA graph: each replay gives
+    # the eager bits.
+    for dtype in LOSS_DTYPES:
+        x, t = loss_inputs(torch, TRAIN_SHAPE, gen, dtype=dtype)
+        xf, tf = x.reshape(-1), t.reshape(-1)
+        hyper = (beta, GAMMAS[0], alpha, smooth)
+        loss, sums = fl.launch_forward(xf, tf, *hyper)
+        dx = fl.launch_backward(xf, tf, sums, g, *hyper)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gl, gs = fl.launch_forward(xf, tf, *hyper)
+            gdx = fl.launch_backward(xf, tf, gs, g, *hyper)
+        for _ in range(2):
+            graph.replay()
             torch.cuda.synchronize()
-            ref_sums = fl.focal_dice_sums_reference(xf, tf, gamma, alpha)
-            ref_loss = float(fl._finalize(ref_sums, n, beta, smooth))
-            ref_dx = fl.focal_dice_grad_reference(xf, tf, ref_sums, g,
-                                                  *hyper)
-            dloss = abs(float(loss) - ref_loss)
-            ddx = float((dx - ref_dx).abs().max())
-            scale = float(ref_dx.abs().max())
-            dx_tol = (1e-3 if n >= 1 << 20 else 1e-5) * scale
-            errs["fwd"] = max(errs["fwd"], dloss)
-            errs["bwd"] = max(errs["bwd"], ddx)
-            ok = (np.isfinite(float(loss)) and bool(dx.isfinite().all())
-                  and dloss < 1e-6 * max(1.0, abs(ref_loss))
-                  and ddx <= dx_tol and torch.equal(loss, loss2)
-                  and torch.equal(sums, sums2))
-            print(f"loss kernel {shape} gamma={gamma:.4f} misaligned="
-                  f"{misaligned}: loss {float(loss):.7f} vs {ref_loss:.7f} "
-                  f"(|d| {dloss:.2e}), max|ddx| {ddx:.2e} (tol "
-                  f"{dx_tol:.2e}) {'OK' if ok else 'MISMATCH'}")
-            if not ok:
-                raise AssertionError(
-                    f"fused loss kernels != plain version at {shape}, "
-                    f"gamma={gamma}")
+            if not (torch.equal(gl, loss) and torch.equal(gs, sums)
+                    and torch.equal(gdx, dx)):
+                raise AssertionError(f"graph replay != eager ({dtype})")
+        print(f"loss kernels in a CUDA graph ({dtype}): replays equal eager")
 
     # The wrapper under autograd, at the train shape: dx through
     # FocalDiceLossFn equals the plain Function's.
@@ -356,71 +411,131 @@ def phase_loss_kernel(torch, fl):
     if not d <= 1e-5 * float(xp.grad.abs().max()):
         raise AssertionError(f"wrapper gradient differs from plain: {d}")
     print(f"loss wrapper under autograd vs plain: max|ddx| = {d:.2e}")
+    check_no_cast(torch, fl, gen)
 
-    timings = {shape: loss_timings(torch, fl, shape, gen)
-               for shape in (TRAIN_SHAPE, (16, 1, 1024, 1024))}
+    timings = {(shape, dtype): loss_timings(torch, fl, shape, dtype, gen)
+               for shape in (TRAIN_SHAPE, BIG_LOSS_SHAPE)
+               for dtype in LOSS_DTYPES}
     return errs, timings
 
 
-def loss_timings(torch, fl, shape, gen):
-    """Kernel alone (the bare C calls), wrapper, plain version and one
-    PyTorch call reading the same bytes (a yardstick: no single PyTorch
-    call computes this function), forward and backward."""
+def check_no_cast(torch, fl, gen):
+    """bf16 logits under bf16 autocast, as the train step passes them: the
+    loss forward and backward are the two kernels, one launch each, and no
+    other kernel (no cast of the logits before, none of dx after)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, t = loss_inputs(torch, TRAIN_SHAPE, gen, dtype="bfloat16")
+    xb = x.detach().requires_grad_()
+    g = torch.ones((), device="cuda")
+    fl.focal_dice_loss_fused(xb, t, **LOSS_KW).backward(g)
+    xb.grad = None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss = fl.focal_dice_loss_fused(xb, t, **LOSS_KW)
+        loss.backward(g)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    print(f"bf16 loss forward + backward under autocast: {kernels}")
+    if len(kernels) != 2 or not all("focal_dice" in k and c == 1
+                                    for k, c in kernels.items()):
+        raise AssertionError(f"bf16 loss launched {kernels}")
+    if xb.grad.dtype != torch.bfloat16:
+        raise AssertionError(f"dx came back as {xb.grad.dtype}")
+
+
+def loss_bound(n, x_bytes, backward):
+    """Least time (ms) of one kernel call over n elements: logits of
+    ``x_bytes`` and float32 targets read once, bf16 or float32 dx written
+    once (backward), the 5 floats out (forward) or the sums and gradient
+    in; against FWD_SFU_OPS / BWD_SFU_OPS special-function results an
+    element at SFU_OPS_PER_S."""
+    nbytes = n * (x_bytes + 4 + (x_bytes if backward else 0)) + 20
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    sfu = BWD_SFU_OPS if backward else FWD_SFU_OPS
+    ops_ms = sfu * n / SFU_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "sfu_ms": ops_ms}
+
+
+def loss_calls(torch, fl, xf, tf, kernels=None, plan=None):
+    """The bare C forward and backward of csrc/focal_dice_loss.cu
+    (``kernels`` = (fwd, bwd), this tree's by default) on flat CUDA inputs
+    and fixed buffers, with ``plan`` (the wrapper's by default) and the
+    tuned gamma: (fwd(stream), bwd(stream), the 5-float output, dx, the
+    upstream gradient)."""
+    hyper = (LOSS_KW["beta"], GAMMAS[0], LOSS_KW["focal_alpha"],
+             LOSS_KW["dice_smooth"])
+    fwd, bwd = kernels or fl._kernels()
+    n = xf.numel()
+    plan = (plan or fl.plan_for(xf, tf)).c_args()
+    args = (xf.data_ptr(), int(xf.dtype == torch.bfloat16), tf.data_ptr())
+    out = torch.empty(5, device="cuda")
+    ws = torch.zeros(fl.WORKSPACE_FLOATS, device="cuda")
+    dx = torch.empty_like(xf)
+    g = torch.full((), 0.73, device="cuda")
+
+    def fwd_on(stream):
+        return fwd(*args, n, *plan, *hyper, out.data_ptr(), ws.data_ptr(),
+                   stream)
+
+    def bwd_on(stream):
+        return bwd(*args, out.data_ptr() + 4, g.data_ptr(), n, *plan,
+                   *hyper, dx.data_ptr(), stream)
+
+    return fwd_on, bwd_on, out, dx, g
+
+
+def loss_timings(torch, fl, shape, dtype, gen):
+    """Kernel alone (the bare C calls, back to back and in a CUDA graph),
+    wrapper, plain version and one PyTorch call reading about the same
+    bytes (a yardstick: no single PyTorch call computes this function),
+    forward and backward."""
     import torch.nn.functional as F
 
-    x, t = loss_inputs(torch, shape, gen)
+    x, t = loss_inputs(torch, shape, gen, dtype=dtype)
     xf, tf = x.reshape(-1), t.reshape(-1)
     n = xf.numel()
     hyper = (LOSS_KW["beta"], GAMMAS[0], LOSS_KW["focal_alpha"],
              LOSS_KW["dice_smooth"])
-    scratch, fwd, bwd = fl._kernels()
-    loss = torch.empty((), device="cuda")
-    buf = torch.empty(4 + scratch(n), device="cuda")
-    dx = torch.empty_like(xf)
-    g = torch.ones((), device="cuda")
-    lib_out = torch.empty_like(xf)
+    fwd_on, bwd_on, out, _, g = loss_calls(torch, fl, xf, tf)
+    t_same = tf.to(xf.dtype)
+    lib_out = torch.empty(n, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    ptrs = (xf.data_ptr(), tf.data_ptr())
-    part = buf[4:].data_ptr()
-
-    def fwd_only():
-        return fwd(*ptrs, n, *hyper, loss.data_ptr(), buf.data_ptr(), part,
-                   stream)
-
-    def bwd_only():
-        return bwd(*ptrs, buf.data_ptr(), g.data_ptr(), n, *hyper,
-                   dx.data_ptr(), stream)
-
-    if fwd_only() != 0 or bwd_only() != 0:
+    if fwd_on(stream) != 0 or bwd_on(stream) != 0:
         raise AssertionError("fused loss kernel launch failed")
-    sums = buf[:4]
+    sums = out[1:]
     kw = dict(focal_gamma=GAMMAS[0], **LOSS_KW)
-    out = {}
-    for name, nbytes, sfu, kernel, wrapper, plain, library in (
-        ("fwd", 8 * n + 20, FWD_SFU_OPS, fwd_only,
+    result = {}
+    for name, c_fn, wrapper, plain, library in (
+        ("fwd", fwd_on,
          lambda: fl.focal_dice_loss_fused(x, t, **kw),
          lambda: fl.FocalDiceLossReferenceFn.apply(xf, tf, *hyper),
-         lambda: F.binary_cross_entropy_with_logits(xf, tf,
+         lambda: F.binary_cross_entropy_with_logits(xf, t_same,
                                                     reduction="sum")),
-        ("bwd", 12 * n + 20, BWD_SFU_OPS, bwd_only,
+        ("bwd", bwd_on,
          lambda: fl.launch_backward(xf, tf, sums, g, *hyper),
          lambda: fl.focal_dice_grad_reference(xf, tf, sums, g, *hyper),
          lambda: torch.mul(xf, tf, out=lib_out)),
     ):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = sfu * n / SFU_OPS_PER_S * 1e3
-        out[name] = {
-            "ms": time_ms(torch, kernel),
+        r = loss_bound(n, xf.element_size(), name == "bwd")
+        r.update({
+            "ms": time_ms(torch, functools.partial(c_fn, stream)),
+            "graph_ms": graph_ms(torch, lambda c_fn=c_fn: c_fn(
+                torch.cuda.current_stream().cuda_stream)),
             "wrapper_ms": time_ms(torch, wrapper),
             "plain_ms": time_ms(torch, plain),
             "library_ms": time_ms(torch, library),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes,
-            "sfu_ms": ops_ms,
-        }
-        print(f"loss kernel timing {name} {shape}: {json.dumps(out[name])}")
-    return out
+            "library_graph_ms": graph_ms(torch, library),
+            "plan": list(fl.plan_for(xf, tf).c_args()),
+        })
+        result[name] = r
+        print(f"loss kernel timing {name} {shape} {dtype}: {json.dumps(r)}")
+    return result
 
 
 def photometric_bound(extents, native):
@@ -750,19 +865,19 @@ def phase_training(torch, root):
     from gan_aug_pfa_torch.train import __main__ as train_cli
 
     write_oscd_tree(root)
-    FocalDiceLossFn.fwd_launches = FocalDiceLossFn.bwd_launches = 0
+    reset_loss_counts(FocalDiceLossFn)
     t0 = time.time()
     history = train_cli.main(["--root-dir", root, "--num-epochs", "4",
                               "--save-every", "2"])
     wall = time.time() - t0
-    launches = {"fwd": FocalDiceLossFn.fwd_launches,
-                "bwd": FocalDiceLossFn.bwd_launches}
-    print(f"training path: train main wall {wall:.2f} s, launches "
-          f"{launches}, train loss {history['train_loss']}, val loss "
-          f"{history['val_loss']}")
-    if launches != {"fwd": 16, "bwd": 12}:
-        raise AssertionError(f"fused-loss launches {launches}; expected "
-                             "16 forward (12 train + 4 val), 12 backward")
+    counts = loss_counts(FocalDiceLossFn)
+    print(f"training path: train main wall {wall:.2f} s, fused-loss "
+          f"(calls, launches) {counts}, train loss {history['train_loss']}, "
+          f"val loss {history['val_loss']}")
+    if counts != {"fwd": (16, 16), "bwd": (12, 12)}:
+        raise AssertionError(f"fused-loss counts {counts}; expected 16 "
+                             "forward calls (12 train + 4 val) and 12 "
+                             "backward, one launch each")
     losses = history["train_loss"] + history["val_loss"]
     if len(losses) != 8 or not all(np.isfinite(v) for v in losses):
         raise AssertionError(f"losses {losses}")
@@ -774,17 +889,17 @@ def phase_training(torch, root):
 
     resumed = train_cli.main(["--root-dir", root, "--num-epochs", "5",
                               "--save-every", "2", "--resume"])
-    if len(resumed["train_loss"]) != 1 or (
-            FocalDiceLossFn.fwd_launches, FocalDiceLossFn.bwd_launches) != (
-            20, 15):
-        raise AssertionError(f"resume ran {resumed['train_loss']}")
+    if len(resumed["train_loss"]) != 1 or loss_counts(FocalDiceLossFn) != {
+            "fwd": (20, 20), "bwd": (15, 15)}:
+        raise AssertionError(f"resume ran {resumed['train_loss']}, fused-"
+                             f"loss counts {loss_counts(FocalDiceLossFn)}")
     print(f"resume: one epoch, train loss {resumed['train_loss']}, val "
           f"loss {resumed['val_loss']}")
 
     report_path = os.path.join(root, "trained_report.json")
     check_report(evaluate.main(["--root-dir", root, "--json-out",
                                 report_path]), report_path)
-    return launches
+    return counts
 
 
 def phase_train_card_vs_cpu(torch, ds):
@@ -857,6 +972,15 @@ def train_throughput(torch, ds):
     return result
 
 
+def reset_loss_counts(fn):
+    fn.fwd_calls = fn.fwd_launches = fn.bwd_calls = fn.bwd_launches = 0
+
+
+def loss_counts(fn):
+    return {"fwd": (fn.fwd_calls, fn.fwd_launches),
+            "bwd": (fn.bwd_calls, fn.bwd_launches)}
+
+
 def reset_photometric_counts(ph):
     for fn in (ph.photometric_native_chw, ph.photometric_flip_chw):
         fn.calls = fn.launches = 0
@@ -885,25 +1009,26 @@ def phase_aug_training(torch, root):
             ("fixed_size", ["--no-native-aug", "--checkpoint-dir",
                             "fixed_checkpoints"], 1)):
         reset_photometric_counts(ph)
-        FocalDiceLossFn.fwd_launches = FocalDiceLossFn.bwd_launches = 0
+        reset_loss_counts(FocalDiceLossFn)
         t0 = time.time()
         history = train_cli.main(["--root-dir", root, "--augment",
                                   "--num-epochs", str(epochs),
                                   "--save-every", "2", *flags])
         wall = time.time() - t0
         counts = photometric_counts(ph)
-        loss = (FocalDiceLossFn.fwd_launches, FocalDiceLossFn.bwd_launches)
+        loss = loss_counts(FocalDiceLossFn)
         print(f"augmented training ({name}): train main wall {wall:.2f} s, "
               f"photometric (calls, launches) {counts}, fused-loss "
-              f"launches {loss}, train loss {history['train_loss']}, val "
-              f"loss {history['val_loss']}")
+              f"(calls, launches) {loss}, train loss "
+              f"{history['train_loss']}, val loss {history['val_loss']}")
         # 11 train pairs at batch 4: 3 steps an epoch, 2 images a step, one
         # launch a call.
         steps = 3 * epochs
         want = {"native": (2 * steps, 2 * steps), "flip": (0, 0)}
         if name == "fixed_size":
             want = {"native": (0, 0), "flip": (2 * steps, 2 * steps)}
-        if counts != want or loss != (4 * epochs, steps):
+        if counts != want or loss != {"fwd": (4 * epochs, 4 * epochs),
+                                      "bwd": (steps, steps)}:
             raise AssertionError(f"{name}: photometric {counts}, expected "
                                  f"{want}; fused loss {loss}")
         losses = history["train_loss"] + history["val_loss"]
@@ -1107,7 +1232,7 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         launches = phase_main_path(torch, root)
     with tempfile.TemporaryDirectory() as root:
-        train_launches = phase_training(torch, root)
+        train_counts = phase_training(torch, root)
         train_ds = build_cached_dataset(
             create_sample_lists(root, "Onera Satellite Change Detection "
                                 "Dataset", mode="train", verbose=False),
@@ -1136,6 +1261,7 @@ def main():
         "max_abs_err": max_err,
         "ms": eval_t["ms"],
         "kernel_ms": eval_t["ms"],
+        "graph_ms": eval_t["graph_ms"],
         "wrapper_ms": eval_t["wrapper_ms"],
         "plain_ms": eval_t["plain_ms"],
         "bound_ms": eval_t["bound_ms"],
@@ -1143,27 +1269,37 @@ def main():
         "library_ms": eval_t["library_ms"],
         "shape": [2, 128, 128],
     }]
+    # The loss kernels' main numbers are the train step's: bf16 logits at
+    # the train shape; float32 and 16x1x1024x1024 beside them.
+    keys = ("ms", "graph_ms", "wrapper_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_graph_ms")
     for name, line, library in (
             ("fwd", 120, "F.binary_cross_entropy_with_logits(sum)"),
-            ("bwd", 131, "torch.mul")):
-        t = loss_t[TRAIN_SHAPE][name]
+            ("bwd", 131, "torch.mul(x, t)")):
+        t = loss_t[(TRAIN_SHAPE, "bfloat16")][name]
+        calls, n_launches = train_counts[name]
         kernels.append({
             "name": f"{fl.NAME}_{name}",
             "route": "cuda",
             "source": "gan_aug_pfa_torch/csrc/focal_dice_loss.cu",
             "replaces":
                 f"gan_aug_pfa_tpu/ops/pallas_kernels/fused_loss.py:{line}",
-            "launches": train_launches[name],
-            "max_abs_err": loss_errs[name],
-            "ms": t["ms"],
+            "launches": n_launches,
+            "calls": calls,
+            "max_abs_err": loss_errs[name, "float32"],
+            "max_abs_err_bf16": loss_errs[name, "bfloat16"],
+            **{k: t[k] for k in keys},
             "kernel_ms": t["ms"],
-            "wrapper_ms": t["wrapper_ms"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "library_call": library + " (a yardstick of the same bytes)",
+            "library_call": library + " (a yardstick of about the same "
+                                      "bytes)",
             "shape": list(TRAIN_SHAPE),
+            "logits": "bfloat16",
+            "plan": t["plan"],
+            "other": {f"{'x'.join(map(str, shape))} {dtype}": {
+                k: loss_t[(shape, dtype)][name][k] for k in keys}
+                for shape in (TRAIN_SHAPE, BIG_LOSS_SHAPE)
+                for dtype in LOSS_DTYPES
+                if (shape, dtype) != (TRAIN_SHAPE, "bfloat16")},
         })
     for kind, fn, line, shape, run in (
             ("native", ph.photometric_native_chw, 237, native_shape,

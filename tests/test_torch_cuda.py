@@ -112,7 +112,8 @@ def test_fused_loss_kernels_match_plain_version(cuda, shape, gamma):
         ref_dx.abs().max())
     assert torch.equal(loss, again)
 
-    before = (fl.FocalDiceLossFn.fwd_launches, fl.FocalDiceLossFn.bwd_launches)
+    before = (fl.FocalDiceLossFn.fwd_launches,
+              fl.FocalDiceLossFn.bwd_launches)
     xg = x.detach().clone().requires_grad_()
     fl.focal_dice_loss_fused(xg, t, focal_gamma=gamma, **LOSS_KW).backward()
     assert (fl.FocalDiceLossFn.fwd_launches,
@@ -121,11 +122,224 @@ def test_fused_loss_kernels_match_plain_version(cuda, shape, gamma):
         tol * float(ref_dx.abs().max()) / 0.73)
 
 
+def _loss_hyper(gamma):
+    return (LOSS_KW["beta"], gamma, LOSS_KW["focal_alpha"],
+            LOSS_KW["dice_smooth"])
+
+
+def _assert_kernels_match_plain(xf, tf, gamma):
+    """Kernel forward and backward on flat CUDA tensors against the plain
+    version on the same values: the loss within 1e-6 relative, dx within
+    1e-5 of max|dx| (1e-3 from 2^20 elements on) and, for bf16 dx, one
+    bf16 rounding step of each value more.  Returns (loss, sums, dx)."""
+    hyper = _loss_hyper(gamma)
+    g = torch.tensor(0.73, device="cuda")
+    loss, sums = fl.launch_forward(xf, tf, *hyper)
+    dx = fl.launch_backward(xf, tf, sums, g, *hyper)
+    torch.cuda.synchronize()
+    ref_sums = fl.focal_dice_sums_reference(xf, tf, gamma, hyper[2])
+    ref = float(fl._finalize(ref_sums, xf.numel(), hyper[0], hyper[3]))
+    ref_dx = fl.focal_dice_grad_reference(xf, tf, ref_sums, g, *hyper)
+    assert abs(float(loss) - ref) < 1e-6 * max(1.0, abs(ref)), (
+        float(loss), ref)
+    assert dx.dtype == xf.dtype and bool(dx.isfinite().all())
+    got, want = dx.float(), ref_dx.float()
+    tol = (1e-3 if xf.numel() >= 1 << 20 else 1e-5) * float(
+        want.abs().max())
+    step = 2 ** -7 * want.abs() if xf.dtype == torch.bfloat16 else 0.0
+    assert bool(((got - want).abs() <= step + tol).all()), float(
+        (got - want).abs().max())
+    return loss, sums, dx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LOSS_SHAPES)
+@pytest.mark.parametrize("gamma", GAMMAS)
+def test_fused_loss_kernels_take_bf16_logits(cuda, shape, gamma):
+    """bf16 logits read in place (the (3, 1, 37, 53) view starts 2 bytes
+    past a 16-byte boundary, its targets 4): the same checks against the
+    plain version on the same values, dx in bf16, equal bits on a rerun."""
+    extra = 1 if shape == (3, 1, 37, 53) else 0
+    x, t = _loss_inputs(shape, seed=sum(shape) + 1)
+    xb = torch.cat([x.reshape(-1)[:extra], x.reshape(-1)]).to(
+        torch.bfloat16)[extra:]
+    tf = torch.cat([t.reshape(-1)[:extra], t.reshape(-1)])[extra:]
+    if extra:
+        assert xb.data_ptr() % 16 == 2 and tf.data_ptr() % 16 == 4
+    loss, sums, dx = _assert_kernels_match_plain(xb, tf, gamma)
+    again, sums2 = fl.launch_forward(xb, tf, *_loss_hyper(gamma))
+    assert torch.equal(loss, again) and torch.equal(sums, sums2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 8, 63, 1001, 8003, 65_539])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_loss_kernels_ragged_sizes_and_offsets(cuda, n, offset, dtype):
+    """Element counts that are not a multiple of 8 and views that start
+    1 or 3 elements into their storage: the scalar head and tail inside the
+    kernels.  Logits offset by one element more than the targets: where no
+    head aligns both (every case here), every element takes the scalar
+    path."""
+    rng = np.random.RandomState(n + offset)
+    x = torch.from_numpy((rng.randn(n + 4) * 4).astype(np.float32)).cuda()
+    t = torch.from_numpy((rng.rand(n + 4) > 0.7).astype(np.float32)).cuda()
+    x = x.to(dtype)
+    for dx_off in (0, 1):
+        xf, tf = x[offset + dx_off:offset + dx_off + n], t[offset:offset + n]
+        plan = fl.plan_for(xf, tf)
+        assert plan.head + fl.VEC * plan.groups <= n
+        _assert_kernels_match_plain(xf, tf, GAMMAS[0])
+
+
+@pytest.mark.cuda
+def test_fused_loss_forward_reruns_give_equal_bits(cuda):
+    """1,000 forwards back to back on one stream: the ticket goes back to 0
+    after each, and every loss and sum has the same bits."""
+    x, t = _loss_inputs((4, 1, 128, 128), seed=11)
+    xb, tf = x.reshape(-1).to(torch.bfloat16), t.reshape(-1)
+    hyper = _loss_hyper(GAMMAS[0])
+    outs = [torch.cat([a.view(1), b]) for a, b in (
+        fl.launch_forward(xb, tf, *hyper) for _ in range(1000))]
+    outs = torch.stack(outs)
+    assert bool((outs == outs[0]).all())
+    ws = fl.workspace(xb.device, torch.cuda.current_stream().cuda_stream)
+    assert int(ws[:1].view(torch.int32)) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_loss_graph_replay_equals_eager(cuda, dtype):
+    """The forward and backward captured in one CUDA graph and replayed
+    give the eager bits, replay after replay."""
+    x, t = _loss_inputs((4, 1, 128, 128), seed=12)
+    xf, tf = x.reshape(-1).to(dtype), t.reshape(-1)
+    hyper = _loss_hyper(GAMMAS[0])
+    g = torch.tensor(0.73, device="cuda")
+    loss, sums = fl.launch_forward(xf, tf, *hyper)
+    dx = fl.launch_backward(xf, tf, sums, g, *hyper)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fl.launch_forward(xf, tf, *hyper)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gl, gs = fl.launch_forward(xf, tf, *hyper)
+        gdx = fl.launch_backward(xf, tf, gs, g, *hyper)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(gl, loss) and torch.equal(gs, sums)
+        assert torch.equal(gdx, dx)
+    # Eager calls after the capture still start from a ticket of 0.
+    again, _ = fl.launch_forward(xf, tf, *hyper)
+    assert torch.equal(again, loss)
+
+
+@pytest.mark.cuda
+def test_fused_loss_two_streams_in_turn(cuda):
+    """Forwards on two streams in turn, each stream with its own
+    workspace: every result equals the same call on the default stream."""
+    hyper = _loss_hyper(GAMMAS[0])
+    inputs = [(x.reshape(-1), t.reshape(-1)) for x, t in (
+        _loss_inputs((4, 1, 128, 128), seed=s) for s in (21, 22))]
+    want = [fl.launch_forward(x, t, *hyper)[0] for x, t in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(fl.launch_forward(*inputs[i], *hyper)[0])
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(v, want[i]) for v in got[i])
+    keys = {(0, s.cuda_stream) for s in streams}
+    assert keys <= set(fl._workspaces)
+
+
+@pytest.mark.cuda
+def test_fused_loss_counts_calls_and_launches(cuda):
+    """One forward and one backward through the wrapper: one call and one
+    launch each way."""
+    x, t = _loss_inputs((4, 1, 128, 128), seed=13)
+    xb = x.to(torch.bfloat16).requires_grad_()
+    fn = fl.FocalDiceLossFn
+    before = (fn.fwd_calls, fn.fwd_launches, fn.bwd_calls, fn.bwd_launches)
+    fl.focal_dice_loss_fused(xb, t, **LOSS_KW).backward()
+    assert (fn.fwd_calls, fn.fwd_launches, fn.bwd_calls,
+            fn.bwd_launches) == tuple(v + 1 for v in before)
+
+
+@pytest.mark.cuda
+def test_bf16_loss_runs_no_cast_kernel(cuda):
+    """Under bf16 autocast the loss forward and backward of bf16 logits are
+    the two kernels and nothing else: no cast of the logits before, none of
+    dx after."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, t = _loss_inputs((4, 1, 128, 128), seed=14)
+    xb = x.to(torch.bfloat16).requires_grad_()
+    g = torch.ones((), device="cuda")
+    fl.focal_dice_loss_fused(xb, t, **LOSS_KW).backward(g)  # build, warm up
+    xb.grad = None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss = fl.focal_dice_loss_fused(xb, t, **LOSS_KW)
+        loss.backward(g)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    assert len(kernels) == 2 and all(
+        "focal_dice" in k and c == 1 for k, c in kernels.items()), kernels
+    assert xb.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_fused_loss_kernel_refuses_a_plan_it_does_not_take(cuda):
+    """The C entry points check the plan: threads that are not a multiple
+    of 32 or above 256, no blocks or more than the workspace holds, groups
+    past the end, groups that are not 16-byte aligned.  An error, not a
+    fallback."""
+    fwd, bwd = fl._kernels()
+    x, t = _loss_inputs((4, 1, 128, 128), seed=15)
+    xf, tf = x.reshape(-1), t.reshape(-1)
+    n = xf.numel()
+    out = torch.empty(5, device="cuda")
+    dx = torch.empty_like(xf)
+    g = torch.ones((), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ws = fl.workspace(xf.device, stream)
+    plan = fl.plan_for(xf, tf)
+    hyper = _loss_hyper(GAMMAS[0])
+
+    def run(p):
+        a = fwd(xf.data_ptr(), 0, tf.data_ptr(), n, *p.c_args(), *hyper,
+                out.data_ptr(), ws.data_ptr(), stream)
+        b = bwd(xf.data_ptr(), 0, tf.data_ptr(), out[1:].data_ptr(),
+                g.data_ptr(), n, *p.c_args(), *hyper, dx.data_ptr(), stream)
+        return a, b
+
+    for bad in (dataclasses.replace(plan, threads=48),
+                dataclasses.replace(plan, threads=512),
+                dataclasses.replace(plan, blocks=0),
+                dataclasses.replace(plan, blocks=fl.MAX_BLOCKS + 1),
+                dataclasses.replace(plan, groups=plan.groups + 1),
+                dataclasses.replace(plan, head=1)):
+        assert all(e != 0 for e in run(bad)), bad
+    assert run(plan) == (0, 0)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_fused_loss_backward_under_bf16_autocast(cuda):
-    """Under bf16 autocast, bf16 logits reach the kernels as their fp32
-    cast and dx comes back as bf16: equal to the plain version's dx at the
-    same fp32 logits, cast to bf16 the same way."""
+    """Under bf16 autocast, bf16 logits reach the kernels as they are and
+    dx comes back as bf16: equal to the plain version's dx at the same
+    (widened) logits, cast to bf16 the same way."""
     x, t = _loss_inputs((4, 1, 128, 128), seed=3)
     xb = x.to(torch.bfloat16).detach().requires_grad_()
     with torch.autocast("cuda", dtype=torch.bfloat16):

@@ -126,34 +126,77 @@ def test_plain_fused_loss_matches_port_composite_under_autograd(shape):
     assert float((grads[0][1] - grads[1][1]).abs().max()) < 1e-5 * scale
 
 
+def _counts():
+    fn = fl.FocalDiceLossFn
+    return (fn.fwd_calls, fn.fwd_launches, fn.bwd_calls, fn.bwd_launches)
+
+
 def test_wrapper_on_cpu_takes_plain_version_without_launch():
     """(B, 1, H, W) logits against (B, H, W) labels, as the trainer passes
-    them; no kernel launch is counted on the CPU."""
+    them; no kernel call or launch is counted on the CPU."""
     x, t = _inputs((3, 1, 16, 20), seed=5)
-    before = (fl.FocalDiceLossFn.fwd_launches, fl.FocalDiceLossFn.bwd_launches)
+    before = _counts()
     xt = torch.from_numpy(x).requires_grad_()
     loss = fl.focal_dice_loss_fused(xt, torch.from_numpy(t[:, 0]), **TUNED)
     loss.backward()
-    assert (fl.FocalDiceLossFn.fwd_launches,
-            fl.FocalDiceLossFn.bwd_launches) == before
+    assert _counts() == before
     want = tl.focal_dice_loss(torch.from_numpy(x), torch.from_numpy(t),
                               **TUNED)
     _close(loss.detach(), want)
     assert xt.grad.shape == xt.shape and xt.grad.dtype == torch.float32
 
 
+def _graph_nodes(loss):
+    """Names of the autograd nodes behind ``loss``."""
+    names, todo = [], [loss.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is not None:
+            names.append(type(node).__name__)
+            todo.extend(fn for fn, _ in node.next_functions)
+    return names
+
+
 def test_wrapper_casts_low_precision_logits_outside_the_function():
-    """bf16 logits: the Function sees their fp32 cast, and autograd casts
-    dx back to bf16 for the logits."""
+    """bf16 logits reach the Function as they are (no cast node between
+    the logits and the loss) and dx comes back from it as bf16; fp16
+    logits, which the kernels do not take, are cast to fp32 outside the
+    Function and autograd casts dx back.  Either way dx equals the fp32 dx
+    of the same values, cast to the logits' dtype."""
     x, t = _inputs((2, 1, 8, 8), seed=9)
+    for dtype, cast in ((torch.bfloat16, False), (torch.float16, True)):
+        xl = torch.from_numpy(x).to(dtype).requires_grad_()
+        loss = fl.focal_dice_loss_fused(xl, torch.from_numpy(t[:, 0]),
+                                        **TUNED)
+        assert any("ToCopy" in n for n in _graph_nodes(loss)) == cast
+        loss.backward()
+        assert loss.dtype == torch.float32 and xl.grad.dtype == dtype
+        x32 = xl.detach().float().requires_grad_()
+        fl.focal_dice_loss_fused(x32, torch.from_numpy(t[:, 0]),
+                                 **TUNED).backward()
+        assert torch.equal(xl.grad, x32.grad.to(dtype))
+
+
+def test_bf16_logits_match_jax_fused_loss():
+    """bf16 logits through the port's ``focal_dice_loss_fused`` (the plain
+    version on the CPU) and through JAX's (the Pallas kernel in interpret
+    mode, one jitted call): the loss within 1e-6 relative, dx (bf16 on both
+    sides) within one bf16 rounding step of each value beyond 1e-5 of
+    max|dx|."""
+    x, t = _inputs((2, 24, 24, 1), seed=17, scale=2.0)
+    x.reshape(-1)[:4] = [50.0, -50.0, 30.0, -30.0]  # saturated logits
     xb = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
-    loss = fl.focal_dice_loss_fused(xb, torch.from_numpy(t[:, 0]), **TUNED)
+    loss = fl.focal_dice_loss_fused(xb, torch.from_numpy(t), **TUNED)
     loss.backward()
-    assert loss.dtype == torch.float32 and xb.grad.dtype == torch.bfloat16
-    x32 = xb.detach().float().requires_grad_()
-    fl.focal_dice_loss_fused(x32, torch.from_numpy(t[:, 0]),
-                             **TUNED).backward()
-    assert torch.equal(xb.grad, x32.grad.to(torch.bfloat16))
+    xj = jnp.asarray(xb.detach().float().numpy(), dtype=jnp.bfloat16)
+    value, grad = jax.jit(jax.value_and_grad(lambda a: jax_fused(
+        a, jnp.asarray(t), interpret=True, **TUNED)))(xj)
+    _close(loss.detach(), value)
+    assert grad.dtype == jnp.bfloat16 and xb.grad.dtype == torch.bfloat16
+    want = np.asarray(grad.astype(jnp.float32))
+    got = xb.grad.float().numpy()
+    step = 2.0 ** -7 * np.abs(want) + 1e-5 * np.abs(want).max()
+    assert np.all(np.abs(got - want) <= step)
 
 
 @pytest.mark.parametrize("bad", ["numel", "empty", "device"])
