@@ -9,7 +9,9 @@ Phases, each of which fails the run if it fails:
 2. build every CUDA kernel of the evaluation and training paths from
    ``csrc/`` with nvcc, one process per source, all at once;
 3. hold each kernel against its plain PyTorch version on the card (exact
-   integer equality for the confusion counts; the fused FocalDice loss
+   equality for the confusion counts, also on two streams in turn, in two
+   CUDA graphs replayed in turn and after its workspace grows, with one
+   kernel launch and no other device op a call; the fused FocalDice loss
    within the JAX package's fused-loss tolerances, forward and backward,
    float32 and bf16 logits, aligned and misaligned views, equal bits on a
    rerun and in a CUDA graph's replay, no cast kernel around a bf16 loss)
@@ -19,8 +21,9 @@ Phases, each of which fails the run if it fails:
    on the CPU and compare the probabilities;
 5. drive the evaluation path, ``python -m gan_aug_pfa_torch.evaluate`` at
    its defaults (128x128, batch 2, bf16), in this process over a generated
-   14-city OSCD tree and a seeded checkpoint, with the kernel launch counts
-   set to 0 just before and read just after; check the report; compare the
+   14-city OSCD tree and a seeded checkpoint, with the confusion counts'
+   (calls, launches) set to 0 just before and read just after (one launch a
+   batch); check the report; compare the
    slice's counts at fp32 on the card with the CPU's; time evaluation
    throughput at batch 2 and 16;
 6. drive the training path, ``python -m gan_aug_pfa_torch.train`` at its
@@ -217,47 +220,93 @@ def confusion_inputs(torch, shape, threshold, gen, misaligned=False):
     return p, t
 
 
+# The confusion-counts correctness cases: the evaluation shapes (bs 2 and
+# 16), an odd map aligned and one pixel past a 16-byte boundary, 1x1 maps,
+# a large shape, and a batch whose slots do not fit the workspace that the
+# earlier cases left (it grows).
+CONFUSION_CASES = [((2, 128, 128), False), ((16, 128, 128), False),
+                   ((1, 37, 53), False), ((1, 37, 53), True),
+                   ((3, 1, 1), False), ((16, 1024, 1024), False),
+                   ((4000, 16, 16), False)]
+CONFUSION_SHAPES = ((2, 128, 128), (16, 128, 128), (16, 1024, 1024))
+
+
+def confusion_bound(b, hw):
+    """Least time (ms) of one call: both (B, H*W) float32 maps read once,
+    the (B, 4) float32 counts written once; against 6 integer or compare
+    operations an element at the card's fp32 rate."""
+    nbytes = 8 * b * hw + 16 * b
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 6 * b * hw / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes}
+
+
+def confusion_call(torch, cc, p, t, threshold=0.5, fn=None, plan=None):
+    """The bare C entry point of csrc/confusion_counts.cu (``fn``, this
+    tree's by default) on fixed buffers with ``plan`` (the wrapper's by
+    default): (call(stream), the (B, 4) output)."""
+    fn = fn or cc._kernel()
+    plan = plan or cc.plan_for(p, t)
+    b = p.shape[0]
+    hw = p[0].numel()
+    out = torch.empty((b, 4), device="cuda")
+    ws = torch.zeros(cc.SLOT_INTS * b, dtype=torch.int32, device="cuda")
+
+    def call(stream):
+        return fn(p.data_ptr(), t.data_ptr(), threshold, b, hw,
+                  *plan.c_args(), out.data_ptr(), ws.data_ptr(), ws.numel(),
+                  stream)
+
+    return call, out
+
+
 def phase_kernel(torch, cc):
-    """Kernel vs plain version on the card, exact; timings at the eval
-    shape and at a large shape."""
+    """Kernel vs plain version on the card, exact, in every
+    CONFUSION_CASES case at thresholds 0.5 and 0.3; two streams in turn;
+    two CUDA graphs replayed in turn with eager calls between; one kernel
+    launch and no other device op a call; then timings at
+    CONFUSION_SHAPES."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    cases = [((2, 128, 128), False), ((1, 37, 53), False),
-             ((1, 37, 53), True), ((3, 1, 1), False),
-             ((16, 1024, 1024), False)]
     max_err = 0.0
-    for shape, misaligned in cases:
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, misaligned in CONFUSION_CASES:
         for thr in (0.5, 0.3):
             p, t = confusion_inputs(torch, shape, thr, gen, misaligned)
             if misaligned and p.data_ptr() % 16 == 0:
                 raise AssertionError("misaligned case is 16-byte aligned")
             got = cc.confusion_counts_batch(p, t, thr)
+            again = cc.confusion_counts_batch(p, t, thr)
             torch.cuda.synchronize()
             ref = cc.confusion_counts_batch_reference(p, t, thr)
             err = float((got - ref).abs().max())
             max_err = max(max_err, err)
             hw = shape[1] * shape[2]
-            ok = torch.equal(got, ref) and bool(
-                (got.sum(dim=1) == hw).all())
-            print(f"kernel {shape} thr={thr} misaligned={misaligned}: "
-                  f"max_abs_err={err} {'OK' if ok else 'MISMATCH'}")
+            ok = (torch.equal(got, ref) and torch.equal(got, again)
+                  and bool((got.sum(dim=1) == hw).all()))
+            print(f"kernel {shape} thr={thr} misaligned={misaligned} plan "
+                  f"{cc.plan_for(p, t)}: max_abs_err={err} "
+                  f"{'OK' if ok else 'MISMATCH'}")
             if not ok:
                 raise AssertionError(
                     f"confusion_counts kernel != plain version at {shape}, "
                     f"thr={thr}:\n{got}\n{ref}")
+    ws = cc._workspaces.persistent(torch.device("cuda", 0), stream, 0)
+    if ws.numel() < cc.SLOT_INTS * 4000 or bool(ws.any()):
+        raise AssertionError("the workspace did not grow, or a slot is "
+                             "not back at 0")
+    check_confusion_streams_and_graphs(torch, cc, gen)
+    check_one_launch(torch, cc, gen)
 
     timings = {}
-    for shape in ((2, 128, 128), (16, 1024, 1024)):
+    for shape in CONFUSION_SHAPES:
         p, t = confusion_inputs(torch, shape, 0.5, gen)
         b, hw = shape[0], shape[1] * shape[2]
-        fn = cc._kernel()
-        counts = torch.zeros((b, 3), dtype=torch.int32, device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def kernel_only():
-            fn(p.data_ptr(), t.data_ptr(), 0.5, b, hw, counts.data_ptr(),
-               stream)
-
+        call, _ = confusion_call(torch, cc, p, t)
+        if call(stream) != 0:
+            raise AssertionError("confusion_counts launch failed")
         codes = ((p > 0.5).float() * 2 + (t > 0.5).float()
                  + 4 * torch.arange(b, device="cuda").view(-1, 1, 1)
                  ).view(-1)
@@ -266,27 +315,88 @@ def phase_kernel(torch, cc):
         # histc bins: code 0 = tn, 1 = fn, 2 = fp, 3 = tp.
         if not torch.equal(lib[:, [3, 2, 1, 0]], ref):
             raise AssertionError("library call disagrees with the counts")
-        read, written = 8 * b * hw, 12 * b
-        bytes_ms = (read + written) / HBM_BYTES_PER_S * 1e3
-        ops_ms = 6 * b * hw / FP32_OPS_PER_S * 1e3
-        timings[shape] = {
-            "ms": time_ms(torch, kernel_only),
-            "graph_ms": graph_ms(torch, lambda: fn(
-                p.data_ptr(), t.data_ptr(), 0.5, b, hw, counts.data_ptr(),
+
+        def histc():
+            return torch.histc(codes, bins=4 * b, min=0, max=4 * b)
+
+        r = confusion_bound(b, hw)
+        r.update({
+            "ms": time_ms(torch, functools.partial(call, stream)),
+            "graph_ms": graph_ms(torch, lambda: call(
                 torch.cuda.current_stream().cuda_stream)),
             "wrapper_ms": time_ms(
                 torch, lambda: cc.confusion_counts_batch(p, t, 0.5)),
             "plain_ms": time_ms(
                 torch, lambda: cc.confusion_counts_batch_reference(p, t, 0.5)),
-            "library_ms": time_ms(
-                torch, lambda: torch.histc(codes, bins=4 * b, min=0,
-                                           max=4 * b)),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": read + written,
-        }
-        print(f"kernel timing {shape}: {json.dumps(timings[shape])}")
+            "library_ms": time_ms(torch, histc),
+            "library_graph_ms": graph_ms(torch, histc),
+            "plan": list(cc.plan_for(p, t).c_args()),
+        })
+        timings[shape] = r
+        print(f"kernel timing {shape}: {json.dumps(r)}")
     return max_err, timings
+
+
+def check_confusion_streams_and_graphs(torch, cc, gen):
+    """Calls on two streams in turn (a workspace each), then two CUDA
+    graphs (a zeroed buffer each) replayed in turn with eager calls on the
+    default stream between them: every result equals the eager one."""
+    inputs = [confusion_inputs(torch, shape, thr, gen)
+              for shape, thr in (((2, 128, 128), 0.5),
+                                 ((16, 128, 128), 0.3))]
+    thresholds = (0.5, 0.3)
+    eager = [cc.confusion_counts_batch(p, t, thr)
+             for (p, t), thr in zip(inputs, thresholds)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(10):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(cc.confusion_counts_batch(*inputs[i],
+                                                        thresholds[i]))
+    torch.cuda.synchronize()
+    if not all(torch.equal(v, eager[i]) for i in range(2) for v in got[i]):
+        raise AssertionError("confusion_counts on two streams != eager")
+    graphs = []
+    for (p, t), thr in zip(inputs, thresholds):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = cc.confusion_counts_batch(p, t, thr)
+        graphs.append((graph, out))
+    for _ in range(3):
+        for i, (graph, out) in enumerate(graphs):
+            graph.replay()
+            between = cc.confusion_counts_batch(*inputs[1 - i],
+                                                thresholds[1 - i])
+            torch.cuda.synchronize()
+            if not (torch.equal(out, eager[i])
+                    and torch.equal(between, eager[1 - i])):
+                raise AssertionError(f"confusion_counts graph {i} replay "
+                                     "!= eager")
+    print("confusion_counts: two streams in turn and two graphs replayed "
+          "in turn with eager calls between equal eager")
+
+
+def check_one_launch(torch, cc, gen):
+    """At the evaluation shape a call is one kernel launch and no other
+    device op (no fill, no derive, no cast)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p, t = confusion_inputs(torch, (2, 128, 128), 0.5, gen)
+    cc.confusion_counts_batch(p, t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cc.confusion_counts_batch(p, t)
+        torch.cuda.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA}
+    print(f"confusion_counts call at (2, 128, 128): device ops {ops}")
+    if len(ops) != 1 or not all("confusion_counts" in k and c == 1
+                                for k, c in ops.items()):
+        raise AssertionError(f"a confusion_counts call ran {ops}")
 
 
 def loss_inputs(torch, shape, gen, misaligned=False, dtype="float32"):
@@ -782,19 +892,22 @@ def phase_main_path(torch, root):
     print(f"tree + checkpoint written in {time.time() - t0:.1f} s")
 
     report_path = os.path.join(root, "report.json")
-    cc.confusion_counts_batch.launches = 0
+    fn = cc.confusion_counts_batch
+    fn.calls = fn.launches = 0
     t0 = time.time()
     result = evaluate.main(["--root-dir", root, "--json-out", report_path])
     wall = time.time() - t0
-    launches = {"confusion_counts": cc.confusion_counts_batch.launches}
-    print(f"main path: evaluate.main wall {wall:.2f} s, launches {launches}")
+    counts = {"confusion_counts": (fn.calls, fn.launches)}
+    print(f"main path: evaluate.main wall {wall:.2f} s, (calls, launches) "
+          f"{counts}")
 
     n = sum(result["per_city_counts"].values())
     batches = -(-n // EvalConfig().batch_size)
-    if n != len(CITIES) or launches["confusion_counts"] != batches:
+    if n != len(CITIES) or counts["confusion_counts"] != (batches, batches):
         raise AssertionError(
-            f"{n} samples, {launches['confusion_counts']} kernel launches; "
-            f"expected {len(CITIES)} samples, {batches} launches")
+            f"{n} samples, (calls, launches) {counts['confusion_counts']}; "
+            f"expected {len(CITIES)} samples, one launch for each of "
+            f"{batches} batches")
     check_report(result, report_path)
 
     # The slice at fp32 on the card vs the CPU: per sample, kernel counts
@@ -852,7 +965,7 @@ def phase_main_path(torch, root):
         torch, lambda: pipelines.evaluate_cached(gpu_model, cache, ds.cities,
                                                  EvalConfig()),
         "one bs-2 evaluation pass (14 pairs, bf16)", ("confusion_counts",))
-    return launches
+    return counts
 
 
 def phase_training(torch, root):
@@ -1251,28 +1364,31 @@ def main():
     photo_errs, photo_t = phase_photometric(
         torch, ph, native_shape, native_ds.sizes[:4].tolist())
 
-    eval_t = timings[(2, 128, 128)]
+    # The main numbers are each path's shape: the evaluation's bs 2 for the
+    # confusion counts (bs 16 and 16x1024x1024 beside them), the train
+    # step's bf16 logits for the loss kernels (float32 and
+    # 16x1x1024x1024 beside them).
+    keys = ("ms", "graph_ms", "wrapper_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_graph_ms")
+    eval_t = timings[CONFUSION_SHAPES[0]]
+    calls, n_launches = launches[cc.NAME]
     kernels = [{
         "name": cc.NAME,
         "route": "cuda",
         "source": "gan_aug_pfa_torch/csrc/confusion_counts.cu",
         "replaces": "gan_aug_pfa_tpu/ops/pallas_kernels/metrics.py:37",
-        "launches": launches[cc.NAME],
+        "launches": n_launches,
+        "calls": calls,
         "max_abs_err": max_err,
-        "ms": eval_t["ms"],
+        **{k: eval_t[k] for k in keys},
         "kernel_ms": eval_t["ms"],
-        "graph_ms": eval_t["graph_ms"],
-        "wrapper_ms": eval_t["wrapper_ms"],
-        "plain_ms": eval_t["plain_ms"],
-        "bound_ms": eval_t["bound_ms"],
-        "bound_by": eval_t["bound_by"],
-        "library_ms": eval_t["library_ms"],
-        "shape": [2, 128, 128],
+        "library_call": "torch.histc over 2-bit codes",
+        "shape": list(CONFUSION_SHAPES[0]),
+        "plan": eval_t["plan"],
+        "other": {"x".join(map(str, shape)): {
+            k: timings[shape][k] for k in keys}
+            for shape in CONFUSION_SHAPES[1:]},
     }]
-    # The loss kernels' main numbers are the train step's: bf16 logits at
-    # the train shape; float32 and 16x1x1024x1024 beside them.
-    keys = ("ms", "graph_ms", "wrapper_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library_graph_ms")
     for name, line, library in (
             ("fwd", 120, "F.binary_cross_entropy_with_logits(sum)"),
             ("bwd", 131, "torch.mul(x, t)")):

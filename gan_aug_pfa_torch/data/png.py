@@ -1,17 +1,35 @@
 """PNG decoder on the standard library's ``zlib`` and numpy.
 
-Decodes the files that evaluation reads without PIL.  Supported: bit depth
-8, colour types 0 (gray), 2 (RGB), 3 (palette), 4 (gray + alpha) and
-6 (RGBA), non-interlaced, all five scanline filters.  Anything else raises
-``ValueError``.  Conversions give the same bytes as PIL's
-``convert("RGB")`` and ``convert("L")``: alpha is dropped, and gray from
-colour uses PIL's ITU-R 601-2 integer luma
-``(r*19595 + g*38470 + b*7471 + 0x8000) >> 16``.  CRCs are not checked.
+Decodes the files that evaluation and training read without PIL: every
+combination of bit depth and colour type that the PNG specification
+allows (gray at 1, 2, 4, 8 and 16 bits, palette at 1, 2, 4 and 8, RGB,
+gray + alpha and RGBA at 8 and 16), non-interlaced or Adam7-interlaced,
+all five scanline filters.  ``decode_rgb`` and ``decode_gray`` give the
+bytes of PIL's ``convert("RGB")`` and ``convert("L")`` (checked against
+Pillow 12.1.0 by tests/test_torch_data.py):
+
+* alpha and ``tRNS`` are dropped;
+* gray from colour is PIL's ITU-R 601-2 integer luma
+  ``(r*19595 + g*38470 + b*7471 + 0x8000) >> 16``;
+* gray at 1, 2 and 4 bits is scaled to 8 (x255, x85, x17); palette
+  indices at those depths are not, they index the PLTE;
+* 16-bit gray (PIL's mode ``I;16``) is clipped to 255, so 256 and 65535
+  both give 255; 16-bit RGB, RGBA and gray + alpha give the high byte of
+  each sample.
+
+Anything else raises ``ValueError``: a file that is not a PNG, truncated
+or corrupt data, a palette index past the PLTE, and combinations the
+specification forbids (a 16-bit palette, 1-bit RGB, ...).  The JAX
+package's loader falls back to PIL on a file its own decoder refuses, so
+it also reads formats other than PNG; this decoder does not.  CRCs are not
+checked.
 
 Unfiltering works on runs of rows with the same filter: None and Sub runs
 in one numpy step each, Up runs as a cumulative sum down the run, and
 Average/Paeth rows one by one (each byte depends on its left neighbour
-after decoding).
+after decoding).  An interlaced file is seven sub-images, one for each
+Adam7 pass, each with its own filter rows; they are unfiltered in turn
+and scattered into the full image.
 """
 
 from __future__ import annotations
@@ -23,6 +41,12 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# The bit depths the specification allows for each colour type.
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7 passes: (first column, first row, column step, row step).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _read_chunks(data: bytes) -> Tuple[dict, bytes, bytes]:
@@ -43,6 +67,8 @@ def _read_chunks(data: bytes) -> Tuple[dict, bytes, bytes]:
                 "height": int.from_bytes(body[4:8], "big"),
                 "bit_depth": body[8],
                 "color_type": body[9],
+                "compression": body[10],
+                "filter": body[11],
                 "interlace": body[12],
             }
         elif ctype == b"PLTE":
@@ -120,33 +146,83 @@ def _unfilter(raw: np.ndarray, height: int, stride: int,
     return img
 
 
-def decode(path: str) -> Tuple[np.ndarray, int, np.ndarray]:
-    """Decode to the file's own channels: ``(H, W, C)`` uint8, the colour
-    type, and the ``(entries, 3)`` palette (empty unless colour type 3)."""
+def _stride(width: int, nch: int, depth: int) -> int:
+    """Bytes of one scanline without its filter byte."""
+    return (width * nch * depth + 7) // 8
+
+
+def _samples(rows: np.ndarray, width: int, nch: int,
+             depth: int) -> np.ndarray:
+    """Unfiltered scanlines (H, stride) -> (H, W, C) samples: uint16 at 16
+    bits (big-endian in the file), else uint8; sub-byte samples unpacked
+    most significant bits first, each row's padding bits dropped."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, width, nch)
+    if depth < 8:
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        rows = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(
+            h, -1)[:, :width * nch]
+    return rows.reshape(h, width, nch)
+
+
+def _passes(width: int, height: int):
+    """(x0, y0, dx, dy, pass width, pass height) of every non-empty Adam7
+    pass."""
+    for x0, y0, dx, dy in _ADAM7:
+        pw = -(-(width - x0) // dx) if width > x0 else 0
+        ph = -(-(height - y0) // dy) if height > y0 else 0
+        if pw and ph:
+            yield x0, y0, dx, dy, pw, ph
+
+
+def decode(path: str) -> Tuple[np.ndarray, int, int, np.ndarray]:
+    """Decode to the file's own channels and samples: ``(H, W, C)`` uint8
+    (uint16 at bit depth 16; gray and palette samples at 1, 2 and 4 bits as
+    they are, not scaled), the colour type, the bit depth, and the
+    ``(entries, 3)`` palette (empty unless colour type 3)."""
     with open(path, "rb") as f:
         data = f.read()
     ihdr, idat, plte = _read_chunks(data)
-    ct = ihdr["color_type"]
-    if ihdr["bit_depth"] != 8 or ihdr["interlace"] != 0 or ct not in _CHANNELS:
+    ct, depth = ihdr["color_type"], ihdr["bit_depth"]
+    h, w = ihdr["height"], ihdr["width"]
+    if (depth not in _DEPTHS.get(ct, ()) or ihdr["interlace"] not in (0, 1)
+            or ihdr["compression"] or ihdr["filter"] or not h or not w):
         raise ValueError(
-            f"unsupported PNG (bit depth {ihdr['bit_depth']}, colour type "
-            f"{ct}, interlace {ihdr['interlace']})"
+            f"unsupported PNG (bit depth {depth}, colour type {ct}, "
+            f"interlace {ihdr['interlace']}, {w}x{h})"
         )
-    h, w, nch = ihdr["height"], ihdr["width"], _CHANNELS[ct]
+    nch = _CHANNELS[ct]
     palette = np.frombuffer(plte[:len(plte) // 3 * 3], np.uint8).reshape(-1, 3)
     if ct == 3 and palette.size == 0:
         raise ValueError("palette PNG without PLTE")
-    stride = w * nch
     try:
         raw = np.frombuffer(zlib.decompress(idat), np.uint8)
     except zlib.error as e:
         raise ValueError(f"corrupt PNG image data: {e}") from e
-    if raw.size != h * (stride + 1):
-        raise ValueError(
-            f"PNG image data is {raw.size} bytes, expected {h * (stride + 1)}"
-        )
-    img = _unfilter(raw, h, stride, nch).reshape(h, w, nch)
-    return img, ct, palette
+    bpp = max(1, nch * depth // 8)
+    if ihdr["interlace"] == 0:
+        stride = _stride(w, nch, depth)
+        if raw.size != h * (stride + 1):
+            raise ValueError(f"PNG image data is {raw.size} bytes, expected "
+                             f"{h * (stride + 1)}")
+        img = _unfilter(raw, h, stride, bpp)
+        if depth == 8:
+            return img.reshape(h, w, nch), ct, depth, palette
+        return _samples(img, w, nch, depth), ct, depth, palette
+    passes = list(_passes(w, h))
+    sizes = [ph * (_stride(pw, nch, depth) + 1) for *_, pw, ph in passes]
+    if raw.size != sum(sizes):
+        raise ValueError(f"PNG image data is {raw.size} bytes, expected "
+                         f"{sum(sizes)}")
+    img = np.empty((h, w, nch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for (x0, y0, dx, dy, pw, ph), size in zip(passes, sizes):
+        rows = _unfilter(raw[pos:pos + size], ph, _stride(pw, nch, depth),
+                         bpp)
+        img[y0::dy, x0::dx] = _samples(rows, pw, nch, depth)
+        pos += size
+    return img, ct, depth, palette
 
 
 def _luma(rgb: np.ndarray) -> np.ndarray:
@@ -160,9 +236,24 @@ def _palette_lookup(idx: np.ndarray, palette: np.ndarray) -> np.ndarray:
     return palette[idx]
 
 
+def _to_8bit(img: np.ndarray, ct: int, depth: int) -> np.ndarray:
+    """Samples as PIL opens them, in 8 bits: 16-bit gray clipped, other
+    16-bit samples' high byte, sub-byte gray scaled; palette indices and
+    8-bit samples unchanged."""
+    if depth == 16:
+        if ct == 0:
+            return np.minimum(img, 255).astype(np.uint8)
+        return (img >> 8).astype(np.uint8)
+    if depth < 8 and ct == 0:
+        return img * np.uint8(255 // ((1 << depth) - 1))
+    return img
+
+
 def decode_rgb(path: str) -> np.ndarray:
     """``(H, W, 3)`` uint8, as PIL's ``convert("RGB")``."""
-    img, ct, palette = decode(path)
+    img, ct, depth, palette = decode(path)
+    if depth != 8:
+        img = _to_8bit(img, ct, depth)
     if ct == 2:
         return img
     if ct == 6:
@@ -174,7 +265,9 @@ def decode_rgb(path: str) -> np.ndarray:
 
 def decode_gray(path: str) -> np.ndarray:
     """``(H, W)`` uint8, as PIL's ``convert("L")``."""
-    img, ct, palette = decode(path)
+    img, ct, depth, palette = decode(path)
+    if depth != 8:
+        img = _to_8bit(img, ct, depth)
     if ct in (0, 4):
         return np.ascontiguousarray(img[..., 0])
     if ct == 3:

@@ -2,8 +2,13 @@
 
     python -m gan_aug_pfa_torch.evaluate --root-dir <root> [--json-out F]
 
-Flag names are the root ``evaluate.py``'s, for what this port supports;
-``--device`` (default ``cuda``) picks the device.
+Flag names are the root ``evaluate.py``'s; ``--device`` (default
+``cuda``) picks the device.  The root CLI's flags of paths not ported yet
+(single-pair evaluation, visualizations, ``--post-process``,
+``--ensemble``, ``--threshold-sweep``, ``--stream`` and serving artifacts)
+are accepted with the value that leaves their path off; any other value
+exits non-zero with "not ported yet".  ``--no-compile-cache`` is accepted
+so that the JAX package's command lines run unchanged.
 """
 
 from __future__ import annotations
@@ -18,6 +23,15 @@ from .config import (
     parse_target_size,
 )
 from .train.siamese import COMPUTE_DTYPES
+
+# The root evaluate.py's flags whose paths are not ported yet, with the
+# value that leaves them off.
+_NOT_PORTED = {
+    "image1_path": None, "image2_path": None, "label_path": None,
+    "city_name": None, "num_visualizations": 0, "post_process": False,
+    "post_process_kernel": 3, "ensemble": None, "threshold_sweep": False,
+    "stream": "hbm", "serving_artifact": None, "serving_aot": "auto",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,11 +56,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model compute dtype for evaluation")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
+    p.add_argument("--no-compile-cache", action="store_true",
+                   help="accepted for the JAX package's command lines; "
+                        "the port has no compilation cache")
+    not_ported = p.add_argument_group(
+        "not ported yet (a value other than the default exits non-zero)")
+    for flag in ("--image1-path", "--image2-path", "--label-path",
+                 "--city-name", "--serving-artifact"):
+        not_ported.add_argument(flag, type=str, default=None)
+    not_ported.add_argument("--num-visualizations", type=int, default=0)
+    not_ported.add_argument("--post-process", action="store_true")
+    not_ported.add_argument("--post-process-kernel", type=int, default=3)
+    not_ported.add_argument("--ensemble", type=str, nargs="+", default=None,
+                            metavar="CKPT")
+    not_ported.add_argument("--threshold-sweep", action="store_true")
+    not_ported.add_argument("--stream", type=str, default="hbm")
+    not_ported.add_argument("--serving-aot", type=str, default="auto")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for name, off in _NOT_PORTED.items():
+        if getattr(args, name) != off:
+            parser.error(f"--{name.replace('_', '-')} is not ported yet")
     target_size = parse_target_size(args.target_size)
     data_cfg = DataConfig(root_dir=args.root_dir,
                           dataset_subdir=args.dataset_subdir)

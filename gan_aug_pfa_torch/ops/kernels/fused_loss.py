@@ -40,15 +40,15 @@ there.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from . import build
+from .workspace import Workspaces, on
 
 NAME = "focal_dice_loss"
 _LAUNCHES_PER_CALL = 1
@@ -236,26 +236,13 @@ def _kernels():
     return bind(lib)
 
 
-_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
+_workspaces = Workspaces(torch.float32)
 
 
 def workspace(device: torch.device, stream: int) -> torch.Tensor:
     """The forward's workspace for ``stream`` on ``device``, zeroed at
     first use on the stream itself."""
-    key = (device.index, stream)
-    ws = _workspaces.get(key)
-    if ws is None:
-        ws = _workspaces[key] = torch.zeros(WORKSPACE_FLOATS,
-                                            dtype=torch.float32,
-                                            device=device)
-    return ws
-
-
-def _on(device: torch.device):
-    """``device`` made current only where it is not already."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
+    return _workspaces.persistent(device, stream, WORKSPACE_FLOATS)
 
 
 def launch_forward(x: torch.Tensor, t: torch.Tensor, beta: float,
@@ -269,15 +256,10 @@ def launch_forward(x: torch.Tensor, t: torch.Tensor, beta: float,
     keep it alive), so no two graphs share a ticket."""
     fwd, _ = _kernels()
     device = x.device
-    with _on(device):
+    with on(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if torch.cuda.is_current_stream_capturing():
-            buf = torch.zeros(8 + WORKSPACE_FLOATS, dtype=torch.float32,
-                              device=device)
-            out, ws = buf[:5], buf[8:]
-        else:
-            out = torch.empty(5, dtype=torch.float32, device=device)
-            ws = workspace(device, stream)
+        out, ws = _workspaces.call_buffers(device, stream, (5,),
+                                           torch.float32, WORKSPACE_FLOATS)
         err = fwd(x.data_ptr(), int(x.dtype == torch.bfloat16), t.data_ptr(),
                   x.numel(), *plan_for(x, t).c_args(), beta, gamma, alpha,
                   smooth, out.data_ptr(), ws.data_ptr(), stream)
@@ -293,7 +275,7 @@ def launch_backward(x, t, sums, g, beta, gamma, alpha, smooth):
     _, bwd = _kernels()
     dx = torch.empty_like(x)
     device = x.device
-    with _on(device):
+    with on(device):
         err = bwd(x.data_ptr(), int(x.dtype == torch.bfloat16), t.data_ptr(),
                   sums.data_ptr(), g.data_ptr(), x.numel(),
                   *plan_for(x, t).c_args(), beta, gamma, alpha, smooth,

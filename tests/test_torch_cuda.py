@@ -15,8 +15,8 @@ import torch
 from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
 from gan_aug_pfa_torch.ops.kernels import fused_loss as fl
 
-SHAPES = [(2, 128, 128), (5, 33, 47), (1, 37, 53), (3, 1, 1),
-          (4, 512, 512)]
+SHAPES = [(2, 128, 128), (16, 128, 128), (5, 33, 47), (1, 37, 53),
+          (3, 1, 1), (4, 512, 512), (16, 1024, 1024)]
 
 
 @pytest.fixture
@@ -41,24 +41,166 @@ def _inputs(shape, threshold, seed):
 @pytest.mark.parametrize("threshold", [0.5, 0.3])
 def test_confusion_counts_kernel_matches_reference(cuda, shape, threshold):
     p, t = _inputs(shape, threshold, seed=sum(shape))
-    before = cc.confusion_counts_batch.launches
+    fn = cc.confusion_counts_batch
+    before = (fn.calls, fn.launches)
     got = cc.confusion_counts_batch(p, t, threshold)
+    again = cc.confusion_counts_batch(p, t, threshold)
     torch.cuda.synchronize()
-    assert cc.confusion_counts_batch.launches == before + 1
+    assert (fn.calls, fn.launches) == (before[0] + 2, before[1] + 2)
     assert torch.equal(got, cc.confusion_counts_batch_reference(p, t,
                                                                 threshold))
+    assert torch.equal(got, again)  # the slots went back to 0
     assert bool((got.sum(dim=1) == shape[1] * shape[2]).all())
 
 
 @pytest.mark.cuda
-def test_confusion_counts_kernel_misaligned_view(cuda):
-    """A batch slice whose data pointer is not 16-byte aligned takes the
-    kernel's scalar path and gives the same counts."""
-    p, t = _inputs((3, 37, 53), 0.5, seed=1)
+@pytest.mark.parametrize("b", [3, 2])
+def test_confusion_counts_kernel_misaligned_view(cuda, b):
+    """A batch slice whose data pointer is not 16-byte aligned: one sample
+    (a scalar head of 3, then 16-byte groups) or two (37x53 samples do not
+    share one alignment: every element scalar).  The same counts."""
+    p, t = _inputs((b, 37, 53), 0.5, seed=1)
     p, t = p[1:], t[1:]
     assert p.data_ptr() % 16 != 0
+    plan = cc.plan_for(p, t)
+    assert (plan.groups > 0) == (b == 2)
     got = cc.confusion_counts_batch(p, t)
     assert torch.equal(got, cc.confusion_counts_batch_reference(p, t))
+
+
+@pytest.mark.cuda
+def test_confusion_counts_workspace_grows_with_the_batch(cuda):
+    """Calls at B = 2, then at a B whose slots do not fit the stream's
+    workspace (a new zeroed one), then at B = 2 again: every result equals
+    the plain version."""
+    stream = torch.cuda.current_stream().cuda_stream
+    for b in (2, 4000, 2):
+        p, t = _inputs((b, 16, 16), 0.5, seed=b)
+        got = cc.confusion_counts_batch(p, t)
+        assert torch.equal(got, cc.confusion_counts_batch_reference(p, t))
+        ws = cc._workspaces.persistent(p.device, stream, 0)
+        assert ws.numel() >= cc.SLOT_INTS * b
+    torch.cuda.synchronize()
+    assert not bool(ws.any())
+
+
+@pytest.mark.cuda
+def test_confusion_counts_two_streams_in_turn(cuda):
+    """Calls on two streams in turn, each stream with its own workspace:
+    every result equals the plain version's."""
+    inputs = [_inputs((2, 128, 128), 0.5, seed=s) for s in (31, 32)]
+    want = [cc.confusion_counts_batch_reference(p, t) for p, t in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(cc.confusion_counts_batch(*inputs[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(v, want[i]) for v in got[i])
+    assert {(0, s.cuda_stream) for s in streams} <= set(cc._workspaces)
+
+
+def _capture(fn):
+    """``fn`` warmed up on a side stream, then captured in a CUDA graph:
+    (graph, what the capture returned)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+@pytest.mark.cuda
+def test_confusion_counts_graph_replays_equal_eager(cuda):
+    """Two graphs, each with its own zeroed workspace, replayed in turn
+    with eager calls on the default stream between them: every replay
+    gives the eager bits."""
+    inputs = [_inputs((2, 128, 128), 0.5, seed=41),
+              _inputs((16, 128, 128), 0.3, seed=42)]
+    thresholds = (0.5, 0.3)
+    eager = [cc.confusion_counts_batch(p, t, thr)
+             for (p, t), thr in zip(inputs, thresholds)]
+    graphs = [_capture(lambda p=p, t=t, thr=thr:
+                       cc.confusion_counts_batch(p, t, thr))
+              for (p, t), thr in zip(inputs, thresholds)]
+    for _ in range(3):
+        for i, (graph, out) in enumerate(graphs):
+            graph.replay()
+            between = cc.confusion_counts_batch(*inputs[1 - i],
+                                                thresholds[1 - i])
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager[i])
+            assert torch.equal(between, eager[1 - i])
+
+
+@pytest.mark.cuda
+def test_confusion_counts_call_is_one_kernel_launch(cuda):
+    """At the evaluation shape a call runs the kernel once and no other
+    device op: no fill, no derive, no cast."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p, t = _inputs((2, 128, 128), 0.5, seed=51)
+    cc.confusion_counts_batch(p, t)  # build, warm up, make the workspace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cc.confusion_counts_batch(p, t)
+        torch.cuda.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA}
+    assert len(ops) == 1 and all(
+        "confusion_counts" in k and c == 1 for k, c in ops.items()), ops
+
+
+@pytest.mark.cuda
+def test_confusion_counts_kernel_refuses_a_plan_it_does_not_take(cuda):
+    """The C entry point checks the plan and the workspace: threads that
+    are not a multiple of 32 or above 256, no blocks or too many, groups
+    past the end or not 16-byte aligned, count fields too narrow for H*W
+    or too wide for one word, a workspace short of a slot a sample.  An
+    error, not a fallback.  The plans it takes, with either way of
+    meeting, give the plain version's counts."""
+    fn = cc._kernel()
+    p, t = _inputs((2, 128, 128), 0.5, seed=61)
+    out = torch.empty((2, 4), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ws = cc._workspaces.persistent(p.device, stream, 8)
+    plan = cc.plan_for(p, t)
+
+    def run(pl, ws_ints=8):
+        return fn(p.data_ptr(), t.data_ptr(), 0.5, 2, 128 * 128,
+                  *pl.c_args(), out.data_ptr(), ws.data_ptr(), ws_ints,
+                  stream)
+
+    for bad in (dataclasses.replace(plan, threads=48),
+                dataclasses.replace(plan, threads=512),
+                dataclasses.replace(plan, blocks=0),
+                dataclasses.replace(plan, blocks=cc.MAX_BLOCKS + 1),
+                dataclasses.replace(plan, groups=plan.groups + 1),
+                dataclasses.replace(plan, head=1, groups=plan.groups - 1),
+                dataclasses.replace(plan, field_bits=14),
+                dataclasses.replace(plan, field_bits=22),
+                dataclasses.replace(plan, field_bits=-1)):
+        assert run(bad) != 0, bad
+    assert run(plan, ws_ints=7) != 0
+    ref = cc.confusion_counts_batch_reference(p, t)
+    # Both ways of meeting: one 64-bit word a sample (the plan's at this
+    # shape), and three int32 counts and a ticket.
+    assert plan.field_bits == 15
+    for good in (plan, dataclasses.replace(plan, field_bits=0), plan):
+        out.zero_()
+        assert run(good) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), good
+    assert not bool(ws.any())
 
 
 # The fused FocalDice kernels: the shapes chip_smoke.py checks, with the
