@@ -47,7 +47,23 @@ Phases, each of which fails the run if it fails:
    1 and 2, unaligned rows, every plan: resident, resident split over
    several clusters an image, streamed) and time them at the main
    paths' shapes and at 16x3x1024x1024, back to back and inside a CUDA
-   graph (device time alone), beside a ``torch.mul`` of the same bytes.
+   graph (device time alone), beside a ``torch.mul`` of the same bytes;
+9. drive Pix2Pix GAN training, ``python -m gan_aug_pfa_torch.train_gan`` at
+   its defaults (256x256, batch 1, bf16, full width) for 2 epochs over a
+   generated 14-city tree, then ``--resume --num-epochs 3``; check the
+   losses, the checkpoint files, the 256x768 sample strip and a strict load
+   of the epoch-3 generator; compare one fp32 D+G step on the card with
+   the CPU's; time GAN steps/s at batch 1, profile one epoch and count the
+   step's FLOPs against the card's dense bf16 peak;
+10. drive synthesis, ``python -m gan_aug_pfa_torch.generate_synthetic`` at
+   its defaults (256x256, batch 4, fp32) with the epoch-3 generator; check
+   the 14 triples (img1 and labels equal to the cache through the
+   normalize/denormalize replay and x255, img2 within 1 LSB of a CPU run
+   of the same generator); time it (pairs/s, generator and PNG-write
+   time); then train on the real and synthetic pairs, ``python -m
+   gan_aug_pfa_torch.train --use-synthetic`` for 2 epochs, and evaluate
+   its ``best_model.pth``, with the fused-loss and confusion-counts
+   (calls, launches) set to 0 just before each and read just after.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -110,6 +126,20 @@ PHOTOMETRIC_ATOL = 2e-6
 # images differ by the photometric kernels' rounding, and labels by a
 # nearest sample that a coordinate rounding moves, at most 0.1%.
 CHAIN_ATOL, LABEL_MISMATCH_SHARE = 1e-4, 1e-3
+# H100 SXM data sheet: dense bf16 tensor-core rate.
+BF16_OPS_PER_S = 989e12
+# One fp32 GAN D+G step, card (TF32 off) vs CPU from one init: loss_D
+# differs by the forwards' rounding; loss_G also by D's first Adam step,
+# which would move a parameter whose gradient were rounding noise by up to
+# lr in either direction.  No D parameter has such a gradient (every conv
+# without a bias feeds a BatchNorm with trained affine parameters):
+# measured 8.3e-8 and 6.0e-8 relative on an H100.
+GAN_LOSS_D_RTOL = GAN_LOSS_G_RTOL = 1e-5
+# Synthesis, card vs CPU at fp32: img2 pixels within 1 LSB, on at most
+# this share of pixels (a float32 rounding difference across an integer
+# boundary of the truncating byte cast; measured 0.0035% on an H100).
+SYNTH_LSB_SHARE = 0.005
+SUBDIR = "Onera Satellite Change Detection Dataset"
 
 
 def write_png(path, arr):
@@ -1273,6 +1303,281 @@ def aug_throughput(torch, native_ds):
     return float(np.median(steps_s))
 
 
+def gan_step_flops(torch, trainer, size):
+    """FLOPs of one D+G step (batch 1) from the layer shapes: 2 x
+    multiply-adds of every convolution and transposed convolution (BatchNorm,
+    activations, losses and Adam not counted).  With F_G and F_D one
+    forward's and F_G0 and F_D0 their first layers': the D step's G forward
+    F_G; two D passes of forward, weight gradient and input gradient
+    without the first layer's, 2 (3 F_D - F_D0); the G step's G forward,
+    weight gradient and input gradient without the first layer's,
+    3 F_G - F_G0; its D pass forward and input gradient, 2 F_D."""
+    counts = []
+
+    def hook(module, inputs, out):
+        if isinstance(module, torch.nn.ConvTranspose2d):
+            macs = inputs[0].numel() * module.out_channels * module.weight[
+                0, 0].numel()
+        else:
+            macs = out.numel() * module.weight[0].numel()
+        counts.append(2 * macs)
+
+    totals = []
+    for model, channels in ((trainer.generator, 3),
+                            (trainer.discriminator, 6)):
+        hooks = [m.register_forward_hook(hook) for m in model.modules()
+                 if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+        counts.clear()
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, channels, size, size,
+                                     device=trainer.device))
+        for h in hooks:
+            h.remove()
+        totals.append((sum(counts), counts[0]))
+    (f_g, f_g0), (f_d, f_d0) = totals
+    return {"step": 4 * f_g - f_g0 + 8 * f_d - 2 * f_d0,
+            "g_forward": f_g, "d_forward": f_d}
+
+
+def phase_gan(torch, root):
+    """GAN training at its defaults through its CLI, in this process: 2
+    epochs over the 14 cities (14 steps of batch 1 an epoch), then a
+    resumed third; the files, the strip and the epoch-3 generator."""
+    from gan_aug_pfa_torch import train_gan as gan_cli
+    from gan_aug_pfa_torch.data import png
+    from gan_aug_pfa_torch.models import UNetGenerator
+
+    write_oscd_tree(root)
+    t0 = time.time()
+    history = gan_cli.main(["--root-dir", root, "--num-epochs", "2"])
+    wall = time.time() - t0
+    resumed = gan_cli.main(["--root-dir", root, "--num-epochs", "3",
+                            "--resume"])
+    losses = {k: history[k] + resumed[k] for k in ("loss_d", "loss_g")}
+    print(f"GAN training: train_gan main wall {wall:.2f} s for 2 epochs, "
+          f"resumed third; losses {losses}")
+    if len(losses["loss_d"]) != 3 or not np.isfinite(
+            losses["loss_d"] + losses["loss_g"]).all():
+        raise AssertionError(f"GAN losses {losses}")
+    ckpt_dir = os.path.join(root, "gan_checkpoints")
+    want = sorted(f"{kind}_epoch_{e}.pth" for kind in ("generator",
+                                                       "discriminator")
+                  for e in (2, 3)) + ["last_discriminator.pth",
+                                      "last_generator.pth"]
+    if sorted(os.listdir(ckpt_dir)) != want:
+        raise AssertionError(f"GAN checkpoints {os.listdir(ckpt_dir)}")
+    strips = sorted(os.listdir(os.path.join(root, "gan_samples")))
+    shapes = [png.decode_rgb(os.path.join(root, "gan_samples", f)).shape
+              for f in strips]
+    if (len(strips) != 2 or not strips[1].endswith("_epoch_003.png")
+            or any(sh != (256, 768, 3) for sh in shapes)):
+        raise AssertionError(f"GAN strips {strips} {shapes}")
+    UNetGenerator().load_state_dict(torch.load(
+        os.path.join(ckpt_dir, "generator_epoch_3.pth"), weights_only=True),
+        strict=True)
+    print(f"GAN files: {want}; strips {strips} at 256x768; "
+          "generator_epoch_3.pth loads strictly")
+    return losses
+
+
+def phase_gan_card_vs_cpu(torch, ds):
+    """One fp32 D+G step from one seeded init on the card (TF32 off) and on
+    the CPU, on the first pair of the cache."""
+    from gan_aug_pfa_torch.config import GANTrainConfig
+    from gan_aug_pfa_torch.train.gan import GANTrainer
+
+    losses = []
+    for device in ("cuda", "cpu"):
+        trainer = GANTrainer(GANTrainConfig(compute_dtype="float32"), device)
+        a, b = (torch.from_numpy(x[:1]).permute(0, 3, 1, 2).contiguous()
+                .to(device) for x in (ds.img1, ds.img2))
+        losses.append([float(v) for v in trainer.train_batch(a, b)])
+    rel = [abs(c - p) / abs(p) for c, p in zip(*losses)]
+    print(f"GAN step fp32 card vs CPU: (loss_D, loss_G) {losses[0]} vs "
+          f"{losses[1]}, relative differences {rel} (tolerances "
+          f"{GAN_LOSS_D_RTOL}, {GAN_LOSS_G_RTOL})")
+    if rel[0] > GAN_LOSS_D_RTOL or rel[1] > GAN_LOSS_G_RTOL:
+        raise AssertionError("GAN step on the card disagrees with the CPU")
+    return rel
+
+
+def gan_throughput(torch, ds):
+    """GAN steps/s at batch 1, bf16, 256x256: one warm-up epoch over the 14
+    pairs, then PASSES timed epochs; a profile of one epoch; the step's
+    FLOPs against the dense bf16 peak."""
+    from gan_aug_pfa_torch.config import GANTrainConfig
+    from gan_aug_pfa_torch.pipelines import DeviceCache
+    from gan_aug_pfa_torch.train.gan import GANTrainer
+
+    cache = DeviceCache.from_dataset(ds, "cuda")
+    trainer = GANTrainer(GANTrainConfig(), "cuda")
+    rng = np.random.RandomState(SEED)
+    trainer.train_epoch(cache, rng)
+    rates = []
+    for _ in range(PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_epoch(cache, rng)
+        torch.cuda.synchronize()
+        rates.append(len(cache) / (time.perf_counter() - t0))
+    median = float(np.median(rates))
+    print(f"GAN throughput (bf16, 256x256, batch 1, {len(cache)} steps an "
+          f"epoch): median {median:.2f} steps/s over {PASSES} epochs, range "
+          f"[{min(rates):.2f}, {max(rates):.2f}]")
+    busy_us, kernels = device_breakdown(
+        torch, lambda: trainer.train_epoch(cache, rng),
+        f"one GAN epoch ({len(cache)} steps, batch 1, bf16)", (), top=10)
+    launches = sum(e.count for e in kernels) / len(cache)
+    flops = gan_step_flops(torch, trainer, 256)
+    share = flops["step"] * median / BF16_OPS_PER_S
+    print(f"GAN step: {launches:.1f} kernel launches a step; "
+          f"{flops['step'] / 1e9:.2f} GFLOP a step (G forward "
+          f"{flops['g_forward'] / 1e9:.2f}, D forward "
+          f"{flops['d_forward'] / 1e9:.2f}), at {median:.2f} steps/s "
+          f"{flops['step'] * median / 1e12:.2f} TFLOP/s, "
+          f"{100 * share:.2f}% of the dense bf16 peak "
+          f"({BF16_OPS_PER_S / 1e12:.0f} TFLOP/s)")
+    return {"steps_s": rates, "launches_per_step": launches,
+            "busy_us": busy_us, "flops": flops, "peak_share": share}
+
+
+def phase_synthesis(torch, root):
+    """Synthesis at its defaults through its CLI, in this process, with the
+    epoch-3 generator; the 14 triples against the cache and a CPU run; the
+    generator's and the PNG writer's time."""
+    from gan_aug_pfa_torch import checkpoint, generate_synthetic as synth_cli
+    from gan_aug_pfa_torch.data import png
+    from gan_aug_pfa_torch.data.loader import (
+        build_cached_dataset,
+        float_to_uint8,
+    )
+    from gan_aug_pfa_torch.data.scanner import create_sample_lists
+    from gan_aug_pfa_torch.models import UNetGenerator
+    from gan_aug_pfa_torch.train.gan import generate
+
+    t0 = time.time()
+    n = synth_cli.main(["--root-dir", root, "--generator-checkpoint-name",
+                        "generator_epoch_3.pth"])
+    wall = time.time() - t0
+    if n != len(CITIES):
+        raise AssertionError(f"synthesis wrote {n} samples")
+    ds = build_cached_dataset(
+        create_sample_lists(root, SUBDIR, mode="all", verbose=False),
+        (256, 256), verbose=False)
+    generator = UNetGenerator()
+    checkpoint.restore_model_only(
+        os.path.join(root, "gan_checkpoints", "generator_epoch_3.pth"),
+        generator)
+    # NHWC views of an NCHW cache, as the pipeline passes them.
+    img1_cpu = torch.from_numpy(ds.img1).permute(0, 3, 1, 2).contiguous()
+    fake_cpu = np.concatenate([
+        generate(generator, img1_cpu[i:i + 4].permute(0, 2, 3, 1)).numpy()
+        for i in range(0, len(ds), 4)])
+    base = os.path.join(root, "synthetic_data")
+    diffs = []
+    for i, city in enumerate(ds.cities):
+        img1 = png.decode_rgb(os.path.join(base, "images", city,
+                                           f"img1_synth_{i}.png"))
+        img2 = png.decode_rgb(os.path.join(base, "images", city,
+                                           f"img2_synth_{i}.png"))
+        label = png.decode_gray(os.path.join(base, "labels", city,
+                                             f"cm_synth_{i}.png"))
+        replay = (ds.img1[i] * np.float32(2) - np.float32(1)) * np.float32(
+            0.5) + np.float32(0.5)
+        if not (np.array_equal(img1, float_to_uint8(replay))
+                and np.array_equal(label, ds.labels[i] * 255)):
+            raise AssertionError(f"synthetic img1 or label {i} ({city}) "
+                                 "differs from the cache")
+        diffs.append(np.abs(img2.astype(int) - float_to_uint8(fake_cpu[i])))
+    diffs = np.concatenate([d.ravel() for d in diffs])
+    share = float((diffs > 0).mean())
+    print(f"synthesis: {n} triples in {wall:.2f} s ({n / wall:.2f} pairs/s "
+          f"through the CLI, cache and model load included); img1 and "
+          f"labels equal the cache; img2 card vs CPU max {diffs.max()} LSB "
+          f"on {100 * share:.4f}% of pixels (limit 1 LSB on "
+          f"{100 * SYNTH_LSB_SHARE}%)")
+    if diffs.max() > 1 or share > SYNTH_LSB_SHARE:
+        raise AssertionError("synthetic img2 on the card disagrees with the "
+                             "CPU")
+
+    # The split: the generator over the 14 pairs at batch 4 on the card,
+    # and the 42 PNG writes on the host, PASSES times each.
+    generator.cuda()
+    img1 = img1_cpu.cuda().permute(0, 2, 3, 1)
+    replays = [float_to_uint8((x * np.float32(2) - np.float32(1))
+                              * np.float32(0.5) + np.float32(0.5))
+               for x in ds.img1]
+    gen_s, write_s = [], []
+    with tempfile.TemporaryDirectory() as out:
+        for rep in range(PASSES + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fakes = [generate(generator, img1[i:i + 4]) for i in
+                     range(0, len(ds), 4)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fake = np.concatenate([f.cpu().numpy() for f in fakes])
+            t2 = time.perf_counter()
+            for i in range(len(ds)):
+                for name, arr in (("a", replays[i]),
+                                  ("b", float_to_uint8(fake[i])),
+                                  ("c", ds.labels[i].astype(np.uint8) * 255)):
+                    png.write_png(os.path.join(out, f"{name}{i}.png"), arr)
+            if rep:  # the first pass warms cuDNN up
+                gen_s.append(t1 - t0)
+                write_s.append(time.perf_counter() - t2)
+    g, w = float(np.median(gen_s)), float(np.median(write_s))
+    print(f"synthesis split (fp32, 256x256, batch 4, {len(ds)} pairs, median "
+          f"of {PASSES}): generator {1e3 * g:.2f} ms ({len(ds) / g:.1f} "
+          f"pairs/s, range [{1e3 * min(gen_s):.2f}, {1e3 * max(gen_s):.2f}] "
+          f"ms), PNG writes {1e3 * w:.1f} ms ({len(ds) / w:.1f} pairs/s, "
+          f"range [{1e3 * min(write_s):.1f}, {1e3 * max(write_s):.1f}] ms); "
+          f"{len(ds) / (g + w):.1f} pairs/s together")
+    return {"cli_pairs_s": n / wall, "generator_s": gen_s, "write_s": write_s,
+            "img2_lsb_share": share}
+
+
+def phase_loop(torch, root):
+    """Siamese training on the real and the port's synthetic train pairs
+    through its CLI (2 epochs at the defaults), then an evaluation of the
+    trained model, each with its kernels' counts set to 0 just before and
+    read just after."""
+    from gan_aug_pfa_torch import evaluate
+    from gan_aug_pfa_torch.data.scanner import create_sample_lists
+    from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
+    from gan_aug_pfa_torch.ops.kernels.fused_loss import FocalDiceLossFn
+    from gan_aug_pfa_torch.train import __main__ as train_cli
+
+    train = create_sample_lists(root, SUBDIR, mode="train",
+                                use_synthetic=True, verbose=False)
+    n_synth = sum(s.is_synthetic for s in train)
+    reset_loss_counts(FocalDiceLossFn)
+    history = train_cli.main(["--root-dir", root, "--use-synthetic",
+                              "--num-epochs", "2"])
+    counts = loss_counts(FocalDiceLossFn)
+    steps = -(-len(train) // 4)
+    want = {"fwd": (2 * (steps + 1), 2 * (steps + 1)),
+            "bwd": (2 * steps, 2 * steps)}
+    print(f"loop training on {len(train)} pairs ({n_synth} synthetic): "
+          f"fused-loss (calls, launches) {counts}, train loss "
+          f"{history['train_loss']}, val loss {history['val_loss']}")
+    if n_synth != 11 or counts != want or not np.isfinite(
+            history["train_loss"] + history["val_loss"]).all():
+        raise AssertionError(f"loop training: {n_synth} synthetic pairs, "
+                             f"counts {counts}, expected {want}")
+    fn = cc.confusion_counts_batch
+    fn.calls = fn.launches = 0
+    report_path = os.path.join(root, "loop_report.json")
+    result = evaluate.main(["--root-dir", root, "--json-out", report_path])
+    eval_counts = (fn.calls, fn.launches)
+    print(f"loop evaluation: confusion_counts (calls, launches) "
+          f"{eval_counts}")
+    if eval_counts != (7, 7):
+        raise AssertionError(f"loop evaluation counts {eval_counts}")
+    check_report(result, report_path)
+    return {"loss": counts, "confusion_counts": eval_counts}
+
+
 def device_breakdown(torch, fn, label, ours, top=8):
     """Trace ``fn`` with torch.profiler: wall time, summed device kernel
     time (busy share) and the kernels that take the most device time, with
@@ -1363,6 +1668,15 @@ def main():
     native_shape = (4, 3, *native_ds.img1.shape[1:3])
     photo_errs, photo_t = phase_photometric(
         torch, ph, native_shape, native_ds.sizes[:4].tolist())
+    with tempfile.TemporaryDirectory() as root:
+        phase_gan(torch, root)
+        gan_ds = build_cached_dataset(
+            create_sample_lists(root, SUBDIR, mode="all", verbose=False),
+            (256, 256), verbose=False)
+        phase_gan_card_vs_cpu(torch, gan_ds)
+        gan_throughput(torch, gan_ds)
+        phase_synthesis(torch, root)
+        phase_loop(torch, root)
 
     # The main numbers are each path's shape: the evaluation's bs 2 for the
     # confusion counts (bs 16 and 16x1024x1024 beside them), the train

@@ -9,8 +9,10 @@ run on ``cuda`` unless the caller passes ``device="cpu"``.
 Ported so far: the OSCD evaluation path (scan, decode-once cache, the
 SiameseUNet forward, per-sample confusion counts through a hand-written
 CUDA kernel, macro-averaged metrics, ``python -m
-gan_aug_pfa_torch.evaluate``) and Siamese training (splits, FocalDice
-through hand-written forward and backward CUDA kernels, AdamW,
-ReduceLROnPlateau, checkpoints and resume, ``python -m
-gan_aug_pfa_torch.train``).
+gan_aug_pfa_torch.evaluate``), Siamese training with and without
+augmentation (splits, FocalDice through hand-written forward and backward
+CUDA kernels, photometric augmentation kernels, AdamW, ReduceLROnPlateau,
+checkpoints and resume, ``python -m gan_aug_pfa_torch.train``), Pix2Pix
+GAN training (``python -m gan_aug_pfa_torch.train_gan``) and synthesis of
+the fake "after" corpus (``python -m gan_aug_pfa_torch.generate_synthetic``).
 """

@@ -1,12 +1,17 @@
 """Checkpoints under the reference's file-naming contract.
 
-The reference saves a bare ``model.state_dict()`` as ``best_model.pth``
-and ``model_epoch_N.pth`` (reference train.py:307-321, loaded by
-evaluate.py:343-351).  This port reads and writes the same files, which
-the JAX package's CLIs load too.  ``last_state.pth`` is the port's resume
-file: model, optimizer, scheduler and early-stop state, the epoch and the
-best validation loss.  Reading the JAX package's ``.msgpack`` checkpoints
-is not ported yet.
+The reference saves a bare ``model.state_dict()`` as ``best_model.pth``,
+``model_epoch_N.pth``, ``generator_epoch_N.pth`` and
+``discriminator_epoch_N.pth`` (reference train.py:307-321,
+train_gan.py:149-154, loaded by evaluate.py:343-351 and
+generate_synthetic_data.py:48).  This port reads and writes the same
+files, which the JAX package's CLIs load too; ``generator_ema_epoch_N.pth``
+(``--ema-decay``) is one more bare generator ``state_dict``.  The resume
+files are the port's own: ``last_state.pth`` (Siamese: model, optimizer,
+scheduler and early-stop state, the epoch and the best validation loss)
+and ``last_generator.pth`` / ``last_discriminator.pth`` (GAN: model,
+optimizer, the generator's EMA and the epoch).  Reading the JAX package's
+``.msgpack`` checkpoints is not ported yet.
 """
 
 from __future__ import annotations
@@ -47,9 +52,15 @@ def _cpu_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu() for k, v in model.state_dict().items()}
 
 
+def save_state_dict(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
+    """Write a bare ``state_dict`` (its tensors on the CPU) atomically (tmp
+    file + rename)."""
+    _save_atomic(path, {k: v.detach().cpu() for k, v in state_dict.items()})
+
+
 def save_model(path: str, model: nn.Module) -> None:
-    """Write ``model.state_dict()`` atomically (tmp file + rename)."""
-    _save_atomic(path, _cpu_state_dict(model))
+    """Write ``model.state_dict()`` with ``save_state_dict``."""
+    save_state_dict(path, model.state_dict())
 
 
 def save_train_state(path: str, model: nn.Module,
@@ -80,6 +91,35 @@ def restore_train_state(path: str, model: nn.Module,
     stopper.load_state_dict(state["early_stop"])
     return {"epoch": int(state["epoch"]),
             "best_val_loss": float(state["best_val_loss"])}
+
+
+def save_gan_state(path: str, model: nn.Module,
+                   optimizer: torch.optim.Optimizer, epoch: int,
+                   ema: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """Write one GAN model's resume state atomically: the model and
+    optimizer state dicts, the epoch just finished and, for the generator
+    with an EMA, the EMA by parameter name."""
+    payload = {"model": _cpu_state_dict(model),
+               "optimizer": optimizer.state_dict(), "epoch": int(epoch)}
+    if ema is not None:
+        payload["ema"] = {k: v.detach().cpu() for k, v in ema.items()}
+    _save_atomic(path, payload)
+
+
+def restore_gan_state(path: str, model: nn.Module,
+                      optimizer: torch.optim.Optimizer,
+                      ema: Optional[Dict[str, torch.Tensor]] = None) -> int:
+    """Load a ``save_gan_state`` file into the given objects, in place.
+    The EMA tensors, when given, take the saved EMA, or the saved model's
+    parameters if the file has none.  Returns the epoch."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(state["model"], strict=True)
+    optimizer.load_state_dict(state["optimizer"])
+    if ema is not None:
+        source = state.get("ema", state["model"])
+        for name, v in ema.items():
+            v.copy_(source[name])
+    return int(state["epoch"])
 
 
 def restore_model_only(path: str, model: nn.Module) -> nn.Module:

@@ -1,8 +1,8 @@
 """Configuration (own copy of the JAX package's ``config.py``: the OSCD
-city list and split, directory names, and the fields that evaluation and
-Siamese training read, with the same defaults).  The JAX package's
-TPU-only knobs (mesh, remat, flat optimizer state and so on) are not
-ported."""
+city list and split, directory names, and the fields that evaluation,
+Siamese training, GAN training and synthesis read, with the same
+defaults).  The JAX package's TPU-only knobs (mesh, remat, flat optimizer
+state and so on) are not ported."""
 
 from __future__ import annotations
 
@@ -92,6 +92,61 @@ class EvalConfig:
     # "bfloat16" runs the model under bf16 autocast; "float32" runs it in
     # full float32 with TF32 off.
     compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass
+class GANTrainConfig:
+    """Defaults mirror reference train_gan.py:26-35 and the JAX package's
+    architecture knobs (``num_downs``, ``ngf``, ``ndf``, ``n_layers``: the
+    reference models' constructor defaults)."""
+
+    batch_size: int = 1
+    num_epochs: int = 200
+    learning_rate_g: float = 1e-4
+    learning_rate_d: float = 1e-4
+    beta1: float = 0.5
+    lambda_l1: float = 100.0
+    target_size: Tuple[int, int] = (256, 256)
+    save_every: int = 10
+    sample_every: int = 5
+    checkpoint_dir: str = "gan_checkpoints"
+    output_dir: str = "gan_samples"
+    n_channels: int = 3
+    num_downs: int = 7
+    ngf: int = 64
+    ndf: int = 64
+    n_layers: int = 3
+    seed: int = 0
+    # "bfloat16": bf16 autocast with fp32 params; "float32": TF32 off.
+    compute_dtype: str = "bfloat16"
+    # Continue from <checkpoint_dir>/last_{generator,discriminator}.pth.
+    resume: bool = False
+    # After every G update: ema <- ema * decay + params * (1 - decay);
+    # saved as generator_ema_epoch_N.pth.  None = off.
+    ema_decay: Optional[float] = None
+
+    def __post_init__(self):
+        if self.ema_decay is not None and not (0.0 <= self.ema_decay < 1.0):
+            raise ValueError(
+                f"ema_decay must be in [0, 1), got {self.ema_decay}"
+            )
+
+
+@dataclasses.dataclass
+class GenerateConfig:
+    """Defaults mirror reference generate_synthetic_data.py:13-24, with the
+    checkpoint named ``.pth`` (the port reads no ``.msgpack`` yet)."""
+
+    batch_size: int = 4
+    target_size: Tuple[int, int] = (256, 256)
+    generator_checkpoint_name: str = "generator_epoch_200.pth"
+    gan_checkpoint_dir: str = "gan_checkpoints"
+    synthetic_data_dir: str = SYNTHETIC_DATA_DIR_DEFAULT
+    n_channels: int = 3
+    num_downs: int = 7
+    ngf: int = 64
+    # float32 (TF32 off) by default, for PNGs comparable bit for bit.
+    compute_dtype: str = "float32"
 
 
 def parse_target_size(value: str) -> Tuple[int, int]:

@@ -229,3 +229,11 @@ def build_padded_native_dataset(
         print(f"Cached {n} samples at native size (padded to {hmax}x{wmax}, "
               f"{img1.nbytes * 2 / 1e6:.1f} MB of image data).")
     return ds
+
+
+def float_to_uint8(x: np.ndarray) -> np.ndarray:
+    """float [0,1] -> uint8 with truncation, as torchvision
+    ``to_pil_image``'s ``mul(255).byte()`` (reference
+    generate_synthetic_data.py:83-85; the JAX package's
+    data/loader.py:270-274)."""
+    return (np.clip(x, 0.0, 1.0) * 255.0).astype(np.uint8)

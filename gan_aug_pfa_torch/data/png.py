@@ -1,4 +1,4 @@
-"""PNG decoder on the standard library's ``zlib`` and numpy.
+"""PNG decoder and writer on the standard library's ``zlib`` and numpy.
 
 Decodes the files that evaluation and training read without PIL: every
 combination of bit depth and colour type that the PNG specification
@@ -24,6 +24,15 @@ package's loader falls back to PIL on a file its own decoder refuses, so
 it also reads formats other than PNG; this decoder does not.  CRCs are not
 checked.
 
+``write_png`` writes 8-bit gray (H, W) and RGB (H, W, 3) arrays the way
+Pillow 12.1.0's ``Image.fromarray(a).save(path)`` does, and the files are
+byte-identical to PIL's (tests/test_torch_synthesis.py): PIL's per-row
+filter choice (the filtered row with the least sum of bytes read as signed
+magnitudes, trying None, Up, Sub and Paeth in that order and keeping the
+first of equals; Average is tried only under PIL's ``optimize``), zlib
+level 6 with memLevel 9 and the ``Z_FILTERED`` strategy, and IDAT chunks
+of max(65536, 4 * width) bytes, as PIL's encoder hands them out.
+
 Unfiltering works on runs of rows with the same filter: None and Sub runs
 in one numpy step each, Up runs as a cumulative sum down the run, and
 Average/Paeth rows one by one (each byte depends on its left neighbour
@@ -34,6 +43,7 @@ and scattered into the full image.
 
 from __future__ import annotations
 
+import struct
 import zlib
 from typing import Tuple
 
@@ -273,3 +283,66 @@ def decode_gray(path: str) -> np.ndarray:
     if ct == 3:
         return _luma(_palette_lookup(img[..., 0], palette))
     return _luma(img)
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def _filter_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """PIL's filter choice for each scanline: every candidate is computed
+    from the raw rows at once, then each row keeps the first of None, Up,
+    Sub, Paeth with the least sum of min(v, 256 - v) over its bytes.
+    Returns (H, 1 + stride) uint8, the filter byte first."""
+    r = rows.astype(np.int16)
+    up = np.zeros_like(r)
+    up[1:] = r[:-1]
+    left = np.zeros_like(r)
+    left[:, bpp:] = r[:, :-bpp]
+    upleft = np.zeros_like(r)
+    upleft[1:, bpp:] = r[:-1, :-bpp]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    best = rows
+    ftype = np.zeros(rows.shape[0], np.uint8)
+    score = np.minimum(rows, 256 - rows.astype(np.int32)).sum(axis=1)
+    for code, pred in ((2, up), (1, left), (4, paeth)):
+        cand = ((r - pred) & 0xFF).astype(np.uint8)
+        s = np.minimum(cand, 256 - cand.astype(np.int32)).sum(axis=1)
+        better = s < score
+        best = np.where(better[:, None], cand, best)
+        ftype = np.where(better, np.uint8(code), ftype)
+        score = np.where(better, s, score)
+    return np.concatenate([ftype[:, None], best], axis=1)
+
+
+def encode_png(arr: np.ndarray) -> bytes:
+    """The PNG file of an 8-bit gray (H, W) or RGB (H, W, 3) array."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype != np.uint8 or not (
+            arr.ndim == 2 or (arr.ndim == 3 and arr.shape[2] == 3)):
+        raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8, got "
+                         f"{arr.dtype} {arr.shape}")
+    h, w = arr.shape[:2]
+    if not h or not w:
+        raise ValueError(f"empty image {arr.shape}")
+    bpp = 1 if arr.ndim == 2 else 3
+    raw = _filter_rows(arr.reshape(h, w * bpp), bpp)
+    comp = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    data = comp.compress(raw.tobytes()) + comp.flush()
+    block = max(65536, 4 * w)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if bpp == 1 else 2, 0, 0, 0)
+    return b"".join([_SIGNATURE, _chunk(b"IHDR", ihdr),
+                     *(_chunk(b"IDAT", data[i:i + block])
+                       for i in range(0, len(data), block)),
+                     _chunk(b"IEND", b"")])
+
+
+def write_png(path: str, arr: np.ndarray) -> None:
+    """Write ``encode_png(arr)`` to ``path``."""
+    data = encode_png(arr)
+    with open(path, "wb") as f:
+        f.write(data)

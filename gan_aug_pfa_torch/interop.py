@@ -1,16 +1,20 @@
-"""Weights in and out of the port's SiameseUNet.
+"""Weights in and out of the port's models.
 
-  * ``siamese_state_dict_from_jax``: a JAX/Flax ``{"params",
-    "batch_stats"}`` tree of numpy arrays (the JAX package's SiameseUNet
-    variables) to this port's ``state_dict``, loadable with
-    ``strict=True``;
+  * ``siamese_state_dict_from_jax``, ``generator_state_dict_from_jax``,
+    ``discriminator_state_dict_from_jax``: a JAX/Flax ``{"params",
+    "batch_stats"}`` tree of numpy arrays (the JAX package's SiameseUNet,
+    UNetGenerator or NLayerDiscriminator variables) to this port's
+    ``state_dict``, loadable with ``strict=True``;
   * ``load_torch_state_dict``: a ``.pth`` file (a bare reference
     ``state_dict``) as a dict of CPU tensors.
 
 Layout: Flax conv kernels are (kh, kw, in, out), torch's are
-(out, in, kh, kw).  Flax BatchNorm ``scale``/``bias`` + ``mean``/``var``
-map to torch ``weight``/``bias`` + ``running_mean``/``running_var``;
-``num_batches_tracked`` is emitted as 0.
+(out, in, kh, kw).  A Flax ``ConvTranspose`` kernel is (kh, kw, in, out)
+too and convolves; torch's ``ConvTranspose2d`` weight is
+(in, out, kh, kw) and correlates, so the taps are flipped in both spatial
+axes (the JAX package's interop.py:52-59).  Flax BatchNorm
+``scale``/``bias`` + ``mean``/``var`` map to torch ``weight``/``bias`` +
+``running_mean``/``running_var``; ``num_batches_tracked`` is emitted as 0.
 """
 
 from __future__ import annotations
@@ -42,6 +46,13 @@ def _conv(kernel, dtype=np.float32) -> torch.Tensor:
     return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)), dtype)
 
 
+def _conv_transpose(kernel, dtype=np.float32) -> torch.Tensor:
+    """Flax ConvTranspose HWIO kernel -> torch (in, out, kh, kw) weight,
+    spatially flipped."""
+    k = np.asarray(kernel)[::-1, ::-1]
+    return _t(np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1))), dtype)
+
+
 def _bn(out, prefix, p, s, dtype) -> None:
     out[prefix + ".weight"] = _t(p["scale"], dtype)
     out[prefix + ".bias"] = _t(p["bias"], dtype)
@@ -71,6 +82,62 @@ def siamese_state_dict_from_jax(variables: Dict[str, Any],
                 stats[name][bname], dtype)
     out["conv_last.weight"] = _conv(params["conv_head"]["kernel"], dtype)
     out["conv_last.bias"] = _t(params["conv_head"]["bias"], dtype)
+    return out
+
+
+def _skip_block(out, params, stats, prefix, dtype) -> None:
+    """One UnetSkipBlock subtree at the Sequential ``prefix``: the index
+    layout of models/pix2pix.py (outermost: no upnorm; innermost: no
+    submodule)."""
+    if "upnorm" not in params:  # outermost
+        down, sub, up = 0, 1, 3
+    elif "submodule" not in params:  # innermost
+        down, sub, up = 1, None, 3
+    else:
+        down, sub, up = 1, 3, 5
+    out[f"{prefix}.{down}.weight"] = _conv(params["downconv"]["kernel"],
+                                           dtype)
+    if "downnorm" in params:
+        _bn(out, f"{prefix}.2", params["downnorm"], stats["downnorm"], dtype)
+    if sub is not None:
+        _skip_block(out, params["submodule"], stats["submodule"],
+                    f"{prefix}.{sub}.model", dtype)
+    out[f"{prefix}.{up}.weight"] = _conv_transpose(
+        params["upconv"]["kernel"], dtype)
+    if "bias" in params["upconv"]:
+        out[f"{prefix}.{up}.bias"] = _t(params["upconv"]["bias"], dtype)
+    if "upnorm" in params:
+        _bn(out, f"{prefix}.{up + 1}", params["upnorm"], stats["upnorm"],
+            dtype)
+
+
+def generator_state_dict_from_jax(variables: Dict[str, Any],
+                                  dtype=np.float32
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX UNetGenerator's variables as the port's ``state_dict``."""
+    out: Dict[str, torch.Tensor] = {}
+    _skip_block(out, variables["params"]["model"],
+                variables["batch_stats"]["model"], "model.model", dtype)
+    return out
+
+
+def discriminator_state_dict_from_jax(variables: Dict[str, Any],
+                                      dtype=np.float32
+                                      ) -> Dict[str, torch.Tensor]:
+    """The JAX NLayerDiscriminator's variables as the port's
+    ``state_dict``: convs at Sequential indices 0, 2, 5, ..., norms at 3,
+    6, ... (conv0, conv1..conv{n_layers}, conv_out; bn1..bn{n_layers})."""
+    params, stats = variables["params"], variables["batch_stats"]
+    n_bn = sum(1 for k in params if k.startswith("bn"))
+    convs = [f"conv{n}" for n in range(n_bn + 1)] + ["conv_out"]
+    idxs = [0] + [2 + 3 * n for n in range(n_bn + 1)]
+    out: Dict[str, torch.Tensor] = {}
+    for name, i in zip(convs, idxs):
+        out[f"model.{i}.weight"] = _conv(params[name]["kernel"], dtype)
+        if "bias" in params[name]:
+            out[f"model.{i}.bias"] = _t(params[name]["bias"], dtype)
+    for n in range(1, n_bn + 1):
+        _bn(out, f"model.{3 * n}", params[f"bn{n}"], stats[f"bn{n}"], dtype)
     return out
 
 

@@ -6,10 +6,12 @@ reference's train.py:34-128), with the same formulas:
   combined   = a * BCEWithLogits(pos_weight) + (1-a) * dice
   focal_dice = b * focal + (1-b) * dice
 
+  gan_bce    = BCEWithLogits against an all-ones / all-zeros patch map
+  l1         = mean |x - y|
+
 Everything upcasts to float32.  ``focal_dice_loss`` here is the composite
 the reference computes; training calls the fused kernel's wrapper
-(``ops/kernels/fused_loss.py``), which computes the same function.  The
-GAN losses come with the GAN slice.
+(``ops/kernels/fused_loss.py``), which computes the same function.
 """
 
 from __future__ import annotations
@@ -86,3 +88,16 @@ def focal_dice_loss(logits: torch.Tensor, targets: torch.Tensor,
     t = targets.to(torch.float32).reshape(logits.shape)
     return beta * focal_loss(logits, t, focal_gamma, focal_alpha) + (
         1.0 - beta) * dice_loss(logits, t, dice_smooth)
+
+
+def gan_bce_loss(pred_logits: torch.Tensor, is_real: bool) -> torch.Tensor:
+    """BCEWithLogits against an all-ones (``is_real``) or all-zeros patch
+    map (reference train_gan.py:42, 58-67)."""
+    x = pred_logits.to(torch.float32)
+    target = torch.ones_like(x) if is_real else torch.zeros_like(x)
+    return bce_with_logits(x, target)
+
+
+def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean absolute error in float32 (reference train_gan.py:43, 68)."""
+    return torch.mean(torch.abs(x.to(torch.float32) - y.to(torch.float32)))

@@ -1,12 +1,16 @@
-"""End-to-end pipelines.  Ported so far, on the device-resident cached
-path: Siamese training with and without augmentation (the JAX package's
-``run_siamese_training``, pipelines.py:88-392) and evaluation
-(``run_evaluation``, pipelines.py:755-991).
+"""End-to-end pipelines, on the device-resident cached path: Siamese
+training with and without augmentation (the JAX package's
+``run_siamese_training``, pipelines.py:88-392), Pix2Pix GAN training
+(``run_gan_training``, :400-606), synthetic-pair generation
+(``run_generate_synthetic``, :614-747) and evaluation (``run_evaluation``,
+:755-991).
 
 Not ported yet: tuning, ``--stream``, the run log, the profiler and NaN
 checks, deferred and background checkpoint writes, the SIGTERM handler;
-for evaluation visualizations, ``--post-process``, ``--ensemble``,
-``--threshold-sweep``, serving artifacts and single-pair evaluation.
+the GAN's ``--batched-disc``, ``--concat-free-disc`` and
+``--shared-gen-fwd``; serving artifacts for synthesis; for evaluation
+visualizations, ``--post-process``, ``--ensemble``, ``--threshold-sweep``,
+serving artifacts and single-pair evaluation.
 """
 
 from __future__ import annotations
@@ -15,27 +19,38 @@ import dataclasses
 import json
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import checkpoint as ckpt
-from .config import DataConfig, EvalConfig, SiameseTrainConfig
+from .config import (
+    DataConfig,
+    EvalConfig,
+    GANTrainConfig,
+    GenerateConfig,
+    SiameseTrainConfig,
+)
 from .data.loader import (
     CachedDataset,
     PaddedNativeDataset,
     build_cached_dataset,
     build_padded_native_dataset,
+    float_to_uint8,
 )
+from .data.png import write_png
 from .data.scanner import create_sample_lists
 from .device import resolve_device
 from .metrics import METRIC_KEYS, metrics_from_counts
+from .models.pix2pix import UNetGenerator
 from .models.siamese_unet import SiameseUNet
 from .ops.kernels.confusion_counts import confusion_counts_batch
+from .train.gan import GANTrainer, generate
 from .train.optim import get_learning_rate
 from .train.plateau import EarlyStopping, make_plateau_scheduler
 from .train.siamese import SiameseTrainer, predict
+from .utils.viz import save_gan_sample_strip
 
 
 @dataclasses.dataclass
@@ -206,6 +221,180 @@ def _run_siamese_epochs(trainer, train_cfg, scheduler, stopper, start_epoch,
                       f"{best_val_loss:.4f}).")
             break
     return best_val_loss
+
+
+def run_gan_training(
+    data_cfg: DataConfig,
+    gan_cfg: GANTrainConfig,
+    verbose: bool = True,
+    device="cuda",
+    initial_state_dicts: Optional[Tuple[Dict[str, torch.Tensor],
+                                        Dict[str, torch.Tensor]]] = None,
+) -> Optional[Dict]:
+    """Train the Pix2Pix GAN on every city, no split (reference
+    train_gan.py:95-155, quirk kept), from a cache at the target size on
+    the device.  ``initial_state_dicts`` = (generator, discriminator)
+    replaces the seeded init (a JAX init carried across, say).  Returns the
+    history {"loss_d", "loss_g", "trainer"}, or None when there is no
+    sample."""
+    dev = resolve_device(device)
+    checkpoint_dir = os.path.join(data_cfg.root_dir, gan_cfg.checkpoint_dir)
+    output_dir = os.path.join(data_cfg.root_dir, gan_cfg.output_dir)
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    os.makedirs(output_dir, exist_ok=True)
+
+    samples = create_sample_lists(
+        data_cfg.root_dir, data_cfg.dataset_subdir, data_cfg.synthetic_data_dir,
+        mode="all", verbose=verbose,
+    )
+    if not samples:
+        print("Error: GAN Training dataset is empty. Check dataset path and "
+              "structure.")
+        return None
+    ds = build_cached_dataset(samples, gan_cfg.target_size, verbose=verbose)
+    if verbose:
+        print(f"GAN Dataset loaded: {len(ds)} train samples.")
+
+    trainer = GANTrainer(gan_cfg, dev)
+    if initial_state_dicts is not None:
+        trainer.load_state_dicts(*initial_state_dicts)
+    start_epoch = 1
+    if gan_cfg.resume:
+        pg = ckpt.find_checkpoint(checkpoint_dir, "last_generator")
+        pd = ckpt.find_checkpoint(checkpoint_dir, "last_discriminator")
+        if pg and pd:
+            epoch = ckpt.restore_gan_state(pg, trainer.generator,
+                                           trainer.opt_g, trainer.ema)
+            ckpt.restore_gan_state(pd, trainer.discriminator, trainer.opt_d)
+            start_epoch = epoch + 1
+            if verbose:
+                print(f"Resumed GAN from epoch {start_epoch}.")
+
+    cache = DeviceCache.from_dataset(ds, dev)
+    # The epoch order's only source; a resumed run restarts it, as the JAX
+    # package does (pipelines.py:456).
+    epoch_rng = np.random.RandomState(gan_cfg.seed)
+    # One fixed preview pair for every strip (JAX pipelines.py:457-462).
+    preview_i = int(np.random.RandomState(gan_cfg.seed + 1).randint(len(ds)))
+    history = {"loss_d": [], "loss_g": []}
+    for epoch in range(start_epoch, gan_cfg.num_epochs + 1):
+        t0 = time.perf_counter()
+        loss_d, loss_g = trainer.train_epoch(cache, epoch_rng)
+        dt = time.perf_counter() - t0
+        history["loss_d"].append(loss_d)
+        history["loss_g"].append(loss_g)
+        if verbose:
+            print(f"Epoch {epoch} - Avg Loss D: {loss_d:.4f}, Avg Loss G: "
+                  f"{loss_g:.4f} ({dt:.2f}s)")
+        last = epoch == gan_cfg.num_epochs
+        if epoch % gan_cfg.sample_every == 0 or last:
+            i = preview_i
+            fake = trainer.generate(cache.img1[i:i + 1].permute(0, 2, 3, 1))
+            path = save_gan_sample_strip(ds.img1[i], fake[0].cpu().numpy(),
+                                         ds.img2[i], ds.cities[i], epoch,
+                                         output_dir)
+            if verbose:
+                print(f"Saved sample image to {path}")
+        if epoch % gan_cfg.save_every == 0 or last:
+            _save_gan_checkpoints(trainer, checkpoint_dir, epoch)
+            if verbose:
+                print(f"GAN Checkpoints saved for epoch {epoch}")
+    if verbose:
+        print("GAN Training finished.")
+    history["trainer"] = trainer
+    return history
+
+
+def _save_gan_checkpoints(trainer: GANTrainer, checkpoint_dir: str,
+                          epoch: int) -> None:
+    """Bare state_dicts ``generator_epoch_N.pth``,
+    ``discriminator_epoch_N.pth`` (and ``generator_ema_epoch_N.pth`` with
+    an EMA), then the resume pair ``last_generator.pth`` and
+    ``last_discriminator.pth`` (JAX pipelines.py:530-573)."""
+    def path(stem):
+        return os.path.join(checkpoint_dir, ckpt.checkpoint_name(stem))
+
+    ckpt.save_model(path(f"generator_epoch_{epoch}"), trainer.generator)
+    ckpt.save_model(path(f"discriminator_epoch_{epoch}"),
+                    trainer.discriminator)
+    if trainer.ema is not None:
+        ckpt.save_state_dict(path(f"generator_ema_epoch_{epoch}"),
+                             trainer.ema_state_dict())
+    ckpt.save_gan_state(path("last_generator"), trainer.generator,
+                        trainer.opt_g, epoch, trainer.ema)
+    ckpt.save_gan_state(path("last_discriminator"), trainer.discriminator,
+                        trainer.opt_d, epoch)
+
+
+def run_generate_synthetic(
+    data_cfg: DataConfig,
+    gen_cfg: GenerateConfig,
+    verbose: bool = True,
+    device="cuda",
+) -> int:
+    """Write the synthetic corpus (reference generate_synthetic_data.py:
+    33-89): for every sample of every city, ``images/<city>/
+    img1_synth_N.png`` (the cached img1), ``img2_synth_N.png`` (the
+    generator's eval-mode output) and ``labels/<city>/cm_synth_N.png``
+    (the real label x255).  Returns the number of samples written, 0 when
+    there is no sample or no checkpoint."""
+    dev = resolve_device(device)
+    samples = create_sample_lists(
+        data_cfg.root_dir, data_cfg.dataset_subdir, data_cfg.synthetic_data_dir,
+        mode="all", verbose=verbose,
+    )
+    if not samples:
+        print("Error: Original training dataset is empty. Cannot generate "
+              "synthetic data.")
+        return 0
+    ds = build_cached_dataset(samples, gen_cfg.target_size, verbose=verbose)
+    gen_path = os.path.join(data_cfg.root_dir, gen_cfg.gan_checkpoint_dir,
+                            gen_cfg.generator_checkpoint_name)
+    if verbose:
+        print(f"Loading GAN generator from: {gen_path}")
+    if not os.path.exists(gen_path):
+        print(f"Error: Generator checkpoint not found at {gen_path}")
+        return 0
+    nc = gen_cfg.n_channels
+    generator = UNetGenerator(nc, nc, num_downs=gen_cfg.num_downs,
+                              ngf=gen_cfg.ngf)
+    ckpt.restore_model_only(gen_path, generator)
+    generator.to(dev)
+
+    out_base = os.path.join(data_cfg.root_dir, gen_cfg.synthetic_data_dir)
+    # NCHW on the device, as the training caches; the generator takes NHWC
+    # views of it.
+    img1_dev = torch.from_numpy(ds.img1).to(dev).permute(0, 3, 1, 2)
+    img1_dev = img1_dev.contiguous().permute(0, 2, 3, 1)
+    bs = gen_cfg.batch_size
+    count = 0
+    for start in range(0, len(ds), bs):
+        fake = generate(generator, img1_dev[start:start + bs],
+                        gen_cfg.compute_dtype).cpu().numpy()
+        for j, fake_j in enumerate(fake):
+            i = start + j
+            img_dir = os.path.join(out_base, "images", ds.cities[i])
+            lbl_dir = os.path.join(out_base, "labels", ds.cities[i])
+            os.makedirs(img_dir, exist_ok=True)
+            os.makedirs(lbl_dir, exist_ok=True)
+            # The reference's img1 went through normalize -> denormalize in
+            # float32 before the truncating byte cast; that round trip lands
+            # a hair below integer pixel values, so it is replayed here, in
+            # numpy float32 with separate roundings (JAX :713-726).
+            img1 = ds.img1[i].astype(np.float32)
+            img1 = (img1 * np.float32(2.0) - np.float32(1.0)) * np.float32(
+                0.5) + np.float32(0.5)
+            write_png(os.path.join(img_dir, f"img1_synth_{i}.png"),
+                      float_to_uint8(img1))
+            write_png(os.path.join(img_dir, f"img2_synth_{i}.png"),
+                      float_to_uint8(fake_j))
+            write_png(os.path.join(lbl_dir, f"cm_synth_{i}.png"),
+                      ds.labels[i].astype(np.uint8) * np.uint8(255))
+            count += 1
+    if verbose:
+        print(f"\nSynthetic data generation finished. Saved {count} samples "
+              f"to {out_base}")
+    return count
 
 
 def evaluate_cached(model: torch.nn.Module, cache: DeviceCache,

@@ -1,0 +1,133 @@
+"""Train the Pix2Pix GAN for change-data augmentation.
+
+    python -m gan_aug_pfa_torch.train_gan --root-dir <root> [--num-epochs N]
+
+Flag names and defaults are the root ``train_gan.py``'s (256x256, batch 1,
+200 epochs, both learning rates 1e-4, beta1 0.5, lambda_L1 100, bf16).
+``--device`` (default ``cuda``) picks the device; without a card the run
+raises unless ``--device cpu`` is given.  ``--ema-decay`` keeps the
+generator's EMA.  ``--no-data-parallel`` and ``--no-compile-cache`` are
+accepted so that the JAX package's command lines run unchanged (the port
+trains on one device and has no compilation cache).  Flags of paths not
+ported yet exit non-zero with "not ported yet".
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Dict, List, Optional
+
+from .config import (
+    DATASET_SUBDIR_DEFAULT,
+    DataConfig,
+    GANTrainConfig,
+    parse_target_size,
+)
+from .train.siamese import COMPUTE_DTYPES
+
+# The root train_gan.py's flags whose paths are not ported yet, with the
+# value that leaves them off.
+_NOT_PORTED = {
+    "stream": "hbm", "batched_disc": False, "concat_free_disc": False,
+    "shared_gen_fwd": False, "profile_dir": None, "debug_nans": False,
+    "momentum_dtype": None, "flat_opt_state": False, "async_ckpt": False,
+    "log_jsonl": None,
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Train Pix2Pix GAN for change-data augmentation")
+    p.add_argument("--root-dir", type=str, default=".")
+    p.add_argument("--dataset-subdir", type=str,
+                   default=DATASET_SUBDIR_DEFAULT)
+    p.add_argument("--checkpoint-dir", type=str, default="gan_checkpoints")
+    p.add_argument("--output-dir", type=str, default="gan_samples")
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--num-epochs", type=int, default=200)
+    p.add_argument("--learning-rate-g", type=float, default=1e-4)
+    p.add_argument("--learning-rate-d", type=float, default=1e-4)
+    p.add_argument("--beta1", type=float, default=0.5)
+    p.add_argument("--lambda-l1", type=float, default=100.0)
+    p.add_argument("--target-size", type=str, default="256x256")
+    p.add_argument("--save-every", type=int, default=10)
+    p.add_argument("--sample-every", type=int, default=5)
+    p.add_argument("--num-downs", type=int, default=7,
+                   help="generator U-Net depth (>= 5; the target size must "
+                        "be a multiple of 2**N)")
+    p.add_argument("--ngf", type=int, default=64,
+                   help="generator base filter count")
+    p.add_argument("--ndf", type=int, default=64,
+                   help="discriminator base filter count")
+    p.add_argument("--n-layers", type=int, default=3,
+                   help="discriminator depth")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the model init and the epoch order")
+    p.add_argument("--compute-dtype", type=str, default="bfloat16",
+                   choices=list(COMPUTE_DTYPES),
+                   help="model compute dtype (params stay float32)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from <checkpoint-dir>/last_generator.pth "
+                        "and last_discriminator.pth")
+    p.add_argument("--ema-decay", type=float, default=None,
+                   help="keep an exponential moving average of the "
+                        "generator weights (e.g. 0.999), saved as "
+                        "generator_ema_epoch_N.pth")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to run on (cuda, cuda:N or cpu)")
+    p.add_argument("--no-data-parallel", action="store_true",
+                   help="accepted for the JAX package's command lines; "
+                        "the port trains on one device")
+    p.add_argument("--no-compile-cache", action="store_true",
+                   help="accepted for the JAX package's command lines; "
+                        "the port has no compilation cache")
+    not_ported = p.add_argument_group(
+        "not ported yet (using one exits non-zero)")
+    for flag in ("--batched-disc", "--concat-free-disc", "--shared-gen-fwd",
+                 "--debug-nans", "--flat-opt-state", "--async-ckpt"):
+        not_ported.add_argument(flag, action="store_true")
+    for flag in ("--profile-dir", "--momentum-dtype", "--log-jsonl"):
+        not_ported.add_argument(flag, type=str, default=None)
+    not_ported.add_argument("--stream", type=str, default="hbm")
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for name, off in _NOT_PORTED.items():
+        if getattr(args, name) != off:
+            parser.error(f"--{name.replace('_', '-')} is not ported yet")
+    target_size = parse_target_size(args.target_size)
+    data_cfg = DataConfig(root_dir=args.root_dir,
+                          dataset_subdir=args.dataset_subdir,
+                          target_size=target_size)
+    gan_cfg = GANTrainConfig(
+        batch_size=args.batch_size,
+        num_epochs=args.num_epochs,
+        learning_rate_g=args.learning_rate_g,
+        learning_rate_d=args.learning_rate_d,
+        beta1=args.beta1,
+        lambda_l1=args.lambda_l1,
+        target_size=target_size,
+        save_every=args.save_every,
+        sample_every=args.sample_every,
+        checkpoint_dir=args.checkpoint_dir,
+        output_dir=args.output_dir,
+        num_downs=args.num_downs,
+        ngf=args.ngf,
+        ndf=args.ndf,
+        n_layers=args.n_layers,
+        seed=args.seed,
+        compute_dtype=args.compute_dtype,
+        resume=args.resume,
+        ema_decay=args.ema_decay,
+    )
+    from . import pipelines
+
+    return pipelines.run_gan_training(data_cfg, gan_cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    # run_gan_training returns None when it finds no sample.
+    raise SystemExit(0 if main() is not None else 1)

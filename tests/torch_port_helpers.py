@@ -1,6 +1,7 @@
 """Shared inputs for the port's parity tests (tests/test_torch_*.py): one
-seeded full-width JAX SiameseUNet init with randomized BatchNorm affine
-parameters and running statistics, as a tree of numpy arrays.
+seeded full-width JAX SiameseUNet init and seeded JAX Pix2Pix inits, with
+randomized BatchNorm affine parameters and running statistics, as trees of
+numpy arrays.
 
 At init the head's logits lie within about 0.1 of 0, so every probability
 sits near the 0.5 threshold; the head's kernel is scaled by HEAD_SCALE to spread
@@ -12,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from gan_aug_pfa_tpu.models.pix2pix import NLayerDiscriminator, UNetGenerator
 from gan_aug_pfa_tpu.models.siamese_unet import SiameseUNet
 
 
@@ -59,3 +61,29 @@ def jax_siamese_logits(variables, x1, x2, batched_encoder=False):
                         batched_encoder=batched_encoder)
     return np.asarray(jax.jit(
         lambda v, a, b: model.apply(v, a, b, train=False))(variables, x1, x2))
+
+
+def jax_pix2pix_models(num_downs=5, ngf=8, ndf=8, n_layers=3,
+                       dtype=jnp.float32):
+    """The JAX generator and discriminator at a test size."""
+    return (UNetGenerator(3, 3, num_downs=num_downs, ngf=ngf, dtype=dtype),
+            NLayerDiscriminator(6, ndf=ndf, n_layers=n_layers, dtype=dtype))
+
+
+def jax_pix2pix_variables(seed=0, size=32, **arch):
+    """(generator, discriminator) variables of the JAX Pix2Pix models
+    (fp32, numpy leaves), with seeded random BN scale/bias/mean/var."""
+    gen, disc = jax_pix2pix_models(**arch)
+    x = jnp.zeros((1, size, size, 3), jnp.float32)
+    kg, kd = jax.random.split(jax.random.PRNGKey(seed))
+    vg = jax.jit(lambda k: gen.init(k, x, train=False))(kg)
+    vd = jax.jit(lambda k: disc.init(
+        k, jnp.concatenate([x, x], axis=-1), train=False))(kd)
+    rng = np.random.RandomState(seed)
+    out = []
+    for v in (vg, vd):
+        v = jax.tree.map(np.asarray, v)
+        v = {"params": _randomize_bn(v["params"], rng),
+             "batch_stats": _randomize_bn(v["batch_stats"], rng)}
+        out.append(jax.tree.map(lambda a: np.asarray(a, np.float32), v))
+    return tuple(out)
