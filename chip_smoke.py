@@ -63,7 +63,33 @@ Phases, each of which fails the run if it fails:
    time); then train on the real and synthetic pairs, ``python -m
    gan_aug_pfa_torch.train --use-synthetic`` for 2 epochs, and evaluate
    its ``best_model.pth``, with the fused-loss and confusion-counts
-   (calls, launches) set to 0 just before each and read just after.
+   (calls, launches) set to 0 just before each and read just after;
+11. drive run control through the CLIs: ``python -m gan_aug_pfa_torch.train
+   --num-epochs 50 --save-every 50 --log-jsonl --defer-best-ckpt
+   --async-ckpt --profile-dir`` as a child process on a 14-city tree,
+   SIGTERM to its PID alone when ``Epoch 2/50`` appears; it must exit 0
+   within 60 s with ``last_state.pth`` at the last epoch it printed and the
+   deferred ``best_model.pth`` written; then ``--resume`` for 2 more epochs
+   in this process with the fused-loss (calls, launches) set to 0 just
+   before and read just after, a second ``run_start`` in the log,
+   ``scripts/summarize_runlog.py`` on it, the loss kernels named in the
+   profiler's traces and the step timing printed; an evaluation of the
+   deferred ``best_model.pth`` (confusion counts (7, 7)); the same for
+   ``python -m gan_aug_pfa_torch.train_gan`` at its defaults (SIGTERM after
+   ``Epoch 1 -``; the epoch's files and the resume pair at the last printed
+   epoch; ``--resume`` runs the next).  In this process: ``--debug-nans``
+   with a NaN conv weight raises naming step 1 (and without it does not);
+   ``last_state.pth`` of one trained state written synchronously and in
+   the background (training on meanwhile) holds equal tensors key for key,
+   with each save's blocking time; train steps/s at batch 4 plain, under
+   ``--profile-dir`` (the step timer and the profiler) and under
+   ``--debug-nans``;
+12. load a checkpoint the JAX package wrote
+   (``tests/data/jax_generator_nd5_ngf4.msgpack``, from
+   ``tools/make_msgpack_fixture.py``) through ``python -m
+   gan_aug_pfa_torch.generate_synthetic`` and run its generator at fp32
+   (TF32 off) on the fixture's input: within 1e-5 of the JAX output saved
+   beside it.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -1578,6 +1604,419 @@ def phase_loop(torch, root):
     return {"loss": counts, "confusion_counts": eval_counts}
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+# A preempted trainer finishes its epoch, writes and exits within this.
+SIGTERM_EXIT_S = 60.0
+FIXTURE = os.path.join(REPO, "tests", "data", "jax_generator_nd5_ngf4")
+FIXTURE_ATOL = 1e-5  # the JAX generator's fp32 output, card vs JAX (CPU)
+
+
+class Tee:
+    """A stdout that also keeps what it was given."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def run_child(args, sigterm_at=None, timeout=300.0):
+    """Run ``python -u args`` from the repository root, echoing its
+    output.  With ``sigterm_at`` (a regular expression), send SIGTERM to
+    the child's PID alone (not its process group) when a line matches.
+    Returns (exit code, output lines, seconds from the signal to the
+    exit).  Kills the child and raises when it outlives ``timeout``."""
+    import queue
+    import re
+    import signal
+    import threading
+
+    proc = subprocess.Popen(
+        [sys.executable, "-u", *args], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    out, t_sig, deadline = [], None, time.time() + timeout
+    try:
+        while True:
+            try:
+                line = lines.get(timeout=max(0.0, deadline - time.time()))
+            except queue.Empty:
+                raise AssertionError(f"{args[:2]} still running after "
+                                     f"{timeout} s")
+            if line is None:
+                break
+            out.append(line.rstrip("\n"))
+            print(f"  | {out[-1]}")
+            if (sigterm_at and t_sig is None
+                    and re.search(sigterm_at, out[-1])):
+                os.kill(proc.pid, signal.SIGTERM)
+                t_sig = time.time()
+                print(f"  (SIGTERM sent to pid {proc.pid})")
+        rc = proc.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rc, out, (time.time() - t_sig if t_sig is not None else None)
+
+
+def last_epoch(lines, pattern):
+    import re
+
+    found = [int(m.group(1)) for m in map(re.compile(pattern).match, lines)
+             if m]
+    if not found:
+        raise AssertionError(f"no line matches {pattern!r}")
+    return found[-1]
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_run_control(torch, root):
+    """Run control on the card through the CLIs: a Siamese run preempted
+    by SIGTERM in epoch 2 (or 3) of 50 with every run-control flag, resumed
+    for 2 epochs in this process with the fused-loss counts read; the same
+    for the GAN at its defaults; an evaluation of the deferred
+    best_model.pth with the confusion counts read."""
+    from gan_aug_pfa_torch import evaluate
+    from gan_aug_pfa_torch import train_gan as gan_cli
+    from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
+    from gan_aug_pfa_torch.ops.kernels.fused_loss import FocalDiceLossFn
+    from gan_aug_pfa_torch.train import __main__ as train_cli
+
+    write_oscd_tree(root)
+    log = os.path.join(root, "run.jsonl")
+    prof = os.path.join(root, "prof")
+    flags = ["--root-dir", root, "--save-every", "50", "--log-jsonl", log,
+             "--defer-best-ckpt", "--async-ckpt", "--profile-dir", prof]
+    t0 = time.time()
+    rc, lines, exit_s = run_child(
+        ["-m", "gan_aug_pfa_torch.train", *flags, "--num-epochs", "50"],
+        sigterm_at=r"^Epoch 2/50 ")
+    wall = time.time() - t0
+    n = last_epoch(lines, r"^Epoch (\d+) - Train Loss")
+    ckpt_dir = os.path.join(root, "siamese_checkpoints")
+    state = torch.load(os.path.join(ckpt_dir, "last_state.pth"),
+                       map_location="cpu", weights_only=True)
+    print(f"run control, Siamese: exit {rc} {exit_s:.2f} s after SIGTERM "
+          f"({wall:.2f} s in all), last epoch printed {n}, last_state.pth "
+          f"epoch {state['epoch']}, files {sorted(os.listdir(ckpt_dir))}")
+    if (rc != 0 or exit_s > SIGTERM_EXIT_S or state["epoch"] != n
+            or not any(line.startswith("Preemption requested") for line in
+                       lines)
+            or not os.path.exists(os.path.join(ckpt_dir, "best_model.pth"))):
+        raise AssertionError("the preempted Siamese run did not save and "
+                             "exit cleanly")
+
+    reset_loss_counts(FocalDiceLossFn)
+    tee = Tee(sys.stdout)
+    sys.stdout = tee
+    try:
+        resumed = train_cli.main([*flags, "--num-epochs", str(n + 2),
+                                  "--resume"])
+    finally:
+        sys.stdout = tee.out
+    counts = loss_counts(FocalDiceLossFn)
+    events = read_jsonl(log)
+    starts = [e["start_epoch"] for e in events if e["event"] == "run_start"]
+    print(f"run control, resume: {len(resumed['train_loss'])} epochs, "
+          f"fused-loss (calls, launches) {counts}, run_start epochs "
+          f"{starts}, events {[e['event'] for e in events]}")
+    if (len(resumed["train_loss"]) != 2 or starts != [1, n + 1]
+            or counts != {"fwd": (8, 8), "bwd": (6, 6)}
+            or "Step timing: " not in tee.text()):
+        raise AssertionError("the resumed run did not run exactly 2 epochs "
+                             "(3 steps and 1 validation batch each) with "
+                             "one launch a loss call and its step timing")
+    summary = subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts",
+                                      "summarize_runlog.py"), log],
+        capture_output=True, text=True, timeout=60)
+    print(summary.stdout.rstrip())
+    if summary.returncode != 0 or f"preempted at epoch {n}" not in (
+            summary.stdout):
+        raise AssertionError(f"summarize_runlog.py: {summary.stderr}")
+    traces = [os.path.join(prof, f) for f in sorted(os.listdir(prof))]
+    named = {}
+    for path in traces:
+        with open(path) as f:
+            text = f.read()
+        named[os.path.basename(path)] = (
+            len(text), all(k in text for k in ("focal_dice_fwd_kernel",
+                                               "focal_dice_bwd_kernel")))
+    print(f"profiler traces (bytes, names both loss kernels): {named}")
+    if len(traces) != 2 or not all(ok for _, ok in named.values()):
+        raise AssertionError("the profile directory lacks a trace naming "
+                             "the fused-loss kernels")
+
+    fn = cc.confusion_counts_batch
+    fn.calls = fn.launches = 0
+    report_path = os.path.join(root, "deferred_report.json")
+    check_report(evaluate.main(["--root-dir", root, "--json-out",
+                                report_path]), report_path)
+    eval_counts = (fn.calls, fn.launches)
+    print(f"run control, evaluation of the deferred best_model.pth: "
+          f"confusion_counts (calls, launches) {eval_counts}")
+    if eval_counts != (7, 7):
+        raise AssertionError(f"evaluation counts {eval_counts}")
+
+    gan_log = os.path.join(root, "gan.jsonl")
+    gan_flags = ["--root-dir", root, "--log-jsonl", gan_log, "--async-ckpt",
+                 "--profile-dir", os.path.join(root, "gan_prof")]
+    rc, lines, gan_exit_s = run_child(
+        ["-m", "gan_aug_pfa_torch.train_gan", *gan_flags],
+        sigterm_at=r"^Epoch 1 - ")
+    m = last_epoch(lines, r"^Epoch (\d+) - Avg Loss D")
+    gan_dir = os.path.join(root, "gan_checkpoints")
+    files = sorted(os.listdir(gan_dir))
+    want = sorted([f"generator_epoch_{m}.pth", f"discriminator_epoch_{m}.pth",
+                   "last_generator.pth", "last_discriminator.pth"])
+    epochs = [torch.load(os.path.join(gan_dir, f), map_location="cpu",
+                         weights_only=True)["epoch"]
+              for f in ("last_generator.pth", "last_discriminator.pth")]
+    print(f"run control, GAN: exit {rc} {gan_exit_s:.2f} s after SIGTERM, "
+          f"last epoch printed {m}, files {files}, last_* epochs {epochs}")
+    if rc != 0 or gan_exit_s > SIGTERM_EXIT_S or files != want or (
+            epochs != [m, m]):
+        raise AssertionError("the preempted GAN run did not save and exit "
+                             "cleanly")
+    gan_resumed = gan_cli.main([*gan_flags, "--num-epochs", str(m + 1),
+                                "--resume"])
+    gan_events = read_jsonl(gan_log)
+    gan_starts = [e["start_epoch"] for e in gan_events
+                  if e["event"] == "run_start"]
+    print(f"run control, GAN resume: {len(gan_resumed['loss_d'])} epoch, "
+          f"run_start epochs {gan_starts}")
+    if len(gan_resumed["loss_d"]) != 1 or gan_starts != [1, m + 1] or (
+            not os.path.exists(os.path.join(
+                gan_dir, f"generator_epoch_{m + 1}.pth"))):
+        raise AssertionError("the GAN did not resume at the next epoch")
+    return {"siamese_exit_s": exit_s, "gan_exit_s": gan_exit_s,
+            "epochs": (n, m), "loss": counts, "confusion_counts": eval_counts}
+
+
+def phase_run_control_in_process(torch, ds):
+    """On the card, in this process: the NaN check through the pipeline;
+    last_state.pth of one trained full-width state written synchronously
+    and in the background (training on while the background write runs),
+    the files equal key for key, and each save's blocking time; then
+    ``run_control_rates`` in a child process."""
+    from gan_aug_pfa_torch import checkpoint, pipelines
+    from gan_aug_pfa_torch.config import DataConfig, SiameseTrainConfig
+    from gan_aug_pfa_torch.models import SiameseUNet
+    from gan_aug_pfa_torch.train.plateau import (
+        EarlyStopping,
+        make_plateau_scheduler,
+    )
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+
+    with tempfile.TemporaryDirectory() as root:
+        write_oscd_tree(root)
+        bad = SiameseUNet().state_dict()
+        bad["dconv_down1.0.weight"][0, 0, 0, 0] = float("nan")
+        outcome = {}
+        for debug in (True, False):
+            try:
+                hist = pipelines.run_siamese_training(
+                    DataConfig(root_dir=root),
+                    SiameseTrainConfig(num_epochs=1, debug_nans=debug),
+                    verbose=False, initial_state_dict=bad)
+                outcome[debug] = f"no error, train loss {hist['train_loss']}"
+            except FloatingPointError as e:
+                outcome[debug] = f"FloatingPointError: {str(e)[:160]}"
+    print(f"NaN check: with --debug-nans {outcome[True]}; without "
+          f"{outcome[False]}")
+    if not outcome[True].startswith(
+            "FloatingPointError: non-finite values in epoch 1, step 1: "
+            "['loss', 'grad dconv_down1.0.weight'") or not (
+                outcome[False].startswith("no error")):
+        raise AssertionError("the NaN check did not name step 1")
+
+    cache = pipelines.DeviceCache.from_dataset(ds, "cuda")
+    trainer = SiameseTrainer(SiameseTrainConfig(), "cuda")
+    scheduler = make_plateau_scheduler(trainer.optimizer)
+    stopper = EarlyStopping()
+    rng = np.random.RandomState(SEED)
+    trainer.train_epoch(cache, rng)
+    writer = checkpoint.AsyncCheckpointWriter()
+    timings = {"sync": [], "async": [], "async_done": []}
+    with tempfile.TemporaryDirectory() as out:
+        for rep in range(3):
+            payload = checkpoint.train_state(trainer.model, trainer.optimizer,
+                                             scheduler, stopper, 1, 0.5)
+            sync_path = os.path.join(out, f"sync{rep}.pth")
+            async_path = os.path.join(out, f"async{rep}.pth")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save(sync_path, payload)
+            timings["sync"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            writer.save(async_path, payload)
+            timings["async"].append(time.perf_counter() - t0)
+            # Training goes on while the write runs: the file must still
+            # hold the state as it was at the save.
+            trainer.train_epoch(cache, rng)
+            writer.wait()
+            timings["async_done"].append(time.perf_counter() - t0)
+            a, b = (torch.load(p, weights_only=True)
+                    for p in (sync_path, async_path))
+            diff = compare_nested(torch, a, b)
+            if diff:
+                raise AssertionError(f"sync and async last_state differ at "
+                                     f"{diff}")
+        size = os.path.getsize(sync_path)
+    writer.close()
+    ms = {k: [round(1e3 * v, 2) for v in vs] for k, vs in timings.items()}
+    print(f"last_state.pth ({size / 1e6:.1f} MB, model + AdamW moments): "
+          f"blocking time of a synchronous save {ms['sync']} ms; of a "
+          f"background save {ms['async']} ms (its write done, with a train "
+          f"epoch between, after {ms['async_done']} ms); files equal key "
+          f"for key")
+
+    rc, _, _ = run_child(["-c", "import sys, chip_smoke; "
+                               "sys.exit(chip_smoke.run_control_rates())"])
+    if rc != 0:
+        raise AssertionError(f"run_control_rates exited {rc}")
+    return {"save_ms": ms}
+
+
+def run_control_rates():
+    """Train steps/s at batch 4 (bf16, 128x128, 8 copies of the 11 train
+    pairs: 22 steps an epoch), median of 3 epochs after one warm-up,
+    plain, under --debug-nans (the NaN checks) and under --profile-dir
+    (the step timer and the profiler), in that order: a profiler session
+    slows a process's later launch-bound steps, so it comes last, in a
+    process of its own (``chip_smoke`` runs this as a child)."""
+    from contextlib import nullcontext
+
+    import torch
+
+    from gan_aug_pfa_torch import pipelines
+    from gan_aug_pfa_torch.config import SiameseTrainConfig
+    from gan_aug_pfa_torch.data.loader import build_cached_dataset
+    from gan_aug_pfa_torch.data.scanner import create_sample_lists
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+    from gan_aug_pfa_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as root:
+        write_oscd_tree(root)
+        ds = build_cached_dataset(
+            create_sample_lists(root, SUBDIR, mode="train", verbose=False),
+            (128, 128), verbose=False)
+    cache = pipelines.DeviceCache.from_dataset(ds, "cuda")
+    reps = 8
+    big = pipelines.DeviceCache(cache.img1.repeat(reps, 1, 1, 1),
+                                cache.img2.repeat(reps, 1, 1, 1),
+                                cache.labels.repeat(reps, 1, 1))
+    steps = -(-len(big) // 4)
+    rates = {}
+    with tempfile.TemporaryDirectory() as prof:
+        for mode in ("plain", "debug-nans", "profile-dir"):
+            trainer = SiameseTrainer(SiameseTrainConfig(), "cuda")
+            if mode == "debug-nans":
+                profiling.enable_nan_checks(trainer)
+            rng = np.random.RandomState(SEED)
+            trainer.train_epoch(big, rng)
+            if mode == "profile-dir":
+                trainer.step_timer = profiling.StepTimer(4, skip_first=2)
+            walls = []
+            with (profiling.trace(prof) if mode == "profile-dir"
+                  else nullcontext()):
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trainer.train_epoch(big, rng)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+            rates[mode] = [steps / w for w in walls]
+            extra = (" " + trainer.step_timer.format_summary("step timer: ")
+                     if trainer.step_timer else "")
+            print(f"train steps/s (bf16, 128x128, bs 4, {steps} steps an "
+                  f"epoch) {mode}: median "
+                  f"{float(np.median(rates[mode])):.2f} over 3 epochs, range "
+                  f"[{min(rates[mode]):.2f}, {max(rates[mode]):.2f}]{extra}")
+    return 0
+
+
+def compare_nested(torch, a, b, prefix=""):
+    """The first key path where two loaded checkpoints differ, or None."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or list(a) != list(b):
+            return prefix or "/"
+        for k in a:
+            diff = compare_nested(torch, a[k], b[k], f"{prefix}/{k}")
+            if diff:
+                return diff
+        return None
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return prefix
+        for i, (x, y) in enumerate(zip(a, b)):
+            diff = compare_nested(torch, x, y, f"{prefix}/{i}")
+            if diff:
+                return diff
+        return None
+    if isinstance(a, torch.Tensor):
+        ok = (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+              and torch.equal(a, b))
+        return None if ok else prefix
+    return None if a == b else prefix
+
+
+def phase_jax_checkpoint(torch, root):
+    """A checkpoint the JAX package wrote (tests/data, made by
+    tools/make_msgpack_fixture.py) on the card: synthesis through its CLI
+    with it, then its generator at fp32 (TF32 off) on the fixture's input
+    against the JAX output saved beside it."""
+    from gan_aug_pfa_torch import checkpoint, generate_synthetic as synth_cli
+    from gan_aug_pfa_torch.models import UNetGenerator
+    from gan_aug_pfa_torch.train.siamese import tf32_off
+
+    write_oscd_tree(root)
+    out = os.path.join(root, "jax_synth")
+    n = synth_cli.main([
+        "--root-dir", root, "--num-downs", "5", "--ngf", "4",
+        "--target-size", "32x32", "--gan-checkpoint-dir",
+        os.path.dirname(FIXTURE), "--generator-checkpoint-name",
+        os.path.basename(FIXTURE) + ".msgpack", "--synthetic-data-dir", out])
+    written = sum(len(fs) for _, _, fs in os.walk(out))
+    t0 = time.perf_counter()
+    model = checkpoint.restore_model_only(FIXTURE + ".msgpack",
+                                          UNetGenerator(num_downs=5, ngf=4))
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    expected = np.load(FIXTURE + "_expected.npz")
+    x = torch.from_numpy(expected["x"]).cuda().permute(0, 3, 1, 2)
+    with torch.no_grad(), tf32_off():
+        y = model.cuda().eval()(x).permute(0, 2, 3, 1).cpu().numpy()
+    err = float(np.abs(y - expected["y"]).max())
+    print(f"JAX-written generator on the card: synthesis through the CLI "
+          f"wrote {n} samples ({written} files); load of the .msgpack "
+          f"{load_ms:.1f} ms; fp32 output vs JAX max |diff| {err:.3g} "
+          f"(limit {FIXTURE_ATOL})")
+    if n != len(CITIES) or written != 3 * len(CITIES) or err > FIXTURE_ATOL:
+        raise AssertionError("the JAX-written generator does not run as JAX "
+                             "on the card")
+    return err
+
+
 def device_breakdown(torch, fn, label, ours, top=8):
     """Trace ``fn`` with torch.profiler: wall time, summed device kernel
     time (busy share) and the kernels that take the most device time, with
@@ -1677,6 +2116,12 @@ def main():
         gan_throughput(torch, gan_ds)
         phase_synthesis(torch, root)
         phase_loop(torch, root)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        run_control = phase_run_control(torch, root)
+    phase_run_control_in_process(torch, train_ds)
+    with tempfile.TemporaryDirectory() as root:
+        phase_jax_checkpoint(torch, root)
 
     # The main numbers are each path's shape: the evaluation's bs 2 for the
     # confusion counts (bs 16 and 16x1024x1024 beside them), the train
@@ -1697,6 +2142,7 @@ def main():
         **{k: eval_t[k] for k in keys},
         "kernel_ms": eval_t["ms"],
         "library_call": "torch.histc over 2-bit codes",
+        "run_control": list(run_control["confusion_counts"]),
         "shape": list(CONFUSION_SHAPES[0]),
         "plan": eval_t["plan"],
         "other": {"x".join(map(str, shape)): {
@@ -1722,6 +2168,7 @@ def main():
             "kernel_ms": t["ms"],
             "library_call": library + " (a yardstick of about the same "
                                       "bytes)",
+            "run_control": list(run_control["loss"][name]),
             "shape": list(TRAIN_SHAPE),
             "logits": "bfloat16",
             "plan": t["plan"],

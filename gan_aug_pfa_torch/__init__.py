@@ -14,5 +14,8 @@ augmentation (splits, FocalDice through hand-written forward and backward
 CUDA kernels, photometric augmentation kernels, AdamW, ReduceLROnPlateau,
 checkpoints and resume, ``python -m gan_aug_pfa_torch.train``), Pix2Pix
 GAN training (``python -m gan_aug_pfa_torch.train_gan``) and synthesis of
-the fake "after" corpus (``python -m gan_aug_pfa_torch.generate_synthetic``).
+the fake "after" corpus (``python -m gan_aug_pfa_torch.generate_synthetic``),
+both trainers' run control (SIGTERM-safe resume, run log, profiler, NaN
+checks, deferred and background checkpoint writes) and reading the JAX
+package's ``.msgpack`` checkpoints.
 """

@@ -73,6 +73,21 @@ class SiameseTrainConfig:
     compute_dtype: str = "bfloat16"
     # Continue from <checkpoint_dir>/last_state.pth when it exists.
     resume: bool = False
+    # Keep the best model as a device copy of its state_dict and write
+    # best_model.pth on the save_every cadence, at the last epoch, on
+    # preemption and on early stop, instead of at every improvement.
+    defer_best_ckpt: bool = False
+    # Write checkpoints on a background thread from a device snapshot
+    # (checkpoint.AsyncCheckpointWriter); the run waits for the last write
+    # before it returns.
+    async_ckpt: bool = False
+    # Observability: a torch.profiler trace and per-step timing into this
+    # directory; a finite check of each step's loss and gradients.
+    profile_dir: Optional[str] = None
+    debug_nans: bool = False
+    # Machine-readable run log: one JSON object per event, appended per
+    # line (utils/runlog.py).  --resume appends to the same file.
+    log_jsonl: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -124,6 +139,12 @@ class GANTrainConfig:
     # After every G update: ema <- ema * decay + params * (1 - decay);
     # saved as generator_ema_epoch_N.pth.  None = off.
     ema_decay: Optional[float] = None
+    # See SiameseTrainConfig.async_ckpt, profile_dir, debug_nans and
+    # log_jsonl.
+    async_ckpt: bool = False
+    profile_dir: Optional[str] = None
+    debug_nans: bool = False
+    log_jsonl: Optional[str] = None
 
     def __post_init__(self):
         if self.ema_decay is not None and not (0.0 <= self.ema_decay < 1.0):
@@ -135,7 +156,8 @@ class GANTrainConfig:
 @dataclasses.dataclass
 class GenerateConfig:
     """Defaults mirror reference generate_synthetic_data.py:13-24, with the
-    checkpoint named ``.pth`` (the port reads no ``.msgpack`` yet)."""
+    checkpoint named ``.pth`` (the port's format; a JAX package
+    ``.msgpack`` generator loads too)."""
 
     batch_size: int = 4
     target_size: Tuple[int, int] = (256, 256)

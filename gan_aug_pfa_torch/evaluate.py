@@ -3,7 +3,9 @@
     python -m gan_aug_pfa_torch.evaluate --root-dir <root> [--json-out F]
 
 Flag names are the root ``evaluate.py``'s; ``--device`` (default
-``cuda``) picks the device.  The root CLI's flags of paths not ported yet
+``cuda``) picks the device.  ``--checkpoint-path`` takes the port's
+``.pth`` or a JAX package ``.msgpack`` (model-only or a full train
+state).  The root CLI's flags of paths not ported yet
 (single-pair evaluation, visualizations, ``--post-process``,
 ``--ensemble``, ``--threshold-sweep``, ``--stream`` and serving artifacts)
 are accepted with the value that leaves their path off; any other value
@@ -40,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset-subdir", type=str,
                    default=DATASET_SUBDIR_DEFAULT)
     p.add_argument("--checkpoint-path", type=str, default=None,
-                   help="Model checkpoint (default "
+                   help="Model checkpoint, a .pth or a JAX package "
+                        ".msgpack (default "
                         "<root>/siamese_checkpoints/best_model.pth)")
     p.add_argument("--output-dir", type=str, default="evaluation_results")
     p.add_argument("--batch-size", type=int, default=2)

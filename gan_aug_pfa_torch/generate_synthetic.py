@@ -4,8 +4,10 @@
         [--generator-checkpoint-name generator_epoch_200.pth]
 
 Flag names and defaults are the root ``generate_synthetic_data.py``'s
-(256x256, batch 4, float32), with the checkpoint named ``.pth``: reading a
-``.msgpack`` generator is not ported yet.  ``--device`` (default ``cuda``)
+(256x256, batch 4, float32), with the default checkpoint named ``.pth``;
+a generator the JAX package wrote (``generator_epoch_N.msgpack``,
+``generator_ema_epoch_N.msgpack``, or the ``params`` of a
+``last_generator.msgpack``) loads as well.  ``--device`` (default ``cuda``)
 picks the device; without a card the run raises unless ``--device cpu``
 is given.  The output is the reference's layout:
 ``<synthetic-data-dir>/images/<city>/img{1,2}_synth_N.png`` and
@@ -44,7 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=SYNTHETIC_DATA_DIR_DEFAULT)
     p.add_argument("--gan-checkpoint-dir", type=str, default="gan_checkpoints")
     p.add_argument("--generator-checkpoint-name", type=str,
-                   default="generator_epoch_200.pth")
+                   default="generator_epoch_200.pth",
+                   help="generator checkpoint in --gan-checkpoint-dir: a "
+                        ".pth or a JAX package .msgpack")
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--target-size", type=str, default="256x256",
                    help="Must match GAN training size")

@@ -4,7 +4,11 @@
     ``discriminator_state_dict_from_jax``: a JAX/Flax ``{"params",
     "batch_stats"}`` tree of numpy arrays (the JAX package's SiameseUNet,
     UNetGenerator or NLayerDiscriminator variables) to this port's
-    ``state_dict``, loadable with ``strict=True``;
+    ``state_dict``, loadable with ``strict=True``; ``state_dict_from_jax``
+    picks the one for a model's class;
+  * ``variables_from_msgpack``: a JAX package checkpoint (``.msgpack``,
+    flax's serialization, model-only or a full train state) as the nested
+    dict it holds, read by the port's own decoder (``utils/msgpack.py``);
   * ``load_torch_state_dict``: a ``.pth`` file (a bare reference
     ``state_dict``) as a dict of CPU tensors.
 
@@ -23,6 +27,11 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
+
+from .models.pix2pix import NLayerDiscriminator, UNetGenerator
+from .models.siamese_unet import SiameseUNet
+from .utils import msgpack
 
 _SIAMESE_SEQS = (
     "dconv_down1", "dconv_down2", "dconv_down3", "dconv_down4",
@@ -37,19 +46,27 @@ _GATE_LAYOUT = (("w_g", "bn_g", "W_g"), ("w_x", "bn_x", "W_x"),
                 ("psi", "bn_psi", "psi"))
 
 
+def _np(a) -> np.ndarray:
+    """A leaf as a numpy array; a ``torch.bfloat16`` leaf (numpy has no
+    bfloat16; see ``utils/msgpack.py``) widens exactly to float32."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a)
+
+
 def _t(a, dtype=np.float32) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=dtype))
+    return torch.from_numpy(np.array(_np(a), dtype=dtype))
 
 
 def _conv(kernel, dtype=np.float32) -> torch.Tensor:
     """Flax HWIO kernel -> torch OIHW weight."""
-    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)), dtype)
+    return _t(np.transpose(_np(kernel), (3, 2, 0, 1)), dtype)
 
 
 def _conv_transpose(kernel, dtype=np.float32) -> torch.Tensor:
     """Flax ConvTranspose HWIO kernel -> torch (in, out, kh, kw) weight,
     spatially flipped."""
-    k = np.asarray(kernel)[::-1, ::-1]
+    k = _np(kernel)[::-1, ::-1]
     return _t(np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1))), dtype)
 
 
@@ -139,6 +156,33 @@ def discriminator_state_dict_from_jax(variables: Dict[str, Any],
     for n in range(1, n_bn + 1):
         _bn(out, f"model.{3 * n}", params[f"bn{n}"], stats[f"bn{n}"], dtype)
     return out
+
+
+_CONVERTERS = (
+    (SiameseUNet, siamese_state_dict_from_jax),
+    (UNetGenerator, generator_state_dict_from_jax),
+    (NLayerDiscriminator, discriminator_state_dict_from_jax),
+)
+
+
+def state_dict_from_jax(model: nn.Module, variables: Dict[str, Any],
+                        dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """The JAX variables of ``model``'s counterpart as ``model``'s
+    ``state_dict``, by the model's class."""
+    for cls, convert in _CONVERTERS:
+        if isinstance(model, cls):
+            return convert(variables, dtype)
+    raise TypeError(f"no JAX converter for {type(model).__name__}")
+
+
+def variables_from_msgpack(path: str) -> Dict[str, Any]:
+    """The nested dict of a JAX package ``.msgpack`` checkpoint: at least
+    ``params`` and ``batch_stats``; a full train state adds ``opt_state``
+    and ``step``, and ``extra`` holds the epoch and the like.  Leaves are
+    numpy arrays (read-only views of the file's bytes), bfloat16 leaves
+    ``torch.bfloat16`` tensors."""
+    with open(path, "rb") as f:
+        return msgpack.restore(f.read())
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:

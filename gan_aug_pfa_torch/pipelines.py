@@ -5,9 +5,16 @@ training with and without augmentation (the JAX package's
 (``run_generate_synthetic``, :614-747) and evaluation (``run_evaluation``,
 :755-991).
 
-Not ported yet: tuning, ``--stream``, the run log, the profiler and NaN
-checks, deferred and background checkpoint writes, the SIGTERM handler;
-the GAN's ``--batched-disc``, ``--concat-free-disc`` and
+Both trainers carry the JAX package's run control: the SIGTERM/SIGINT
+guard (the epoch in flight finishes, the resume state is written at it,
+the run returns), the JSONL run log (``--log-jsonl``), the profiler trace
+and step timer (``--profile-dir``), the NaN checks (``--debug-nans``) and
+background checkpoint writes (``--async-ckpt``); Siamese training also
+the deferred best model (``--defer-best-ckpt``).  Evaluation and synthesis
+load a JAX package ``.msgpack`` checkpoint as they load a ``.pth``.
+
+Not ported yet: tuning, ``--stream``, resuming from a JAX train state
+(``.msgpack``); the GAN's ``--batched-disc``, ``--concat-free-disc`` and
 ``--shared-gen-fwd``; serving artifacts for synthesis; for evaluation
 visualizations, ``--post-process``, ``--ensemble``, ``--threshold-sweep``,
 serving artifacts and single-pair evaluation.
@@ -15,6 +22,7 @@ serving artifacts and single-pair evaluation.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -50,6 +58,9 @@ from .train.gan import GANTrainer, generate
 from .train.optim import get_learning_rate
 from .train.plateau import EarlyStopping, make_plateau_scheduler
 from .train.siamese import SiameseTrainer, predict
+from .utils.profiling import StepTimer, annotate, enable_nan_checks, trace
+from .utils.runlog import open_run_log
+from .utils.signals import GracefulShutdown
 from .utils.viz import save_gan_sample_strip
 
 
@@ -90,6 +101,28 @@ class NativeDeviceCache(DeviceCache):
                    torch.from_numpy(ds.sizes).to(device, torch.int64))
 
 
+def _setup_observability(trainer, cfg, items_per_step: int, verbose: bool):
+    """Attach the step timer (``profile_dir``) and the NaN checks
+    (``debug_nans``) to ``trainer``; returns the profiler's context."""
+    if cfg.debug_nans:
+        enable_nan_checks(trainer)
+        if verbose:
+            print("NaN checks enabled: each step's loss and gradients are "
+                  "checked before the optimizer step.")
+    if cfg.profile_dir:
+        # The first two steps warm up (cuDNN's algorithm search for the
+        # full and the partial batch, first kernel loads): excluded.
+        trainer.step_timer = StepTimer(items_per_step=items_per_step,
+                                       skip_first=2)
+    return trace(cfg.profile_dir)
+
+
+def _report_observability(trainer, cfg, verbose: bool) -> None:
+    if trainer.step_timer is not None and verbose:
+        print(trainer.step_timer.format_summary("Step timing: "))
+        print(f"Profiler trace written to {cfg.profile_dir}")
+
+
 def run_siamese_training(
     data_cfg: DataConfig,
     train_cfg: SiameseTrainConfig,
@@ -98,14 +131,18 @@ def run_siamese_training(
     initial_state_dict: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Optional[Dict]:
     """Train the SiameseUNet on the train cities, validating on the val
-    cities each epoch (reference train.py:258-322).  ``initial_state_dict``
-    replaces the seeded init (a JAX init carried across with
-    ``interop.siamese_state_dict_from_jax``, say).  Returns the history
-    {"train_loss", "val_loss", "best_val_loss", "trainer"}, or None when
-    the train split is empty."""
+    cities each epoch (reference train.py:258-322), under the run control
+    of ``train_cfg``.  ``initial_state_dict`` replaces the seeded init (a
+    JAX init carried across with ``interop.siamese_state_dict_from_jax``,
+    say).  Returns the history {"train_loss", "val_loss", "best_val_loss",
+    "trainer"}, or None when the train split is empty.  Raises
+    ``checkpoint.ResumeNotPortedError`` when ``resume`` finds only a JAX
+    ``last_state.msgpack``."""
     dev = resolve_device(device)
     checkpoint_dir = os.path.join(data_cfg.root_dir, train_cfg.checkpoint_dir)
     os.makedirs(checkpoint_dir, exist_ok=True)
+    resume_path = (ckpt.find_resume_checkpoint(checkpoint_dir, "last_state")
+                   if train_cfg.resume else None)
 
     train_samples = create_sample_lists(
         data_cfg.root_dir, data_cfg.dataset_subdir, data_cfg.synthetic_data_dir,
@@ -143,15 +180,14 @@ def run_siamese_training(
     stopper = EarlyStopping(train_cfg.early_stop_patience)
     start_epoch = 1
     best_val_loss = float("inf")
-    if train_cfg.resume:
-        path = ckpt.find_checkpoint(checkpoint_dir, "last_state")
-        if path:
-            extra = ckpt.restore_train_state(
-                path, trainer.model, trainer.optimizer, scheduler, stopper)
-            start_epoch = extra["epoch"] + 1
-            best_val_loss = extra["best_val_loss"]
-            if verbose:
-                print(f"Resumed from {path} at epoch {start_epoch}.")
+    if resume_path:
+        extra = ckpt.restore_train_state(
+            resume_path, trainer.model, trainer.optimizer, scheduler,
+            stopper)
+        start_epoch = extra["epoch"] + 1
+        best_val_loss = extra["best_val_loss"]
+        if verbose:
+            print(f"Resumed from {resume_path} at epoch {start_epoch}.")
 
     dev_train = (NativeDeviceCache if native else DeviceCache).from_dataset(
         train_ds, dev)
@@ -162,9 +198,28 @@ def run_siamese_training(
     epoch_rng = np.random.RandomState(train_cfg.seed)
     trainer.generator.manual_seed(train_cfg.seed)
     history = {"train_loss": [], "val_loss": []}
-    history["best_val_loss"] = _run_siamese_epochs(
-        trainer, train_cfg, scheduler, stopper, start_epoch, best_val_loss,
-        dev_train, dev_val, epoch_rng, checkpoint_dir, history, verbose)
+    profiler_ctx = _setup_observability(trainer, train_cfg,
+                                        train_cfg.batch_size, verbose)
+    runlog = open_run_log(train_cfg.log_jsonl, append=train_cfg.resume)
+    if runlog:
+        runlog.log(
+            "run_start", kind="siamese_train", start_epoch=start_epoch,
+            n_train=len(train_ds), n_val=len(val_ds),
+            data=dataclasses.asdict(data_cfg),
+            config=dataclasses.asdict(train_cfg),
+        )
+    try:
+        with profiler_ctx, GracefulShutdown() as stop:
+            history["best_val_loss"] = _run_siamese_epochs(
+                trainer, train_cfg, scheduler, stopper, start_epoch,
+                best_val_loss, dev_train, dev_val, epoch_rng,
+                checkpoint_dir, history, verbose, stop, runlog)
+        if runlog:
+            runlog.log("run_end", best_val_loss=history["best_val_loss"])
+    finally:
+        if runlog:
+            runlog.close()
+    _report_observability(trainer, train_cfg, verbose)
     history["trainer"] = trainer
     if verbose:
         print("Training finished.")
@@ -173,53 +228,111 @@ def run_siamese_training(
 
 def _run_siamese_epochs(trainer, train_cfg, scheduler, stopper, start_epoch,
                         best_val_loss, dev_train, dev_val, epoch_rng,
-                        checkpoint_dir, history, verbose) -> float:
-    """The epoch loop (pipelines.py:221-392 without the deferred, async,
-    preemption and run-log paths).  Returns the best validation loss."""
-    for epoch in range(start_epoch, train_cfg.num_epochs + 1):
-        lr_now = get_learning_rate(trainer.optimizer)
-        if verbose:
-            print(f"\nEpoch {epoch}/{train_cfg.num_epochs} - LR: {lr_now:.1e}")
-        t0 = time.perf_counter()
-        train_loss = trainer.train_epoch(dev_train, epoch_rng)
-        val_loss = trainer.validate(dev_val) if dev_val is not None else 0.0
-        dt = time.perf_counter() - t0
-        history["train_loss"].append(train_loss)
-        history["val_loss"].append(val_loss)
-        if verbose:
-            print(f"Epoch {epoch} - Train Loss: {train_loss:.4f}, "
-                  f"Val Loss: {val_loss:.4f} ({dt:.2f}s)")
-        scheduler.step(val_loss)
-        early_stopped = dev_val is not None and stopper.step(val_loss)
-        if val_loss < best_val_loss:
-            best_val_loss = val_loss
-            path = os.path.join(checkpoint_dir,
-                                ckpt.checkpoint_name("best_model"))
-            ckpt.save_model(path, trainer.model)
+                        checkpoint_dir, history, verbose, stop=None,
+                        runlog=None) -> float:
+    """The epoch loop, its writes and its events in the JAX package's
+    order (pipelines.py:221-392).  Returns the best validation loss."""
+    def path(stem):
+        return os.path.join(checkpoint_dir, ckpt.checkpoint_name(stem))
+
+    def log(event, **fields):
+        if runlog:
+            runlog.log(event, **fields)
+
+    cfg = train_cfg
+    best_snapshot = None  # the best model's state_dict, on the device
+    writer = ckpt.AsyncCheckpointWriter() if cfg.async_ckpt else None
+    save = writer.save if writer else ckpt.save
+    try:
+        for epoch in range(start_epoch, cfg.num_epochs + 1):
+            lr_now = get_learning_rate(trainer.optimizer)
             if verbose:
-                print(f"Best model saved to {path} (Val Loss: "
-                      f"{best_val_loss:.4f})")
-        if epoch % train_cfg.save_every == 0:
-            path = os.path.join(
-                checkpoint_dir, ckpt.checkpoint_name(f"model_epoch_{epoch}"))
-            ckpt.save_model(path, trainer.model)
+                print(f"\nEpoch {epoch}/{cfg.num_epochs} - LR: {lr_now:.1e}")
+            t0 = time.perf_counter()
+            with annotate("train_epoch"):
+                train_loss = trainer.train_epoch(dev_train, epoch_rng,
+                                                 epoch=epoch)
+            with annotate("validate"):
+                val_loss = (trainer.validate(dev_val) if dev_val is not None
+                            else 0.0)
+            dt = time.perf_counter() - t0
+            history["train_loss"].append(train_loss)
+            history["val_loss"].append(val_loss)
             if verbose:
-                print(f"Checkpoint saved to {path}")
-        # The resume state, on the save_every cadence, at the last epoch
-        # and on early stop.
-        if (epoch % train_cfg.save_every == 0
-                or epoch == train_cfg.num_epochs or early_stopped):
-            ckpt.save_train_state(
-                os.path.join(checkpoint_dir,
-                             ckpt.checkpoint_name("last_state")),
-                trainer.model, trainer.optimizer, scheduler, stopper, epoch,
-                best_val_loss)
-        if early_stopped:
-            if verbose:
-                print(f"Early stopping at epoch {epoch}: no val-loss "
-                      f"improvement in {stopper.patience} epochs (best "
-                      f"{best_val_loss:.4f}).")
-            break
+                print(f"Epoch {epoch} - Train Loss: {train_loss:.4f}, "
+                      f"Val Loss: {val_loss:.4f} ({dt:.2f}s)")
+            log("epoch", epoch=epoch, train_loss=train_loss,
+                val_loss=val_loss, lr=lr_now, wall_s=round(dt, 3))
+            scheduler.step(val_loss)
+            early_stopped = dev_val is not None and stopper.step(val_loss)
+            if val_loss < best_val_loss:
+                best_val_loss = val_loss
+                if cfg.defer_best_ckpt:
+                    # A device copy of the whole state_dict, buffers too:
+                    # the next epoch's steps update the live tensors in
+                    # place.
+                    best_snapshot = {k: v.detach().clone() for k, v in
+                                     trainer.model.state_dict().items()}
+                    if verbose:
+                        print(f"Best model snapshotted on device (Val "
+                              f"Loss: {best_val_loss:.4f})")
+                    log("best_snapshot", epoch=epoch, val_loss=val_loss)
+                else:
+                    p = path("best_model")
+                    save(p, trainer.model.state_dict())
+                    if verbose:
+                        print(f"Best model saved to {p} (Val Loss: "
+                              f"{best_val_loss:.4f})")
+                    log("checkpoint", kind="best_model", path=p,
+                        epoch=epoch, val_loss=val_loss)
+            preempted = stop is not None and stop.requested
+            cadence = epoch % cfg.save_every == 0
+            if best_snapshot is not None and (
+                    cadence or epoch == cfg.num_epochs or preempted
+                    or early_stopped):
+                p = path("best_model")
+                save(p, best_snapshot)
+                best_snapshot = None
+                if verbose:
+                    print(f"Best model saved to {p} (deferred write)")
+                log("checkpoint", kind="best_model", path=p, epoch=epoch,
+                    deferred=True)
+            if cadence:
+                p = path(f"model_epoch_{epoch}")
+                save(p, trainer.model.state_dict())
+                if verbose:
+                    print(f"Checkpoint saved to {p}")
+                log("checkpoint", kind="model_epoch", path=p, epoch=epoch)
+            # The resume state: on the save_every cadence, at the last
+            # epoch, on preemption (so that --resume continues from this
+            # epoch) and on early stop.
+            if (cadence or epoch == cfg.num_epochs or preempted
+                    or early_stopped):
+                p = path("last_state")
+                save(p, ckpt.train_state(
+                    trainer.model, trainer.optimizer, scheduler, stopper,
+                    epoch, best_val_loss))
+                log("checkpoint", kind="last_state", path=p, epoch=epoch)
+            if preempted:
+                if verbose:
+                    print(f"Preemption requested: resume state saved at "
+                          f"epoch {epoch}; relaunch with --resume to "
+                          "continue.")
+                log("preemption", epoch=epoch)
+                break
+            if early_stopped:
+                if verbose:
+                    print(f"Early stopping at epoch {epoch}: no val-loss "
+                          f"improvement in {stopper.patience} epochs (best "
+                          f"{best_val_loss:.4f}).")
+                log("early_stop", epoch=epoch, patience=stopper.patience,
+                    best_val_loss=best_val_loss)
+                break
+        if writer is not None:
+            writer.wait()  # the last write durable, its error raised, here
+    finally:
+        if writer is not None:
+            writer.close()
     return best_val_loss
 
 
@@ -233,15 +346,20 @@ def run_gan_training(
 ) -> Optional[Dict]:
     """Train the Pix2Pix GAN on every city, no split (reference
     train_gan.py:95-155, quirk kept), from a cache at the target size on
-    the device.  ``initial_state_dicts`` = (generator, discriminator)
-    replaces the seeded init (a JAX init carried across, say).  Returns the
-    history {"loss_d", "loss_g", "trainer"}, or None when there is no
-    sample."""
+    the device, under the run control of ``gan_cfg``.
+    ``initial_state_dicts`` = (generator, discriminator) replaces the
+    seeded init (a JAX init carried across, say).  Returns the history
+    {"loss_d", "loss_g", "trainer"}, or None when there is no sample.
+    Raises ``checkpoint.ResumeNotPortedError`` when ``resume`` finds only
+    a JAX ``last_generator.msgpack`` or ``last_discriminator.msgpack``."""
     dev = resolve_device(device)
     checkpoint_dir = os.path.join(data_cfg.root_dir, gan_cfg.checkpoint_dir)
     output_dir = os.path.join(data_cfg.root_dir, gan_cfg.output_dir)
     os.makedirs(checkpoint_dir, exist_ok=True)
     os.makedirs(output_dir, exist_ok=True)
+    resume_paths = ([ckpt.find_resume_checkpoint(checkpoint_dir, stem)
+                     for stem in ("last_generator", "last_discriminator")]
+                    if gan_cfg.resume else [None, None])
 
     samples = create_sample_lists(
         data_cfg.root_dir, data_cfg.dataset_subdir, data_cfg.synthetic_data_dir,
@@ -259,16 +377,14 @@ def run_gan_training(
     if initial_state_dicts is not None:
         trainer.load_state_dicts(*initial_state_dicts)
     start_epoch = 1
-    if gan_cfg.resume:
-        pg = ckpt.find_checkpoint(checkpoint_dir, "last_generator")
-        pd = ckpt.find_checkpoint(checkpoint_dir, "last_discriminator")
-        if pg and pd:
-            epoch = ckpt.restore_gan_state(pg, trainer.generator,
-                                           trainer.opt_g, trainer.ema)
-            ckpt.restore_gan_state(pd, trainer.discriminator, trainer.opt_d)
-            start_epoch = epoch + 1
-            if verbose:
-                print(f"Resumed GAN from epoch {start_epoch}.")
+    pg, pd = resume_paths
+    if pg and pd:
+        epoch = ckpt.restore_gan_state(pg, trainer.generator, trainer.opt_g,
+                                       trainer.ema)
+        ckpt.restore_gan_state(pd, trainer.discriminator, trainer.opt_d)
+        start_epoch = epoch + 1
+        if verbose:
+            print(f"Resumed GAN from epoch {start_epoch}.")
 
     cache = DeviceCache.from_dataset(ds, dev)
     # The epoch order's only source; a resumed run restarts it, as the JAX
@@ -277,28 +393,76 @@ def run_gan_training(
     # One fixed preview pair for every strip (JAX pipelines.py:457-462).
     preview_i = int(np.random.RandomState(gan_cfg.seed + 1).randint(len(ds)))
     history = {"loss_d": [], "loss_g": []}
-    for epoch in range(start_epoch, gan_cfg.num_epochs + 1):
-        t0 = time.perf_counter()
-        loss_d, loss_g = trainer.train_epoch(cache, epoch_rng)
-        dt = time.perf_counter() - t0
-        history["loss_d"].append(loss_d)
-        history["loss_g"].append(loss_g)
-        if verbose:
-            print(f"Epoch {epoch} - Avg Loss D: {loss_d:.4f}, Avg Loss G: "
-                  f"{loss_g:.4f} ({dt:.2f}s)")
-        last = epoch == gan_cfg.num_epochs
-        if epoch % gan_cfg.sample_every == 0 or last:
-            i = preview_i
-            fake = trainer.generate(cache.img1[i:i + 1].permute(0, 2, 3, 1))
-            path = save_gan_sample_strip(ds.img1[i], fake[0].cpu().numpy(),
-                                         ds.img2[i], ds.cities[i], epoch,
-                                         output_dir)
+    # Closed in a finally, last in first out: the guard, the run log, the
+    # writer (its last write waited for), the profiler.
+    run = contextlib.ExitStack()
+    run.enter_context(_setup_observability(trainer, gan_cfg,
+                                           gan_cfg.batch_size, verbose))
+    writer = ckpt.AsyncCheckpointWriter() if gan_cfg.async_ckpt else None
+    if writer:
+        run.callback(writer.close)
+    save = writer.save if writer else ckpt.save
+    runlog = open_run_log(gan_cfg.log_jsonl, append=gan_cfg.resume)
+
+    def log(event, **fields):
+        if runlog:
+            runlog.log(event, **fields)
+
+    if runlog:
+        run.callback(runlog.close)
+        runlog.log(
+            "run_start", kind="gan_train", start_epoch=start_epoch,
+            n_train=len(ds), data=dataclasses.asdict(data_cfg),
+            config=dataclasses.asdict(gan_cfg),
+        )
+    stop = run.enter_context(GracefulShutdown())
+    try:
+        for epoch in range(start_epoch, gan_cfg.num_epochs + 1):
+            t0 = time.perf_counter()
+            with annotate("train_epoch"):
+                loss_d, loss_g = trainer.train_epoch(cache, epoch_rng,
+                                                     epoch=epoch)
+            dt = time.perf_counter() - t0
+            history["loss_d"].append(loss_d)
+            history["loss_g"].append(loss_g)
             if verbose:
-                print(f"Saved sample image to {path}")
-        if epoch % gan_cfg.save_every == 0 or last:
-            _save_gan_checkpoints(trainer, checkpoint_dir, epoch)
-            if verbose:
-                print(f"GAN Checkpoints saved for epoch {epoch}")
+                print(f"Epoch {epoch} - Avg Loss D: {loss_d:.4f}, Avg Loss "
+                      f"G: {loss_g:.4f} ({dt:.2f}s)")
+            log("epoch", epoch=epoch, loss_d=loss_d, loss_g=loss_g,
+                wall_s=round(dt, 3))
+            last = epoch == gan_cfg.num_epochs
+            if epoch % gan_cfg.sample_every == 0 or last:
+                i = preview_i
+                fake = trainer.generate(
+                    cache.img1[i:i + 1].permute(0, 2, 3, 1))
+                p = save_gan_sample_strip(ds.img1[i], fake[0].cpu().numpy(),
+                                          ds.img2[i], ds.cities[i], epoch,
+                                          output_dir)
+                if verbose:
+                    print(f"Saved sample image to {p}")
+                log("sample", epoch=epoch, path=p)
+            preempted = stop.requested
+            if epoch % gan_cfg.save_every == 0 or last or preempted:
+                paths = _save_gan_checkpoints(trainer, checkpoint_dir,
+                                              epoch, save)
+                if verbose:
+                    print(f"GAN Checkpoints saved for epoch {epoch}")
+                log("checkpoint", kind="gan_epoch", epoch=epoch, **paths)
+            if preempted:
+                if verbose:
+                    print(f"Preemption requested: GAN resume state saved at "
+                          f"epoch {epoch}; relaunch with --resume to "
+                          "continue.")
+                log("preemption", epoch=epoch)
+                break
+        if writer is not None:
+            writer.wait()
+        log("run_end")
+    finally:
+        # Restores the signal handlers and stops the profiler on an error
+        # too (a leaked guard would swallow the process's next ctrl-C).
+        run.close()
+    _report_observability(trainer, gan_cfg, verbose)
     if verbose:
         print("GAN Training finished.")
     history["trainer"] = trainer
@@ -306,24 +470,29 @@ def run_gan_training(
 
 
 def _save_gan_checkpoints(trainer: GANTrainer, checkpoint_dir: str,
-                          epoch: int) -> None:
+                          epoch: int, save=ckpt.save) -> Dict[str, str]:
     """Bare state_dicts ``generator_epoch_N.pth``,
     ``discriminator_epoch_N.pth`` (and ``generator_ema_epoch_N.pth`` with
     an EMA), then the resume pair ``last_generator.pth`` and
-    ``last_discriminator.pth`` (JAX pipelines.py:530-573)."""
+    ``last_discriminator.pth`` (JAX pipelines.py:530-573), each through
+    ``save`` (``checkpoint.save`` or a writer's).  Returns the paths of
+    the epoch's models by the run log's keys: ``generator``,
+    ``discriminator`` and, with an EMA, ``ema``."""
     def path(stem):
         return os.path.join(checkpoint_dir, ckpt.checkpoint_name(stem))
 
-    ckpt.save_model(path(f"generator_epoch_{epoch}"), trainer.generator)
-    ckpt.save_model(path(f"discriminator_epoch_{epoch}"),
-                    trainer.discriminator)
+    paths = {"generator": path(f"generator_epoch_{epoch}"),
+             "discriminator": path(f"discriminator_epoch_{epoch}")}
+    save(paths["generator"], trainer.generator.state_dict())
+    save(paths["discriminator"], trainer.discriminator.state_dict())
     if trainer.ema is not None:
-        ckpt.save_state_dict(path(f"generator_ema_epoch_{epoch}"),
-                             trainer.ema_state_dict())
-    ckpt.save_gan_state(path("last_generator"), trainer.generator,
-                        trainer.opt_g, epoch, trainer.ema)
-    ckpt.save_gan_state(path("last_discriminator"), trainer.discriminator,
-                        trainer.opt_d, epoch)
+        paths["ema"] = path(f"generator_ema_epoch_{epoch}")
+        save(paths["ema"], trainer.ema_state_dict())
+    save(path("last_generator"), ckpt.gan_state(
+        trainer.generator, trainer.opt_g, epoch, trainer.ema))
+    save(path("last_discriminator"), ckpt.gan_state(
+        trainer.discriminator, trainer.opt_d, epoch))
+    return paths
 
 
 def run_generate_synthetic(
@@ -447,8 +616,8 @@ def run_evaluation(
     verbose: bool = True,
     device="cuda",
 ) -> Optional[Dict]:
-    """Evaluate ``best_model.pth`` (or ``eval_cfg.checkpoint_path``) over
-    every OSCD city.  Returns overall and per-city macro means, per-city
+    """Evaluate ``best_model.pth`` (or ``eval_cfg.checkpoint_path``, a
+    ``.pth`` or a JAX package ``.msgpack``) over every OSCD city.  Returns overall and per-city macro means, per-city
     sample counts, ``sweep`` (None: not ported) and each sample's confusion
     counts; None when no samples or no checkpoint are found."""
     dev = resolve_device(device)

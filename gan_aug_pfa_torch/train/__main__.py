@@ -8,9 +8,13 @@ is given.  ``--augment`` turns on joint augmentation, at native
 resolution unless ``--no-native-aug``.  ``--fused-loss`` and
 ``--[no-]pallas-augment`` are accepted so that the JAX package's command
 lines run unchanged: on the card the loss always runs the fused kernels
-and augmentation the photometric kernels.  Flags of paths not ported yet
-(``--tune``, ``--stream`` and the others below) exit non-zero with "not
-ported yet".
+and augmentation the photometric kernels.  Run control: ``--log-jsonl``,
+``--profile-dir``, ``--debug-nans``, ``--defer-best-ckpt`` and
+``--async-ckpt``; SIGTERM or SIGINT finishes the epoch in flight, writes
+``last_state.pth`` at it and exits 0, and ``--resume`` continues from
+there.  Flags of paths not ported yet (``--tune``, ``--stream`` and the
+others below), and ``--resume`` with only a JAX ``last_state.msgpack``,
+exit 2 with "not ported yet".
 """
 
 from __future__ import annotations
@@ -25,16 +29,16 @@ from ..config import (
     SiameseTrainConfig,
     parse_target_size,
 )
+from ..checkpoint import ResumeNotPortedError
 from .siamese import COMPUTE_DTYPES
 
 # The root train.py's flags whose paths are not ported yet, with the value
 # that leaves them off.
 _NOT_PORTED = {
     "tune": False, "stream": "hbm", "n_trials": None,
-    "parallel_trials": None, "batched_encoder": False, "profile_dir": None,
-    "debug_nans": False, "concat_free": False, "momentum_dtype": None, "flat_opt_state": False,
-    "defer_best_ckpt": False, "remat": False, "grad_accum": 1,
-    "async_ckpt": False, "log_jsonl": None,
+    "parallel_trials": None, "batched_encoder": False, "concat_free": False,
+    "momentum_dtype": None, "flat_opt_state": False, "remat": False,
+    "grad_accum": 1,
 }
 
 
@@ -104,19 +108,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted for the JAX package's command lines; "
                         "the port has no compilation cache")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="[extension] write a torch.profiler trace + "
+                        "per-step timing stats")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="[extension] check each step's loss and gradients "
+                        "for NaN/Inf (raises naming the step)")
+    p.add_argument("--defer-best-ckpt", action="store_true",
+                   help="[extension] keep the best model as a device "
+                        "snapshot; write best_model.pth on the save-every "
+                        "cadence instead of every improving epoch (avoids "
+                        "~165 MB device->host pulls per improvement)")
+    p.add_argument("--async-ckpt", action="store_true",
+                   help="[extension] write checkpoints on a background "
+                        "thread (device-side snapshot first; the "
+                        "device->host pull overlaps later epochs)")
+    p.add_argument("--log-jsonl", type=str, default=None,
+                   help="[extension] append machine-readable run events "
+                        "(run_start/epoch/checkpoint/preemption/run_end) "
+                        "as one JSON object per line to this file; "
+                        "--resume appends to the same file")
     not_ported = p.add_argument_group(
         "not ported yet (using one exits non-zero)")
-    for flag in ("--tune", "--batched-encoder", "--debug-nans",
-                 "--concat-free", "--flat-opt-state", "--defer-best-ckpt",
-                 "--remat", "--async-ckpt"):
+    for flag in ("--tune", "--batched-encoder", "--concat-free",
+                 "--flat-opt-state", "--remat"):
         not_ported.add_argument(flag, action="store_true")
     not_ported.add_argument("--stream", type=str, default="hbm")
     not_ported.add_argument("--n-trials", type=int, default=None)
     not_ported.add_argument("--parallel-trials", type=int, default=None)
-    not_ported.add_argument("--profile-dir", type=str, default=None)
     not_ported.add_argument("--momentum-dtype", type=str, default=None)
     not_ported.add_argument("--grad-accum", type=int, default=1)
-    not_ported.add_argument("--log-jsonl", type=str, default=None)
     return p
 
 
@@ -150,11 +171,19 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
         compute_dtype=args.compute_dtype,
         resume=args.resume,
         early_stop_patience=args.early_stop,
+        defer_best_ckpt=args.defer_best_ckpt,
+        async_ckpt=args.async_ckpt,
+        profile_dir=args.profile_dir,
+        debug_nans=args.debug_nans,
+        log_jsonl=args.log_jsonl,
     )
     from .. import pipelines
 
-    return pipelines.run_siamese_training(data_cfg, train_cfg,
-                                          device=args.device)
+    try:
+        return pipelines.run_siamese_training(data_cfg, train_cfg,
+                                              device=args.device)
+    except ResumeNotPortedError as e:
+        parser.error(str(e))
 
 
 if __name__ == "__main__":

@@ -16,7 +16,9 @@ gan.py:178-297):
 
 The models' outputs are taken in float32 before any loss, as the JAX
 models cast theirs (pix2pix.py:144, :198).  Batch losses stay on the
-device; an epoch reads their means once.
+device; an epoch reads their means once.  The pipeline's observability
+hooks, ``step_timer`` and ``nan_checks``, are ``SiameseTrainer``'s; the
+NaN check runs before each of the two optimizer steps.
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ from ..data.transforms import normalize
 from ..device import resolve_device
 from ..losses import gan_bce_loss, l1_loss
 from ..models.pix2pix import NLayerDiscriminator, UNetGenerator
+from ..utils.profiling import step_guard, sync
 from .optim import make_optimizer
-from .siamese import compute_precision, tf32_off
+from .siamese import compute_precision, step_label, tf32_off
 
 
 @torch.no_grad()
@@ -66,6 +69,9 @@ class GANTrainer:
                                     config.learning_rate_d, b1=config.beta1)
         self.ema: Optional[Dict[str, torch.Tensor]] = None
         self.reset_ema()
+        # Observability hooks (utils/profiling.py), off by default.
+        self.step_timer = None
+        self.nan_checks = False
 
     def init_models(self, seed: int
                     ) -> Tuple[UNetGenerator, NLayerDiscriminator]:
@@ -102,16 +108,17 @@ class GANTrainer:
         sd.update(self.ema)
         return sd
 
-    def train_step(self, cache, idx: torch.Tensor
+    def train_step(self, cache, idx: torch.Tensor, where: str = ""
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One D+G step on the cache rows ``idx`` (a device index tensor).
         Returns (loss_D, loss_G), detached 0-dim device tensors."""
         return self.train_batch(cache.img1.index_select(0, idx),
-                                cache.img2.index_select(0, idx))
+                                cache.img2.index_select(0, idx), where)
 
-    def train_batch(self, a01: torch.Tensor, b01: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One D+G step on NCHW [0,1] images A (input) and B (target)."""
+    def train_batch(self, a01: torch.Tensor, b01: torch.Tensor,
+                    where: str = "") -> Tuple[torch.Tensor, torch.Tensor]:
+        """One D+G step on NCHW [0,1] images A (input) and B (target).
+        ``where`` names the step in a NaN check's error."""
         cfg = self.config
         g, d = self.generator, self.discriminator
         real_a, real_b = normalize(a01), normalize(b01)
@@ -133,6 +140,8 @@ class GANTrainer:
                             + gan_bce_loss(pred_fake, False))
             self.opt_d.zero_grad(set_to_none=True)
             loss_d.backward()
+            if self.nan_checks:
+                step_guard(loss_d, d, f"{where} (D step)")
             self.opt_d.step()
 
             d.requires_grad_(False)
@@ -146,6 +155,8 @@ class GANTrainer:
                 loss_g.backward()
             finally:
                 d.requires_grad_(True)
+        if self.nan_checks:
+            step_guard(loss_g, g, f"{where} (G step)")
         self.opt_g.step()
         if self.ema is not None:
             self._update_ema()
@@ -161,12 +172,13 @@ class GANTrainer:
         torch._foreach_mul_(ema, decay)
         torch._foreach_add_(ema, torch._foreach_mul(params, 1.0 - decay))
 
-    def train_epoch(self, cache, epoch_rng: np.random.RandomState
-                    ) -> Tuple[float, float]:
+    def train_epoch(self, cache, epoch_rng: np.random.RandomState,
+                    epoch=None) -> Tuple[float, float]:
         """One shuffled pass of full batches (reference train_gan.py:135,
         drop_last=True) in the order ``epoch_rng.permutation(n)``.  Returns
         the means of the batch losses (loss_D, loss_G), read with one
-        device-to-host copy; (0.0, 0.0) when no full batch fits."""
+        device-to-host copy; (0.0, 0.0) when no full batch fits.
+        ``epoch`` names the epoch in a NaN check's error."""
         bs = self.config.batch_size
         n = len(cache)
         perm = epoch_rng.permutation(n)
@@ -175,10 +187,22 @@ class GANTrainer:
             return 0.0, 0.0
         batches = torch.from_numpy(perm[:n_full].reshape(-1, bs)).to(
             self.device)
-        losses = [torch.stack(self.train_step(cache, idx))
-                  for idx in batches]
+        losses = [torch.stack(self._observed_step(cache, idx, epoch, i))
+                  for i, idx in enumerate(batches, 1)]
         loss_d, loss_g = torch.stack(losses).mean(dim=0).tolist()
         return loss_d, loss_g
+
+    def _observed_step(self, cache, idx: torch.Tensor, epoch, step: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``train_step``, under the step timer when there is one (up to a
+        device sync)."""
+        kw = {"where": step_label(epoch, step)} if self.nan_checks else {}
+        if self.step_timer is None:
+            return self.train_step(cache, idx, **kw)
+        with self.step_timer.step():
+            losses = self.train_step(cache, idx, **kw)
+            sync(self.device)
+        return losses
 
     def generate(self, img01: torch.Tensor) -> torch.Tensor:
         """``generate`` with this trainer's generator and precision."""

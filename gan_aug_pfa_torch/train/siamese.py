@@ -15,8 +15,14 @@ native-size cache with ``native_out_size``, else on the target-size cache.
 Validation never augments.
 
 Training runs the two-pass encoder (``batched_encoder=False``): each image
-gets its own train-mode BatchNorm statistics, as in the reference.  The
-JAX package's streaming, mesh and per-step profiling paths are not ported.
+gets its own train-mode BatchNorm statistics, as in the reference.
+
+Two observability hooks, both off by default, are set by the pipeline
+(``--profile-dir``, ``--debug-nans``): ``step_timer`` (a
+``utils.profiling.StepTimer``) times each step up to a device sync, and
+``nan_checks`` checks each step's loss and gradients before the optimizer
+step.  With neither, a step makes no host sync.  The JAX package's
+streaming and mesh paths are not ported.
 """
 
 from __future__ import annotations
@@ -37,9 +43,15 @@ from ..data.transforms import (
 from ..device import resolve_device
 from ..models.siamese_unet import SiameseUNet
 from ..ops.kernels.fused_loss import focal_dice_loss_fused
+from ..utils.profiling import step_guard, sync
 from .optim import make_optimizer
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def step_label(epoch, step: int) -> str:
+    """The place of a step in a run, for error messages."""
+    return f"step {step}" if epoch is None else f"epoch {epoch}, step {step}"
 
 
 @contextlib.contextmanager
@@ -119,6 +131,9 @@ class SiameseTrainer:
         self.loss_kwargs = dict(
             beta=config.loss_beta, focal_gamma=config.focal_gamma,
             focal_alpha=config.focal_alpha, dice_smooth=config.dice_smooth)
+        # Observability hooks (utils/profiling.py), off by default.
+        self.step_timer = None
+        self.nan_checks = False
 
     def init_model(self, seed: int) -> SiameseUNet:
         """A freshly initialized SiameseUNet (on the CPU) from ``seed``,
@@ -161,13 +176,13 @@ class SiameseTrainer:
             img1, img2, labels = augment_batch(*nhwc, params)
         return img1.permute(0, 3, 1, 2), img2.permute(0, 3, 1, 2), labels
 
-    def train_step(self, cache, idx: torch.Tensor,
-                   params=None) -> torch.Tensor:
+    def train_step(self, cache, idx: torch.Tensor, params=None,
+                   where: str = "") -> torch.Tensor:
         """One optimization step on the cache rows ``idx`` (a device index
         tensor), augmented with ``params`` (a ``sample_augment_params``
         dict; drawn from ``generator`` when None) if the trainer augments.
         Returns the batch loss as a detached 0-dim device tensor (no host
-        sync)."""
+        sync unless ``nan_checks``, whose error names ``where``)."""
         img1, img2, labels = self._batch(cache, idx, params)
         self.model.train()
         # At float32 the backward's convolutions run without TF32 too.
@@ -179,20 +194,37 @@ class SiameseTrainer:
             loss = self.loss(logits, labels)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        if self.nan_checks:
+            step_guard(loss, self.model, where)
         self.optimizer.step()
         return loss.detach()
 
-    def train_epoch(self, cache, epoch_rng: np.random.RandomState) -> float:
+    def train_epoch(self, cache, epoch_rng: np.random.RandomState,
+                    epoch=None) -> float:
         """One shuffled pass: the order is one ``epoch_rng.permutation(n)``;
         full batches first, then the partial final batch, which is kept
         (reference DataLoader drop_last=False).  Returns the mean of the
-        per-batch losses."""
+        per-batch losses.  ``epoch`` names the epoch in a NaN check's
+        error."""
         bs = self.config.batch_size
         n = len(cache)
         perm = torch.from_numpy(epoch_rng.permutation(n)).to(self.device)
-        losses = [self.train_step(cache, perm[start:start + bs])
-                  for start in range(0, n, bs)]
+        losses = [self._observed_step(cache, perm[start:start + bs], epoch,
+                                      i)
+                  for i, start in enumerate(range(0, n, bs), 1)]
         return _mean(losses)
+
+    def _observed_step(self, cache, idx: torch.Tensor, epoch,
+                       step: int) -> torch.Tensor:
+        """``train_step``, under the step timer when there is one (up to a
+        device sync, so that the time holds the card's work)."""
+        kw = {"where": step_label(epoch, step)} if self.nan_checks else {}
+        if self.step_timer is None:
+            return self.train_step(cache, idx, **kw)
+        with self.step_timer.step():
+            loss = self.train_step(cache, idx, **kw)
+            sync(self.device)
+        return loss
 
     @torch.no_grad()
     def validate(self, cache) -> float:

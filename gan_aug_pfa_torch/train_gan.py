@@ -6,10 +6,15 @@ Flag names and defaults are the root ``train_gan.py``'s (256x256, batch 1,
 200 epochs, both learning rates 1e-4, beta1 0.5, lambda_L1 100, bf16).
 ``--device`` (default ``cuda``) picks the device; without a card the run
 raises unless ``--device cpu`` is given.  ``--ema-decay`` keeps the
-generator's EMA.  ``--no-data-parallel`` and ``--no-compile-cache`` are
-accepted so that the JAX package's command lines run unchanged (the port
-trains on one device and has no compilation cache).  Flags of paths not
-ported yet exit non-zero with "not ported yet".
+generator's EMA.  Run control: ``--log-jsonl``, ``--profile-dir``,
+``--debug-nans`` and ``--async-ckpt``; SIGTERM or SIGINT finishes the epoch
+in flight, writes the epoch's checkpoints and the ``last_*`` resume pair at
+it and exits 0, and ``--resume`` continues from there.
+``--no-data-parallel`` and ``--no-compile-cache`` are accepted so that the
+JAX package's command lines run unchanged (the port trains on one device
+and has no compilation cache).  Flags of paths not ported yet, and
+``--resume`` with only a JAX ``last_*.msgpack`` pair, exit 2 with "not
+ported yet".
 """
 
 from __future__ import annotations
@@ -23,15 +28,14 @@ from .config import (
     GANTrainConfig,
     parse_target_size,
 )
+from .checkpoint import ResumeNotPortedError
 from .train.siamese import COMPUTE_DTYPES
 
 # The root train_gan.py's flags whose paths are not ported yet, with the
 # value that leaves them off.
 _NOT_PORTED = {
     "stream": "hbm", "batched_disc": False, "concat_free_disc": False,
-    "shared_gen_fwd": False, "profile_dir": None, "debug_nans": False,
-    "momentum_dtype": None, "flat_opt_state": False, "async_ckpt": False,
-    "log_jsonl": None,
+    "shared_gen_fwd": False, "momentum_dtype": None, "flat_opt_state": False,
 }
 
 
@@ -81,13 +85,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted for the JAX package's command lines; "
                         "the port has no compilation cache")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="write a torch.profiler trace + per-step timing "
+                        "stats")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="check each step's losses and gradients for "
+                        "NaN/Inf (raises naming the step)")
+    p.add_argument("--async-ckpt", action="store_true",
+                   help="[extension] write checkpoints on a background "
+                        "thread (see train.py --help)")
+    p.add_argument("--log-jsonl", type=str, default=None,
+                   help="[extension] append machine-readable run events "
+                        "(run_start/epoch/checkpoint/sample/preemption/"
+                        "run_end) as one JSON object per line to this "
+                        "file; --resume appends to the same file")
     not_ported = p.add_argument_group(
         "not ported yet (using one exits non-zero)")
     for flag in ("--batched-disc", "--concat-free-disc", "--shared-gen-fwd",
-                 "--debug-nans", "--flat-opt-state", "--async-ckpt"):
+                 "--flat-opt-state"):
         not_ported.add_argument(flag, action="store_true")
-    for flag in ("--profile-dir", "--momentum-dtype", "--log-jsonl"):
-        not_ported.add_argument(flag, type=str, default=None)
+    not_ported.add_argument("--momentum-dtype", type=str, default=None)
     not_ported.add_argument("--stream", type=str, default="hbm")
     return p
 
@@ -122,10 +139,18 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
         compute_dtype=args.compute_dtype,
         resume=args.resume,
         ema_decay=args.ema_decay,
+        async_ckpt=args.async_ckpt,
+        profile_dir=args.profile_dir,
+        debug_nans=args.debug_nans,
+        log_jsonl=args.log_jsonl,
     )
     from . import pipelines
 
-    return pipelines.run_gan_training(data_cfg, gan_cfg, device=args.device)
+    try:
+        return pipelines.run_gan_training(data_cfg, gan_cfg,
+                                          device=args.device)
+    except ResumeNotPortedError as e:
+        parser.error(str(e))
 
 
 if __name__ == "__main__":

@@ -645,3 +645,27 @@ def test_photometric_wrappers_reject_what_the_kernels_do_not_take(cuda):
                             (x, rows[:1]), (x, rows.cpu())):
         with pytest.raises((TypeError, ValueError)):
             ph.photometric_native_chw(bad_x, bad_rows)
+
+
+@pytest.mark.cuda
+def test_jax_written_generator_runs_on_the_card(cuda):
+    """tests/data/jax_generator_nd5_ngf4.msgpack (tools/
+    make_msgpack_fixture.py), read by the port's own decoder, runs on the
+    card at fp32 with TF32 off within 1e-5 of the JAX output saved beside
+    it."""
+    import os
+
+    from gan_aug_pfa_torch import checkpoint
+    from gan_aug_pfa_torch.models import UNetGenerator
+    from gan_aug_pfa_torch.train.siamese import tf32_off
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    model = checkpoint.restore_model_only(
+        os.path.join(data, "jax_generator_nd5_ngf4.msgpack"),
+        UNetGenerator(num_downs=5, ngf=4)).cuda().eval()
+    expected = np.load(os.path.join(data,
+                                    "jax_generator_nd5_ngf4_expected.npz"))
+    x = torch.from_numpy(expected["x"]).cuda().permute(0, 3, 1, 2)
+    with torch.no_grad(), tf32_off():
+        y = model(x).permute(0, 2, 3, 1).cpu().numpy()
+    np.testing.assert_allclose(y, expected["y"], rtol=0, atol=1e-5)

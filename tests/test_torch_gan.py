@@ -449,9 +449,10 @@ def test_cli_trains_writes_reference_names_and_strip(oscd_tree, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--stream", "host"], ["--batched-disc"], ["--concat-free-disc"],
-    ["--shared-gen-fwd"], ["--profile-dir", "prof"], ["--debug-nans"],
-    ["--momentum-dtype", "bfloat16"], ["--flat-opt-state"], ["--async-ckpt"],
-    ["--log-jsonl", "run.jsonl"]])
+    ["--shared-gen-fwd"], ["--shared-gen-fwd", "--profile-dir", "prof"],
+    ["--batched-disc", "--debug-nans"], ["--momentum-dtype", "bfloat16"],
+    ["--flat-opt-state"], ["--stream", "decode", "--async-ckpt"],
+    ["--concat-free-disc", "--log-jsonl", "run.jsonl"]])
 def test_cli_rejects_flags_not_ported(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         gan_cli.main(flags)

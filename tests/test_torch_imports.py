@@ -1,6 +1,8 @@
 """Import hygiene of the port: no module of ``gan_aug_pfa_torch`` and not
-``chip_smoke.py`` brings in JAX, Flax, the JAX package or PIL, and the
-entry points never fall back to the CPU on their own."""
+``chip_smoke.py`` brings in JAX, Flax, the JAX package, PIL or the
+``msgpack`` package (the card's machine has none of them; the port reads
+``.msgpack`` files with its own decoder), and the entry points never fall
+back to the CPU on their own."""
 
 import os
 import subprocess
@@ -22,7 +24,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
-             ("jax", "jaxlib", "flax", "gan_aug_pfa_tpu", "PIL"))
+             ("jax", "jaxlib", "flax", "gan_aug_pfa_tpu", "PIL", "msgpack"))
 print(len(names), ",".join(bad))
 """
 

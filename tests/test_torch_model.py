@@ -115,6 +115,7 @@ def test_checkpoint_roundtrip_and_jax_written_pth(weights, tmp_path):
     for k, v in model.state_dict().items():
         assert torch.equal(again.state_dict()[k], v), k
     assert ji.detect_arch(ji.load_torch_state_dict(path)) == "siamese"
-    with pytest.raises(ValueError, match="msgpack"):
+    # A .msgpack path is read as a JAX package checkpoint, not the .pth.
+    with pytest.raises(FileNotFoundError, match="best_model.msgpack"):
         tck.restore_model_only(str(ckdir / "best_model.msgpack"),
                                SiameseUNet())

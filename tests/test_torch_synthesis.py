@@ -196,14 +196,15 @@ def test_cli_rejects_flags_not_ported(flags, capsys):
 
 def test_cli_missing_or_msgpack_checkpoint(oscd_tree, tmp_path, capsys):
     """No checkpoint: 0 samples and the JAX package's message.  A
-    ``.msgpack`` generator: "not ported yet"."""
+    ``.msgpack`` file is read as a JAX package checkpoint: one without
+    ``params`` is refused by name."""
     common = ["--root-dir", str(oscd_tree), "--device", "cpu", *SMALL_G,
               "--gan-checkpoint-dir", str(tmp_path), "--synthetic-data-dir",
               str(tmp_path / "synth"), "--no-compile-cache"]
     assert synth_cli.main(common) == 0
     assert "Generator checkpoint not found" in capsys.readouterr().out
     (tmp_path / "g.msgpack").write_bytes(b"\x80")
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match="g.msgpack: not a JAX model"):
         synth_cli.main([*common, "--generator-checkpoint-name", "g.msgpack"])
 
 

@@ -165,12 +165,16 @@ def test_epoch_loop_checkpoints_and_early_stop(oscd_tree, tmp_path,
     val = iter([0.5, 0.4, 0.4, 0.45, 0.3, 0.2])
     saved = []
     monkeypatch.setattr(SiameseTrainer, "train_epoch",
-                        lambda self, cache, rng: 1.0)
+                        lambda self, cache, rng, epoch=None: 1.0)
     monkeypatch.setattr(SiameseTrainer, "validate",
                         lambda self, cache: next(val))
-    monkeypatch.setattr(tck, "save_model",
-                        lambda path, model: saved.append(
-                            os.path.basename(path)))
+    save = tck.save
+
+    def recorded(path, payload):
+        saved.append(os.path.basename(path))
+        save(path, payload)
+
+    monkeypatch.setattr(tck, "save", recorded)
     ckpt_dir = str(tmp_path / "ckpt")
     hist = tp.run_siamese_training(
         DataConfig(root_dir=str(oscd_tree), target_size=(16, 16)),
@@ -180,7 +184,7 @@ def test_epoch_loop_checkpoints_and_early_stop(oscd_tree, tmp_path,
     assert hist["val_loss"] == [0.5, 0.4, 0.4, 0.45]  # stopped at epoch 4
     assert hist["best_val_loss"] == 0.4
     assert saved == ["best_model.pth", "best_model.pth", "model_epoch_2.pth",
-                     "model_epoch_4.pth"]
+                     "last_state.pth", "model_epoch_4.pth", "last_state.pth"]
     state = torch.load(os.path.join(ckpt_dir, "last_state.pth"),
                        weights_only=True)
     assert state["epoch"] == 4 and state["best_val_loss"] == 0.4
@@ -522,7 +526,8 @@ def test_cli_trains_saves_and_resumes(oscd_tree, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--tune"], ["--remat"],
                                    ["--stream", "host"],
-                                   ["--log-jsonl", "run.jsonl"]])
+                                   ["--concat-free", "--log-jsonl",
+                                    "run.jsonl"]])
 def test_cli_rejects_flags_not_ported(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         train_cli.main(flags)
