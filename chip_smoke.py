@@ -89,7 +89,21 @@ Phases, each of which fails the run if it fails:
    ``tools/make_msgpack_fixture.py``) through ``python -m
    gan_aug_pfa_torch.generate_synthetic`` and run its generator at fp32
    (TF32 off) on the fixture's input: within 1e-5 of the JAX output saved
-   beside it.
+   beside it;
+13. drive the evaluation CLI's extras over a generated 14-city tree and
+   two seeded full-width checkpoints, each with the confusion counts'
+   (calls, launches) set to 0 just before and read just after:
+   ``--ensemble A B --threshold-sweep`` (one launch for each of the 20
+   thresholds of each of 7 batches: (140, 140); each threshold's kernel
+   counts of one batch equal the plain version's; the sweep's counts at
+   fp32, card vs CPU, differ only by pixels within the devices' largest
+   probability difference of that threshold; ``threshold_sweep.json``
+   equals the report's sweep), ``--post-process --post-process-kernel 4
+   --num-visualizations 2`` ((7, 7); the card's masks equal the CPU's on
+   the same probabilities; the panels, or the line that skips them
+   without matplotlib) and single-pair evaluation of one city's
+   non-square native PNGs at fp32 ((1, 1); within 1e-5 of the CPU's
+   prediction, and its metrics); each run's wall time.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -122,6 +136,7 @@ FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 # instruction throughput), 132 SMs at the 1,980 MHz boost clock.
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 MODEL_PROB_TOL = 1e-4  # fp32 probabilities, card (cuDNN) vs CPU
+SINGLE_PAIR_TOL = 1e-5  # the single pair's fp32 probabilities, card vs CPU
 PASSES = 5  # timed evaluation and training passes per batch size
 
 # The tuned FocalDice constants (SiameseTrainConfig) and both gammas the
@@ -983,7 +998,7 @@ def phase_main_path(torch, root):
                         torch.from_numpy(ds.img2), "float32")[..., 0]
     cache = pipelines.DeviceCache.from_dataset(ds, "cuda")
     cfg32 = EvalConfig(compute_dtype="float32")
-    gpu32 = pipelines.evaluate_cached(gpu_model, cache, ds.cities, cfg32)
+    gpu32 = pipelines.evaluate_cached([gpu_model], cache, ds.cities, cfg32)
     gpu_probs = predict(gpu_model, cache.img1.permute(0, 2, 3, 1),
                         cache.img2.permute(0, 2, 3, 1), "float32")[..., 0]
     dprob = float((gpu_probs.cpu() - cpu_probs).abs().max())
@@ -1006,20 +1021,20 @@ def phase_main_path(torch, root):
                                 cache.labels.repeat(reps, 1, 1))
     for bs in (2, 16):
         cfg = EvalConfig(batch_size=bs)
-        pipelines.evaluate_cached(gpu_model, big, ds.cities * reps, cfg)
+        pipelines.evaluate_cached([gpu_model], big, ds.cities * reps, cfg)
         rates = []
         for _ in range(PASSES):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pipelines.evaluate_cached(gpu_model, big, ds.cities * reps, cfg)
+            pipelines.evaluate_cached([gpu_model], big, ds.cities * reps, cfg)
             torch.cuda.synchronize()
             rates.append(len(big) / (time.perf_counter() - t0))
         print(f"eval throughput (bf16, 128x128, {len(big)} pairs, bs {bs}): "
               f"median {float(np.median(rates)):.1f} pairs/s over {PASSES} "
               f"passes, range [{min(rates):.1f}, {max(rates):.1f}]")
     device_breakdown(
-        torch, lambda: pipelines.evaluate_cached(gpu_model, cache, ds.cities,
-                                                 EvalConfig()),
+        torch, lambda: pipelines.evaluate_cached([gpu_model], cache,
+                                                 ds.cities, EvalConfig()),
         "one bs-2 evaluation pass (14 pairs, bf16)", ("confusion_counts",))
     return counts
 
@@ -2017,6 +2032,254 @@ def phase_jax_checkpoint(torch, root):
     return err
 
 
+def run_captured(fn, *args):
+    """``fn(*args)`` with its standard output captured and then printed:
+    (result, the output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    text = buf.getvalue()
+    print(text, end="")
+    return result, text
+
+
+def counted_eval(torch, cc, argv, label):
+    """``evaluate.main(argv)`` with the confusion counts' (calls, launches)
+    set to 0 just before and read just after; prints its wall time."""
+    from gan_aug_pfa_torch import evaluate
+
+    fn = cc.confusion_counts_batch
+    fn.calls = fn.launches = 0
+    t0 = time.time()
+    result, text = run_captured(evaluate.main, argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = (fn.calls, fn.launches)
+    print(f"evaluation extras, {label}: evaluate.main wall {wall:.2f} s, "
+          f"confusion counts (calls, launches) {counts}")
+    if result is None:
+        raise AssertionError(f"{label}: the evaluation returned None")
+    return result, text, counts, wall
+
+
+def phase_eval_extras(torch, root):
+    """Phase 13: the evaluation CLI's extras on the card over a 14-city
+    tree and two seeded full-width checkpoints: (a) a two-model ensemble
+    with the threshold sweep, (b) post-processing with 2 panels, (c)
+    single-pair evaluation of one city's native PNGs; each with the
+    confusion counts' (calls, launches) read around it, then held against
+    the plain version and the CPU."""
+    from gan_aug_pfa_torch import checkpoint, evaluate, pipelines
+    from gan_aug_pfa_torch.config import EvalConfig
+    from gan_aug_pfa_torch.data.loader import build_cached_dataset
+    from gan_aug_pfa_torch.data.pil_resize import resize_nearest
+    from gan_aug_pfa_torch.data.png import decode_gray
+    from gan_aug_pfa_torch.data.scanner import create_sample_lists
+    from gan_aug_pfa_torch.metrics import (
+        confusion_counts_sweep,
+        sweep_thresholds,
+    )
+    from gan_aug_pfa_torch.models import SiameseUNet
+    from gan_aug_pfa_torch.ops import morphology
+    from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
+    from gan_aug_pfa_torch.utils.viz import skip_message
+
+    write_oscd_tree(root)
+    paths = [os.path.join(root, f"model_{s}.pth") for s in (SEED, SEED + 1)]
+    for seed, path in zip((SEED, SEED + 1), paths):
+        checkpoint.save_model(path, seeded_model(torch, SiameseUNet, seed))
+    ds = build_cached_dataset(
+        create_sample_lists(root, SUBDIR, mode="all", verbose=False),
+        (128, 128), verbose=False)
+    batches = -(-len(ds) // EvalConfig().batch_size)
+    grid = sweep_thresholds()
+    base = ["--root-dir", root, "--num-visualizations", "0"]
+    out = {}
+
+    # (a) Ensemble + sweep at the defaults (bf16, batch 2).
+    report_path = os.path.join(root, "sweep_report.json")
+    result, _, out["sweep"], _ = counted_eval(
+        torch, cc, base + ["--ensemble", *paths, "--threshold-sweep",
+                           "--json-out", report_path], "ensemble + sweep")
+    want = (batches * (1 + len(grid)),) * 2
+    if out["sweep"] != want:
+        raise AssertionError(f"sweep: (calls, launches) {out['sweep']}, "
+                             f"expected {want}")
+    with open(report_path) as f:
+        report = json.load(f)
+    with open(os.path.join(root, "evaluation_results",
+                           "threshold_sweep.json")) as f:
+        sweep_json = json.load(f)
+    if (report["sweep"] != sweep_json or report["checkpoints"] != paths
+            or result["sweep"] != sweep_json
+            or sweep_json["thresholds"] != grid.tolist()
+            or sweep_json["best_threshold"] != grid[
+                int(np.argmax(sweep_json["f1"]))]):
+        raise AssertionError(f"sweep report and threshold_sweep.json "
+                             f"disagree: {report['sweep']} {sweep_json}")
+    print("sweep: best threshold "
+          f"{sweep_json['best_threshold']} (F1 {sweep_json['best_f1']:.4f})")
+    gpu_models = pipelines.load_models(paths, EvalConfig(), "cuda", "{path}")
+    cache = pipelines.DeviceCache.from_dataset(ds, "cuda")
+    bs = EvalConfig().batch_size
+    probs = pipelines.ensemble_probs(
+        gpu_models, cache.img1[:bs].permute(0, 2, 3, 1),
+        cache.img2[:bs].permute(0, 2, 3, 1), "bfloat16").contiguous()
+    kernel = confusion_counts_sweep(probs, cache.labels[:bs], grid)
+    plain = torch.stack([cc.confusion_counts_batch_reference(
+        probs, cache.labels[:bs], float(t)) for t in grid])
+    if not torch.equal(kernel, plain):
+        raise AssertionError("sweep counts: kernel and plain version differ "
+                             "on the card")
+    # Card fp32 vs CPU fp32: each threshold's counts may differ only by
+    # pixels whose probability lies within the devices' largest probability
+    # difference of it.
+    cfg32 = EvalConfig(compute_dtype="float32", threshold_sweep=True)
+    gpu32 = pipelines.evaluate_cached(gpu_models, cache, ds.cities, cfg32,
+                                      keep_probs=len(ds))
+    cpu_models = pipelines.load_models(paths, EvalConfig(),
+                                       torch.device("cpu"), "{path}")
+    cpu32 = pipelines.evaluate_cached(
+        cpu_models, pipelines.DeviceCache.from_dataset(ds, "cpu"),
+        ds.cities, cfg32, keep_probs=len(ds))
+    gpu_p, cpu_p = np.stack(gpu32["probs"]), np.stack(cpu32["probs"])
+    dprob = float(np.abs(gpu_p - cpu_p).max())
+    near = np.stack([(np.abs(cpu_p - np.float32(t)) <= dprob).sum(
+        axis=(1, 2)) for t in grid])
+    dcounts = np.abs(gpu32["sweep_counts"] - cpu32["sweep_counts"]).max(
+        axis=2)
+    print(f"sweep fp32 card vs CPU: max |dprob| = {dprob}, max |dcount| "
+          f"{int(dcounts.max())}, pixels near a threshold "
+          f"{int(near.sum())}")
+    if dprob > MODEL_PROB_TOL or (dcounts > near).any():
+        raise AssertionError("sweep on the card disagrees with the CPU")
+
+    pass_times(torch, pipelines, gpu_models, cache, ds.cities)
+
+    # (b) Post-processing, 2 panels.
+    panel_dir = os.path.join(root, "panels")
+    result, text, out["post_process"], _ = counted_eval(
+        torch, cc, ["--root-dir", root, "--checkpoint-path", paths[0],
+                    "--post-process", "--post-process-kernel", "4",
+                    "--num-visualizations", "2", "--output-dir", panel_dir],
+        "post-process")
+    if out["post_process"] != (batches, batches):
+        raise AssertionError(f"post-process: (calls, launches) "
+                             f"{out['post_process']}, expected "
+                             f"{(batches, batches)}")
+    panels = sorted(n for n in os.listdir(panel_dir)
+                    if n.startswith("validation_sample_"))
+    if skip_message(2) not in text and panels != sorted(
+            f"validation_sample_{ds.cities[i]}_{i}.png" for i in range(2)):
+        raise AssertionError(f"no panels and no skip line: {panels}")
+    probs = pipelines.ensemble_probs(
+        gpu_models[:1], cache.img1.permute(0, 2, 3, 1),
+        cache.img2.permute(0, 2, 3, 1), "bfloat16").contiguous()
+    # The run's kernel, and smaller ones and each operation on its own,
+    # which leave more of these noisy maps' change pixels.
+    kept = {}
+    hard = (probs > 0.5).float()
+    for k in (4, 3, 2):
+        for name, fn, x in (("postprocess", morphology.postprocess_prediction,
+                             probs), ("dilate", morphology.dilate, hard),
+                            ("erode", morphology.erode, hard)):
+            card = fn(x, kernel_size=k).cpu()
+            if not torch.equal(card, fn(x.cpu(), kernel_size=k)):
+                raise AssertionError(f"{name} k={k}: card and CPU differ")
+            kept[f"{name} k={k}"] = int(card.sum())
+    print(f"post-process: card == CPU on {len(ds)} maps, change pixels "
+          f"{kept}; panels {panels or 'skipped'}")
+
+    # (c) Single pair: one city's non-square native PNGs, bicubic to
+    # 128x128, fp32, card then CPU.
+    city = next(c for c in CITIES if len(set(decode_shape(root, c))) == 2)
+    pair = os.path.join(root, SUBDIR, "images",
+                        "Onera Satellite Change Detection dataset - Images",
+                        city, "pair")
+    label = os.path.join(root, SUBDIR, "train_labels",
+                         "Onera Satellite Change Detection dataset - Train "
+                         "Labels", city, "cm", "cm.png")
+    argv = ["--root-dir", root, "--checkpoint-path", paths[0],
+            "--image1-path", os.path.join(pair, "img1.png"),
+            "--image2-path", os.path.join(pair, "img2.png"),
+            "--city-name", city, "--label-path", label,
+            "--compute-dtype", "float32"]
+    card, _, out["single_pair"], _ = counted_eval(torch, cc, argv,
+                                                  "single pair")
+    if out["single_pair"] != (1, 1):
+        raise AssertionError(f"single pair: (calls, launches) "
+                             f"{out['single_pair']}, expected (1, 1)")
+    cpu, _ = run_captured(evaluate.main, argv + ["--device", "cpu"])
+    dprob = float(np.abs(card["pred"] - cpu["pred"]).max())
+    near = int((np.abs(cpu["pred"] - 0.5) <= dprob).sum())
+    # The metrics equal the CPU's where no pixel can flip; else the counts
+    # differ by at most the pixels that can.
+    target = torch.from_numpy(resize_nearest(decode_gray(label),
+                                             (128, 128)) / 255.0).float()
+    dcount = float((cc.confusion_counts_batch_reference(
+        torch.from_numpy(card["pred"]), target[None])
+        - cc.confusion_counts_batch_reference(
+            torch.from_numpy(cpu["pred"]), target[None])).abs().max())
+    same = card["metrics"] == cpu["metrics"]
+    print(f"single pair {city} {decode_shape(root, city)} fp32 card vs CPU: "
+          f"max |dprob| = {dprob} (limit {SINGLE_PAIR_TOL}), pixels near 0.5 "
+          f"{near}, max |dcount| {dcount}, metrics equal {same}: "
+          f"{card['metrics']}")
+    if (dprob > SINGLE_PAIR_TOL or dcount > near
+            or not (same or near)):
+        raise AssertionError("single pair on the card disagrees with the CPU")
+    # Last: a profiler session slows this process's later launch-bound
+    # passes (PERF.md §7).
+    device_breakdown(
+        torch, lambda: pipelines.evaluate_cached(
+            gpu_models[:1], cache, ds.cities,
+            EvalConfig(threshold_sweep=True)),
+        "one bs-2 evaluation pass with the sweep (14 pairs, bf16)",
+        ("confusion_counts",))
+    return out
+
+
+def pass_times(torch, pipelines, models, cache, cities):
+    """Median and range of PASSES timed bs-2 bf16 evaluation passes over
+    the 14 pairs, after one warm-up, for one model and the two-model
+    ensemble, each plain, with the sweep and with post-processing."""
+    from gan_aug_pfa_torch.config import EvalConfig
+
+    for label, ms, kw in (
+            ("one model", models[:1], {}),
+            ("one model + sweep", models[:1], {"threshold_sweep": True}),
+            ("one model + post-process k=4", models[:1],
+             {"post_process": True, "post_process_kernel": 4}),
+            ("ensemble of 2", models, {}),
+            ("ensemble of 2 + sweep", models, {"threshold_sweep": True})):
+        cfg = EvalConfig(**kw)
+        pipelines.evaluate_cached(ms, cache, cities, cfg)
+        times = []
+        for _ in range(PASSES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipelines.evaluate_cached(ms, cache, cities, cfg)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        print(f"eval pass ({label}, bs 2, bf16, {len(cache)} pairs): median "
+              f"{float(np.median(times)):.2f} ms over {PASSES} passes, range "
+              f"[{min(times):.2f}, {max(times):.2f}]")
+
+
+def decode_shape(root, city):
+    """(H, W) of a city's img1.png, read from its PNG header."""
+    path = os.path.join(root, SUBDIR, "images",
+                        "Onera Satellite Change Detection dataset - Images",
+                        city, "pair", "img1.png")
+    with open(path, "rb") as f:
+        head = f.read(24)
+    w, h = struct.unpack(">II", head[16:24])
+    return (h, w)
+
+
 def device_breakdown(torch, fn, label, ours, top=8):
     """Trace ``fn`` with torch.profiler: wall time, summed device kernel
     time (busy share) and the kernels that take the most device time, with
@@ -2122,6 +2385,8 @@ def main():
     phase_run_control_in_process(torch, train_ds)
     with tempfile.TemporaryDirectory() as root:
         phase_jax_checkpoint(torch, root)
+    with tempfile.TemporaryDirectory() as root:
+        eval_extras = phase_eval_extras(torch, root)
 
     # The main numbers are each path's shape: the evaluation's bs 2 for the
     # confusion counts (bs 16 and 16x1024x1024 beside them), the train
@@ -2143,6 +2408,7 @@ def main():
         "kernel_ms": eval_t["ms"],
         "library_call": "torch.histc over 2-bit codes",
         "run_control": list(run_control["confusion_counts"]),
+        "eval_extras": {k: list(v) for k, v in eval_extras.items()},
         "shape": list(CONFUSION_SHAPES[0]),
         "plan": eval_t["plan"],
         "other": {"x".join(map(str, shape)): {

@@ -8,7 +8,8 @@ run on ``cuda`` unless the caller passes ``device="cpu"``.
 
 Ported so far: the OSCD evaluation path (scan, decode-once cache, the
 SiameseUNet forward, per-sample confusion counts through a hand-written
-CUDA kernel, macro-averaged metrics, ``python -m
+CUDA kernel, macro-averaged metrics, the threshold sweep,
+post-processing, ensembles, panels and single-pair evaluation, ``python -m
 gan_aug_pfa_torch.evaluate``), Siamese training with and without
 augmentation (splits, FocalDice through hand-written forward and backward
 CUDA kernels, photometric augmentation kernels, AdamW, ReduceLROnPlateau,

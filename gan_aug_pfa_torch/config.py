@@ -98,10 +98,20 @@ class EvalConfig:
     target_size: Tuple[int, int] = (128, 128)
     checkpoint_path: Optional[str] = None
     output_dir: str = "evaluation_results"
+    num_visualizations: int = 5
     n_channels: int = 3
     n_classes: int = 1
-    # Decision threshold for the metrics (the reference hardcodes 0.5).
+    # Morphological opening and closing of the predictions
+    # (ops/morphology.py), with a square element of this side.
+    post_process: bool = False
+    post_process_kernel: int = 3
+    # Two or more checkpoints whose sigmoid probabilities are averaged.
+    ensemble_paths: Optional[Tuple[str, ...]] = None
+    # Decision threshold for the metrics (the reference hardcodes 0.5);
+    # threshold_sweep also reports macro F1 and IoU over a 0.05..0.95 grid
+    # and the best operating point.
     threshold: float = 0.5
+    threshold_sweep: bool = False
     # Write the metrics report (overall + per-city means) as one JSON file.
     json_out: Optional[str] = None
     # "bfloat16" runs the model under bf16 autocast; "float32" runs it in

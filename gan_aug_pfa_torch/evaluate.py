@@ -1,16 +1,19 @@
-"""Evaluate the change-detection model over every OSCD city.
+"""Evaluate the change-detection model: every OSCD city's metrics and
+visualizations, or one image pair.
 
     python -m gan_aug_pfa_torch.evaluate --root-dir <root> [--json-out F]
+    python -m gan_aug_pfa_torch.evaluate --image1-path P --image2-path P
+        --city-name N [--label-path P]
 
-Flag names are the root ``evaluate.py``'s; ``--device`` (default
-``cuda``) picks the device.  ``--checkpoint-path`` takes the port's
-``.pth`` or a JAX package ``.msgpack`` (model-only or a full train
-state).  The root CLI's flags of paths not ported yet
-(single-pair evaluation, visualizations, ``--post-process``,
-``--ensemble``, ``--threshold-sweep``, ``--stream`` and serving artifacts)
-are accepted with the value that leaves their path off; any other value
-exits non-zero with "not ported yet".  ``--no-compile-cache`` is accepted
-so that the JAX package's command lines run unchanged.
+Flag names and defaults are the root ``evaluate.py``'s; ``--device``
+(default ``cuda``) picks the device.  ``--checkpoint-path`` and each
+``--ensemble`` checkpoint take the port's ``.pth`` or a JAX package
+``.msgpack`` (model-only or a full train state).  The panels need
+matplotlib; without it one line says they were skipped.  The root CLI's
+``--stream`` and serving artifacts are not ported yet: they are accepted
+with the value that leaves their path off, and any other value exits
+non-zero with "not ported yet".  ``--no-compile-cache`` is accepted so
+that the JAX package's command lines run unchanged.
 """
 
 from __future__ import annotations
@@ -28,16 +31,20 @@ from .train.siamese import COMPUTE_DTYPES
 
 # The root evaluate.py's flags whose paths are not ported yet, with the
 # value that leaves them off.
-_NOT_PORTED = {
-    "image1_path": None, "image2_path": None, "label_path": None,
-    "city_name": None, "num_visualizations": 0, "post_process": False,
-    "post_process_kernel": 3, "ensemble": None, "threshold_sweep": False,
-    "stream": "hbm", "serving_artifact": None, "serving_aot": "auto",
-}
+_NOT_PORTED = {"stream": "hbm", "serving_artifact": None,
+               "serving_aot": "auto"}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Evaluate Change Detection Model")
+    p.add_argument("--image1-path", type=str,
+                   help="Path to the first image (before change)")
+    p.add_argument("--image2-path", type=str,
+                   help="Path to the second image (after change)")
+    p.add_argument("--label-path", type=str, default=None,
+                   help="Optional path to the ground truth change mask")
+    p.add_argument("--city-name", type=str,
+                   help="Name of the city/area for identification in output")
     p.add_argument("--root-dir", type=str, default=".")
     p.add_argument("--dataset-subdir", type=str,
                    default=DATASET_SUBDIR_DEFAULT)
@@ -49,11 +56,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=2)
     p.add_argument("--target-size", type=str, default="128x128",
                    help="Must match the size used for training")
+    p.add_argument("--num-visualizations", type=int, default=5)
+    p.add_argument("--post-process", action="store_true",
+                   help="Morphological opening+closing on predictions "
+                        "(the reference README's Step 6, implemented)")
+    p.add_argument("--post-process-kernel", type=int, default=3,
+                   help="Structuring-element side for --post-process")
+    p.add_argument("--ensemble", type=str, nargs="+", default=None,
+                   metavar="CKPT",
+                   help="Two or more checkpoints to ensemble by averaging "
+                        "sigmoid probabilities (the reference README's "
+                        "Step 7, implemented)")
     p.add_argument("--threshold", type=float, default=0.5,
                    help="decision threshold for the metrics")
+    p.add_argument("--threshold-sweep", action="store_true",
+                   help="also report macro-F1/IoU over a 0.05..0.95 "
+                        "threshold grid and the best operating point")
     p.add_argument("--json-out", type=str, default=None,
-                   help="also write the metrics report (overall + per-city "
-                        "means) as one JSON file at this path")
+                   help="also write the full metrics report (overall + "
+                        "per-city means + sweep) as one JSON file at this "
+                        "path")
     p.add_argument("--compute-dtype", type=str, default="bfloat16",
                    choices=list(COMPUTE_DTYPES),
                    help="model compute dtype for evaluation")
@@ -64,43 +86,53 @@ def build_parser() -> argparse.ArgumentParser:
                         "the port has no compilation cache")
     not_ported = p.add_argument_group(
         "not ported yet (a value other than the default exits non-zero)")
-    for flag in ("--image1-path", "--image2-path", "--label-path",
-                 "--city-name", "--serving-artifact"):
-        not_ported.add_argument(flag, type=str, default=None)
-    not_ported.add_argument("--num-visualizations", type=int, default=0)
-    not_ported.add_argument("--post-process", action="store_true")
-    not_ported.add_argument("--post-process-kernel", type=int, default=3)
-    not_ported.add_argument("--ensemble", type=str, nargs="+", default=None,
-                            metavar="CKPT")
-    not_ported.add_argument("--threshold-sweep", action="store_true")
-    not_ported.add_argument("--stream", type=str, default="hbm")
-    not_ported.add_argument("--serving-aot", type=str, default="auto")
+    not_ported.add_argument("--stream", type=str, default="hbm",
+                            choices=["hbm", "host", "decode"])
+    not_ported.add_argument("--serving-artifact", type=str, default=None)
+    not_ported.add_argument("--serving-aot", type=str, default="auto",
+                            choices=["auto", "never", "require"])
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.ensemble is not None and len(args.ensemble) < 2:
+        parser.error(
+            "--ensemble needs two or more checkpoints; for a single "
+            "checkpoint use --checkpoint-path"
+        )
     for name, off in _NOT_PORTED.items():
         if getattr(args, name) != off:
             parser.error(f"--{name.replace('_', '-')} is not ported yet")
     target_size = parse_target_size(args.target_size)
     data_cfg = DataConfig(root_dir=args.root_dir,
-                          dataset_subdir=args.dataset_subdir)
+                          dataset_subdir=args.dataset_subdir,
+                          target_size=target_size)
     eval_cfg = EvalConfig(
         batch_size=args.batch_size,
         target_size=target_size,
         checkpoint_path=args.checkpoint_path,
         output_dir=args.output_dir,
+        num_visualizations=args.num_visualizations,
+        post_process=args.post_process,
+        post_process_kernel=args.post_process_kernel,
+        ensemble_paths=tuple(args.ensemble) if args.ensemble else None,
         threshold=args.threshold,
+        threshold_sweep=args.threshold_sweep,
         json_out=args.json_out,
         compute_dtype=args.compute_dtype,
     )
     from . import pipelines
 
+    if args.image1_path and args.image2_path and args.city_name:
+        print(f"Evaluating single image pair for city: {args.city_name}")
+        return pipelines.evaluate_single_pair(
+            data_cfg, eval_cfg, args.image1_path, args.image2_path,
+            args.city_name, label_path=args.label_path, device=args.device)
     return pipelines.run_evaluation(data_cfg, eval_cfg, device=args.device)
 
 
 if __name__ == "__main__":
-    # run_evaluation returns None when it finds no samples or no checkpoint.
+    # Both evaluations return None when an input or a checkpoint is missing.
     raise SystemExit(0 if main() is not None else 1)

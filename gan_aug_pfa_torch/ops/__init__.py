@@ -1,1 +1,1 @@
-"""Device ops: stock resizes and the hand-written kernels."""
+"""Device ops: stock resizes, morphology and the hand-written kernels."""

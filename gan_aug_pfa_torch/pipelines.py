@@ -2,8 +2,9 @@
 training with and without augmentation (the JAX package's
 ``run_siamese_training``, pipelines.py:88-392), Pix2Pix GAN training
 (``run_gan_training``, :400-606), synthetic-pair generation
-(``run_generate_synthetic``, :614-747) and evaluation (``run_evaluation``,
-:755-991).
+(``run_generate_synthetic``, :614-747), evaluation (``run_evaluation``,
+:755-991) and single-pair evaluation (``evaluate_single_pair``,
+:994-1103).
 
 Both trainers carry the JAX package's run control: the SIGTERM/SIGINT
 guard (the epoch in flight finishes, the resume state is written at it,
@@ -12,12 +13,12 @@ and step timer (``--profile-dir``), the NaN checks (``--debug-nans``) and
 background checkpoint writes (``--async-ckpt``); Siamese training also
 the deferred best model (``--defer-best-ckpt``).  Evaluation and synthesis
 load a JAX package ``.msgpack`` checkpoint as they load a ``.pth``.
+Evaluation takes an ensemble of checkpoints, post-processing, the
+threshold sweep and the panels (matplotlib, where it is installed).
 
 Not ported yet: tuning, ``--stream``, resuming from a JAX train state
 (``.msgpack``); the GAN's ``--batched-disc``, ``--concat-free-disc`` and
-``--shared-gen-fwd``; serving artifacts for synthesis; for evaluation
-visualizations, ``--post-process``, ``--ensemble``, ``--threshold-sweep``,
-serving artifacts and single-pair evaluation.
+``--shared-gen-fwd``; serving artifacts for synthesis and evaluation.
 """
 
 from __future__ import annotations
@@ -47,21 +48,33 @@ from .data.loader import (
     build_padded_native_dataset,
     float_to_uint8,
 )
-from .data.png import write_png
+from .data.pil_resize import resize_bicubic_rgb, resize_nearest
+from .data.png import decode_gray, decode_rgb, write_png
 from .data.scanner import create_sample_lists
 from .device import resolve_device
-from .metrics import METRIC_KEYS, metrics_from_counts
+from .metrics import (
+    METRIC_KEYS,
+    calculate_metrics,
+    confusion_counts_sweep,
+    metrics_from_counts,
+    sweep_thresholds,
+)
 from .models.pix2pix import UNetGenerator
 from .models.siamese_unet import SiameseUNet
-from .ops.kernels.confusion_counts import confusion_counts_batch
+from .ops.morphology import postprocess_prediction
 from .train.gan import GANTrainer, generate
 from .train.optim import get_learning_rate
 from .train.plateau import EarlyStopping, make_plateau_scheduler
-from .train.siamese import SiameseTrainer, predict
+from .train.siamese import SiameseTrainer, predict, predict_normalized
 from .utils.profiling import StepTimer, annotate, enable_nan_checks, trace
 from .utils.runlog import open_run_log
 from .utils.signals import GracefulShutdown
-from .utils.viz import save_gan_sample_strip
+from .utils.viz import (
+    have_matplotlib,
+    save_gan_sample_strip,
+    skip_message,
+    visualize_sample,
+)
 
 
 @dataclasses.dataclass
@@ -566,39 +579,113 @@ def run_generate_synthetic(
     return count
 
 
-def evaluate_cached(model: torch.nn.Module, cache: DeviceCache,
-                    cities: List[str], eval_cfg: EvalConfig) -> Dict:
+def load_models(paths: List[str], eval_cfg: EvalConfig, dev,
+                missing: str) -> Optional[List[torch.nn.Module]]:
+    """One eval-mode SiameseUNet on ``dev`` for each checkpoint (``.pth``
+    or JAX ``.msgpack``), in order; None, after printing ``missing``
+    formatted with the path, at the first that does not exist.  The
+    batched encoder computes the same eval-mode function as the two-pass
+    form, in one pass over 2B images."""
+    models = []
+    for path in paths:
+        if not os.path.exists(path):
+            print(missing.format(path=path))
+            return None
+        model = SiameseUNet(eval_cfg.n_channels, eval_cfg.n_classes,
+                            batched_encoder=True)
+        ckpt.restore_model_only(path, model)
+        models.append(model.to(dev).eval())
+    return models
+
+
+def checkpoint_paths(data_cfg: DataConfig, eval_cfg: EvalConfig) -> List[str]:
+    """The ensemble's checkpoints, or the one of ``--checkpoint-path``,
+    else ``<root>/siamese_checkpoints/best_model.pth``."""
+    if eval_cfg.ensemble_paths:
+        return list(eval_cfg.ensemble_paths)
+    return [eval_cfg.checkpoint_path or os.path.join(
+        data_cfg.root_dir, "siamese_checkpoints",
+        ckpt.checkpoint_name("best_model"),
+    )]
+
+
+def ensemble_probs(models: List[torch.nn.Module], img1: torch.Tensor,
+                   img2: torch.Tensor, compute_dtype: str) -> torch.Tensor:
+    """(B, H, W) sigmoid probabilities of NHWC [0, 1] images: the models'
+    probabilities summed in order and divided by their number
+    (pipelines.py:847-851)."""
+    probs = predict(models[0], img1, img2, compute_dtype)
+    for model in models[1:]:
+        probs = probs + predict(model, img1, img2, compute_dtype)
+    if len(models) > 1:
+        probs = probs / len(models)
+    return probs[..., 0]
+
+
+def evaluate_cached(models: List[torch.nn.Module], cache: DeviceCache,
+                    cities: List[str], eval_cfg: EvalConfig,
+                    keep_probs: int = 0) -> Dict:
     """Per-sample metrics over contiguous batches of the device cache,
     accumulated overall and per city in sample order (pipelines.py:872-916).
-    Returns the sums, the per-city sample counts, and each sample's
-    (tp, fp, fn, tn) as an (N, 4) array."""
+
+    ``models`` are one model or an ensemble (``ensemble_probs``).  With
+    ``eval_cfg.post_process`` the probabilities become
+    ``postprocess_prediction``'s masks on the device.  Each batch
+    runs the confusion counts at ``eval_cfg.threshold`` and, with
+    ``eval_cfg.threshold_sweep``, at each of the 19 grid thresholds: T+1
+    kernel calls, one ``metrics_from_counts`` over the stacked (T+1, B)
+    counts and one device->host copy.  Each threshold's float32 metrics
+    are summed over the batch in float32, then into float64 totals
+    (pipelines.py:900-903).  The first ``keep_probs`` samples' (H, W)
+    probability maps are copied to the host as well.
+
+    Returns the sums, the per-city sample counts, each sample's (tp, fp,
+    fn, tn) as an (N, 4) array; the sweep's float64 F1 and IoU sums (T,)
+    and its counts (T, N, 4), or None; and the kept maps."""
     bs = eval_cfg.batch_size
+    grid = sweep_thresholds() if eval_cfg.threshold_sweep else None
+    thresholds = [eval_cfg.threshold] + ([] if grid is None else list(grid))
+    nk = len(METRIC_KEYS)
+    f1_col, iou_col = METRIC_KEYS.index("f1"), METRIC_KEYS.index("iou")
     total = {k: 0.0 for k in METRIC_KEYS}
     per_city: Dict[str, Dict[str, float]] = {}
     per_city_counts: Dict[str, int] = {}
-    counts = []
+    counts, sweep_counts, kept = [], [], []
+    sweep_f1 = sweep_iou = None
+    if grid is not None:
+        sweep_f1 = np.zeros(len(grid))
+        sweep_iou = np.zeros(len(grid))
     for start in range(0, len(cache), bs):
         stop = min(start + bs, len(cache))
-        probs = predict(
-            model, cache.img1[start:stop].permute(0, 2, 3, 1),
+        probs = ensemble_probs(
+            models, cache.img1[start:stop].permute(0, 2, 3, 1),
             cache.img2[start:stop].permute(0, 2, 3, 1),
-            eval_cfg.compute_dtype,
-        )[..., 0]
-        c = confusion_counts_batch(probs, cache.labels[start:stop],
-                                   eval_cfg.threshold)
-        m = metrics_from_counts(c[:, 0], c[:, 1], c[:, 2], c[:, 3])
-        # One device->host copy per batch: the metrics and the counts.
+            eval_cfg.compute_dtype)
+        if eval_cfg.post_process:
+            probs = postprocess_prediction(
+                probs, kernel_size=eval_cfg.post_process_kernel)
+        c = confusion_counts_sweep(probs, cache.labels[start:stop],
+                                   thresholds)
+        m = metrics_from_counts(c[..., 0], c[..., 1], c[..., 2], c[..., 3])
+        # One device->host copy per batch: (T+1, B, metrics + counts).
         host = torch.cat(
-            [torch.stack([m[k] for k in METRIC_KEYS], dim=1), c], dim=1
+            [torch.stack([m[k] for k in METRIC_KEYS], dim=-1), c], dim=-1
         ).cpu().numpy()
-        counts.append(host[:, len(METRIC_KEYS):])
+        counts.append(host[0, :, nk:])
+        if grid is not None:
+            sweep_counts.append(host[1:, :, nk:])
+            sweep_f1 += np.ascontiguousarray(host[1:, :, f1_col]).sum(axis=1)
+            sweep_iou += np.ascontiguousarray(host[1:, :, iou_col]).sum(
+                axis=1)
+        if start < keep_probs:
+            kept.extend(probs[:keep_probs - start].cpu().numpy())
         for k_in_batch, sample_i in enumerate(range(start, stop)):
             city = cities[sample_i]
             if city not in per_city:
                 per_city[city] = {k: 0.0 for k in METRIC_KEYS}
                 per_city_counts[city] = 0
             for j, key in enumerate(METRIC_KEYS):
-                v = float(host[k_in_batch, j])
+                v = float(host[0, k_in_batch, j])
                 per_city[city][key] += v
                 total[key] += v
             per_city_counts[city] += 1
@@ -607,7 +694,23 @@ def evaluate_cached(model: torch.nn.Module, cache: DeviceCache,
         "per_city_counts": per_city_counts,
         "counts": (np.concatenate(counts) if counts
                    else np.zeros((0, 4), np.float32)),
+        "sweep_f1": sweep_f1, "sweep_iou": sweep_iou,
+        "sweep_counts": (np.concatenate(sweep_counts, axis=1)
+                         if sweep_counts else None),
+        "probs": kept,
     }
+
+
+def draw_panels(images, output_dir: str) -> None:
+    """``visualize_sample`` for each (img1, img2, label, pred, city, index)
+    of ``images``; without matplotlib one line says what was skipped."""
+    if not images:
+        return
+    if not have_matplotlib():
+        print(skip_message(len(images)))
+        return
+    for args in images:
+        visualize_sample(*args, output_dir)
 
 
 def run_evaluation(
@@ -616,9 +719,14 @@ def run_evaluation(
     verbose: bool = True,
     device="cuda",
 ) -> Optional[Dict]:
-    """Evaluate ``best_model.pth`` (or ``eval_cfg.checkpoint_path``, a
-    ``.pth`` or a JAX package ``.msgpack``) over every OSCD city.  Returns overall and per-city macro means, per-city
-    sample counts, ``sweep`` (None: not ported) and each sample's confusion
+    """Evaluate ``best_model.pth`` (or ``eval_cfg.checkpoint_path``, or the
+    ensemble of ``eval_cfg.ensemble_paths``; each a ``.pth`` or a JAX
+    package ``.msgpack``) over every OSCD city, with the options of
+    ``EvalConfig``: post-processing, the threshold sweep (also written to
+    ``<output_dir>/threshold_sweep.json``) and the first
+    ``num_visualizations`` samples' panels.  Returns overall and per-city
+    macro means, per-city sample counts, ``sweep`` (None without the
+    sweep), each sample's confusion counts and the sweep's (T, N, 4)
     counts; None when no samples or no checkpoint are found."""
     dev = resolve_device(device)
     output_dir = os.path.join(data_cfg.root_dir, eval_cfg.output_dir)
@@ -636,30 +744,53 @@ def run_evaluation(
         return None
     ds = build_cached_dataset(samples, eval_cfg.target_size, verbose=verbose)
 
-    checkpoint_path = eval_cfg.checkpoint_path or os.path.join(
-        data_cfg.root_dir, "siamese_checkpoints",
-        ckpt.checkpoint_name("best_model"),
-    )
-    if not os.path.exists(checkpoint_path):
-        print(f"Error: Checkpoint file not found at {checkpoint_path}")
+    paths = checkpoint_paths(data_cfg, eval_cfg)
+    models = load_models(paths, eval_cfg, dev,
+                         "Error: Checkpoint file not found at {path}")
+    if models is None:
         return None
-    # The batched encoder computes the same eval-mode function as the
-    # two-pass form in one pass over 2B images.
-    model = SiameseUNet(eval_cfg.n_channels, eval_cfg.n_classes,
-                        batched_encoder=True)
-    ckpt.restore_model_only(checkpoint_path, model)
-    model.to(dev).eval()
+    if verbose and len(models) > 1:
+        print(f"Ensembling {len(models)} checkpoints (averaged sigmoid "
+              f"probabilities).")
 
-    acc = evaluate_cached(model, DeviceCache.from_dataset(ds, dev),
-                          ds.cities, eval_cfg)
+    n_panels = min(max(eval_cfg.num_visualizations, 0), len(ds))
+    keep = n_panels if have_matplotlib() else 0
+    acc = evaluate_cached(models, DeviceCache.from_dataset(ds, dev),
+                          ds.cities, eval_cfg, keep_probs=keep)
+    draw_panels([(ds.img1[i], ds.img2[i], ds.labels[i],
+                  acc["probs"][i] if keep else None, ds.cities[i], i)
+                 for i in range(n_panels)], output_dir)
     total, per_city = acc["total"], acc["per_city"]
     per_city_counts = acc["per_city_counts"]
     n = sum(per_city_counts.values())
     overall = {k: v / n for k, v in total.items()} if n else {}
+    sweep = None
+    if eval_cfg.threshold_sweep and n:
+        # The best threshold is the first of equal F1 maxima
+        # (pipelines.py:928-937): 0.05 when post-processing ties them all.
+        grid, f1 = sweep_thresholds(), acc["sweep_f1"]
+        best = int(np.argmax(f1))
+        sweep = {
+            "thresholds": grid.tolist(),
+            "f1": (f1 / n).tolist(),
+            "iou": (acc["sweep_iou"] / n).tolist(),
+            "best_threshold": float(grid[best]),
+            "best_f1": float(f1[best] / n),
+        }
+        with open(os.path.join(output_dir, "threshold_sweep.json"), "w") as f:
+            json.dump(sweep, f, indent=1)
     if verbose:
         print("\n--- Overall Evaluation Metrics ---")
         for k, v in overall.items():
             print(f"{k.capitalize()}: {v:.4f}")
+        if sweep is not None:
+            print("\n--- Threshold sweep (macro F1 / IoU) ---")
+            for th, f1v, iouv in zip(sweep["thresholds"], sweep["f1"],
+                                     sweep["iou"]):
+                mark = "  <- best" if th == sweep["best_threshold"] else ""
+                print(f"  t={th:.2f}  F1={f1v:.4f}  IoU={iouv:.4f}{mark}")
+            print(f"Best operating point: t={sweep['best_threshold']:.2f} "
+                  f"(F1={sweep['best_f1']:.4f})")
         print("\n--- Per-City Evaluation Metrics ---")
         for city, m in per_city.items():
             c = per_city_counts[city]
@@ -671,15 +802,15 @@ def run_evaluation(
         report = {
             "n_samples": n,
             "threshold": eval_cfg.threshold,
-            "checkpoints": [checkpoint_path],
-            "post_process": False,
+            "checkpoints": paths,
+            "post_process": eval_cfg.post_process,
             "overall": overall,
             "per_city": {
                 city: {k: m[k] / per_city_counts[city] for k in METRIC_KEYS}
                 for city, m in per_city.items()
             },
             "per_city_counts": per_city_counts,
-            "sweep": None,
+            "sweep": sweep,
         }
         parent = os.path.dirname(os.path.abspath(eval_cfg.json_out))
         os.makedirs(parent, exist_ok=True)
@@ -688,5 +819,107 @@ def run_evaluation(
         if verbose:
             print(f"Metrics report written to {eval_cfg.json_out}")
     return {"overall": overall, "per_city": per_city,
-            "per_city_counts": per_city_counts, "sweep": None,
-            "counts": acc["counts"]}
+            "per_city_counts": per_city_counts, "sweep": sweep,
+            "counts": acc["counts"], "sweep_counts": acc["sweep_counts"]}
+
+
+# ImageNet mean and std of the single-pair path (reference evaluate.py
+# transform).
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def evaluate_single_pair(
+    data_cfg: DataConfig,
+    eval_cfg: EvalConfig,
+    img1_path: str,
+    img2_path: str,
+    city_name: str,
+    label_path: Optional[str] = None,
+    verbose: bool = True,
+    device="cuda",
+) -> Optional[Dict]:
+    """Single-pair evaluation (reference evaluate.py:216-283, JAX
+    pipelines.py:994-1103), with the reference's quirks:
+
+    * the images are resized with Pillow's BICUBIC (``data/pil_resize``,
+      byte for byte) and normalized with the ImageNet mean and std, not to
+      [-1, 1] as in training, and the model is applied to them directly
+      under ``compute_precision`` (``predict`` would normalize again);
+    * the label is read as PIL's ``convert("L")``, resized NEAREST and
+      divided by 255, not binarised; its metrics are ``calculate_metrics``
+      at 0.5, not at ``--threshold`` (the confusion-counts kernel for a
+      {0, 255} label, the plain float sums for any other);
+    * the panel shows the normalized images clipped to [0, 1], index
+      ``single_eval``.
+
+    Reads PNG files only: another format raises ``ValueError`` (PIL would
+    read it).  Returns ``{"pred": (1, H, W) probabilities}`` and, with a
+    label, ``"metrics"``; None when an image or a checkpoint is missing."""
+    dev = resolve_device(device)
+    output_dir = os.path.join(data_cfg.root_dir, eval_cfg.output_dir)
+    os.makedirs(output_dir, exist_ok=True)
+    height, width = eval_cfg.target_size
+    try:
+        img1 = decode_rgb(img1_path)
+        img2 = decode_rgb(img2_path)
+    except FileNotFoundError:
+        print(f"Error: One or both image paths not found: {img1_path}, "
+              f"{img2_path}")
+        return None
+
+    def prep(im):
+        arr = resize_bicubic_rgb(im, (width, height)).astype(np.float32)
+        return (arr / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+
+    x1 = prep(img1)[None]
+    x2 = prep(img2)[None]
+
+    label = None
+    if label_path:
+        try:
+            lp = resize_nearest(decode_gray(label_path), (width, height))
+            label = (lp.astype(np.float32) / 255.0)[None]
+        except FileNotFoundError:
+            print(f"Warning: Label path not found: {label_path}. Proceeding "
+                  f"without metrics.")
+            label_path = None
+
+    models = load_models(
+        checkpoint_paths(data_cfg, eval_cfg), eval_cfg, dev,
+        "Error: Checkpoint not found at {path}. Cannot evaluate single "
+        "pair.")
+    if models is None:
+        return None
+
+    def on_device(x):
+        return torch.from_numpy(x).to(dev).permute(0, 3, 1, 2)
+
+    t1, t2 = on_device(x1), on_device(x2)
+    prob_sum = None
+    for model in models:
+        p = predict_normalized(model, t1, t2, eval_cfg.compute_dtype)
+        prob_sum = p if prob_sum is None else prob_sum + p
+    probs = (prob_sum / len(models))[:, 0]
+    if eval_cfg.post_process:
+        probs = postprocess_prediction(
+            probs, kernel_size=eval_cfg.post_process_kernel)
+    pred = probs.cpu().numpy()
+
+    draw_panels([(np.clip(x1[0], 0, 1), np.clip(x2[0], 0, 1),
+                  label[0] if label is not None else None, pred[0],
+                  city_name, "single_eval")], output_dir)
+    result = {"pred": pred}
+    if label is not None and label_path:
+        m = calculate_metrics(probs, torch.from_numpy(label).to(dev))
+        # JAX's device_get returns the dict with its keys sorted, and the
+        # metrics are printed in that order.
+        m = {k: float(m[k]) for k in sorted(m)}
+        if verbose:
+            print(f"\n--- Metrics for {city_name} ---")
+            for k, v in m.items():
+                print(f"{k.capitalize()}: {v:.4f}")
+        result["metrics"] = m
+    elif not label_path and verbose:
+        print("No label path provided, skipping metrics calculation.")
+    return result

@@ -95,12 +95,21 @@ def predict(model: nn.Module, img1: torch.Tensor, img2: torch.Tensor,
     The permutes to and from NCHW are views: an NHWC view of an NCHW
     tensor (as the pipeline passes its device cache) reaches the model
     without a copy."""
-    model.eval()
     x1 = normalize(img1.permute(0, 3, 1, 2))
     x2 = normalize(img2.permute(0, 3, 1, 2))
-    with compute_precision(compute_dtype, img1.device.type):
+    return predict_normalized(model, x1, x2,
+                              compute_dtype).permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def predict_normalized(model: nn.Module, x1: torch.Tensor, x2: torch.Tensor,
+                       compute_dtype: str = "bfloat16") -> torch.Tensor:
+    """Sigmoid probabilities of the eval forward on NCHW inputs that are
+    already normalized: (B, n_classes, H, W) float32."""
+    model.eval()
+    with compute_precision(compute_dtype, x1.device.type):
         logits = model(x1, x2)
-    return torch.sigmoid(logits.float()).permute(0, 2, 3, 1)
+    return torch.sigmoid(logits.float())
 
 
 class SiameseTrainer:

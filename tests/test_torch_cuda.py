@@ -161,6 +161,37 @@ def test_confusion_counts_call_is_one_kernel_launch(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 128), (16, 128, 128), (1, 1, 6)])
+def test_confusion_counts_sweep_matches_reference(cuda, shape):
+    """The threshold sweep's (T, B, 4) counts, one kernel launch a
+    threshold, equal the plain version's at every grid threshold, with
+    probabilities at float32(0.35), float32(0.55) and their neighbours."""
+    from gan_aug_pfa_torch.metrics import (
+        confusion_counts_sweep,
+        sweep_thresholds,
+    )
+
+    grid = sweep_thresholds()
+    p, t = _inputs(shape, 0.5, seed=61 + shape[0])
+    edges = []
+    for th in (0.35, 0.55):
+        f = np.float32(th)
+        edges += [np.nextafter(f, np.float32(0)), f,
+                  np.nextafter(f, np.float32(1))]
+    p.view(-1)[:6] = torch.tensor(edges, dtype=torch.float32)
+    fn = cc.confusion_counts_batch
+    before = (fn.calls, fn.launches)
+    got = confusion_counts_sweep(p, t, grid)
+    torch.cuda.synchronize()
+    assert (fn.calls, fn.launches) == (before[0] + len(grid),
+                                       before[1] + len(grid))
+    want = torch.stack([cc.confusion_counts_batch_reference(p, t, float(th))
+                        for th in grid])
+    assert got.shape == (len(grid), shape[0], 4)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_confusion_counts_kernel_refuses_a_plan_it_does_not_take(cuda):
     """The C entry point checks the plan and the workspace: threads that
     are not a multiple of 32 or above 256, no blocks or too many, groups

@@ -1,8 +1,9 @@
 """Import hygiene of the port: no module of ``gan_aug_pfa_torch`` and not
-``chip_smoke.py`` brings in JAX, Flax, the JAX package, PIL or the
-``msgpack`` package (the card's machine has none of them; the port reads
-``.msgpack`` files with its own decoder), and the entry points never fall
-back to the CPU on their own."""
+``chip_smoke.py`` brings in JAX, Flax, the JAX package, PIL, the
+``msgpack`` package or matplotlib (the card's machine has none of them;
+the port reads ``.msgpack`` files with its own decoder, and imports
+matplotlib only inside ``utils/viz.visualize_sample``), and the entry
+points never fall back to the CPU on their own."""
 
 import os
 import subprocess
@@ -24,7 +25,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
-             ("jax", "jaxlib", "flax", "gan_aug_pfa_tpu", "PIL", "msgpack"))
+             ("jax", "jaxlib", "flax", "gan_aug_pfa_tpu", "PIL", "msgpack",
+              "matplotlib"))
 print(len(names), ",".join(bad))
 """
 
