@@ -103,7 +103,25 @@ Phases, each of which fails the run if it fails:
    the same probabilities; the panels, or the line that skips them
    without matplotlib) and single-pair evaluation of one city's
    non-square native PNGs at fp32 ((1, 1); within 1e-5 of the CPU's
-   prediction, and its metrics); each run's wall time.
+   prediction, and its metrics); each run's wall time;
+14. tune: (a) ``python -m gan_aug_pfa_torch.train --tune --n-trials 6`` at
+   its defaults (128x128, native augmentation, bf16, 15 epochs a trial)
+   in this process from a fresh working directory over a 14-city tree,
+   with the FocalDice and photometric (calls, launches) set to 0 just
+   before and read just after: they must equal the sums each trial's
+   batch size and epochs imply, one launch a call; every trial in
+   ``optuna_study.db`` COMPLETE or PRUNED, the best trial the least
+   completed value, ``python -m gan_aug_pfa_torch.show_optuna_results``
+   reporting six trials, the memory allocated after each trial within 64
+   MB of its value after the first; per-trial seconds and the study's
+   wall time; (b) the fused FocalDice kernels against their plain version
+   at each trial's (alpha, gamma, beta, smooth) and at gamma 1 and 3 on
+   one 4x1x128x128 bf16 batch; (c) the JAX-written GAN resume pair
+   (``tests/data/jax_gan_state_nd5_ngf4/``, from
+   ``tools/make_gan_resume_fixture.py``) resumed for one epoch through
+   ``python -m gan_aug_pfa_torch.train_gan --resume``, its Adam moments on
+   the card equal to the file's, and one fp32 D+G step from it (TF32 off)
+   within 1e-5 relative of the JAX losses saved beside it.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -488,7 +506,7 @@ def loss_inputs(torch, shape, gen, misaligned=False, dtype="float32"):
     return x.view(shape), t.view(b, h, w)
 
 
-def loss_errors(torch, fl, xf, tf, gamma, loss, dx, g):
+def loss_errors(torch, fl, xf, tf, gamma, loss, dx, g, kw=LOSS_KW):
     """Kernel results against the plain version on the same values, at the
     tolerances of tests/test_pallas.py: the loss within 1e-6 relative, dx
     within 1e-5 of max|dx| (1e-3 from 2^20 elements on, where dx is
@@ -496,9 +514,8 @@ def loss_errors(torch, fl, xf, tf, gamma, loss, dx, g):
     each value where dx is bf16 (both sides round their float32 dx to
     nearest even).  Returns |dloss|, max|ddx|, the part of |ddx| above the
     rounding step, the dx tolerance, the plain loss and whether all
-    hold."""
-    beta, alpha, smooth = (LOSS_KW["beta"], LOSS_KW["focal_alpha"],
-                           LOSS_KW["dice_smooth"])
+    hold.  ``kw``: beta, focal_alpha and dice_smooth of the loss."""
+    beta, alpha, smooth = kw["beta"], kw["focal_alpha"], kw["dice_smooth"]
     n = xf.numel()
     ref_sums = fl.focal_dice_sums_reference(xf, tf, gamma, alpha)
     ref_loss = float(fl._finalize(ref_sums, n, beta, smooth))
@@ -805,50 +822,59 @@ PHOTOMETRIC_CASES = [
 ]
 
 
+def check_photometric(torch, ph, kind, shape, extents, gen):
+    """One photometric kernel vs its plain version on the card at
+    ``shape``, within PHOTOMETRIC_ATOL inside each native extent (the whole
+    image for ``extents=None``), over the six jitter orders and both sigma
+    edges; equal bits on a rerun.  Returns the largest error and the
+    launch plan's name."""
+    extents = ([[min(h, shape[2]), min(w, shape[3])] for h, w in extents]
+               if extents else [[shape[2], shape[3]]] * shape[0])
+    fn, ref = ((ph.photometric_native_chw, ph.photometric_native_reference)
+               if kind == "native" else
+               (ph.photometric_flip_chw, ph.photometric_flip_reference))
+    plan = ph.plan_launch(shape[0], *shape[2:])
+    x = torch.rand(shape, generator=gen, device="cuda")
+    worst = 0.0
+    for order in range(6):
+        for sigma_first in (0.1, 1.0):
+            rows = photometric_rows(
+                torch, shape[0], order,
+                extents if kind == "native" else None, sigma_first,
+                seed=order)
+            got, again = fn(x, rows), fn(x, rows)
+            torch.cuda.synchronize()
+            want = ref(x, rows)
+            for i, (h, w) in enumerate(extents):
+                worst = max(worst, float(
+                    (got[i, :, :h, :w] - want[i, :, :h, :w]).abs().max()))
+                if not torch.equal(got[i, :, :h, :w], again[i, :, :h, :w]):
+                    raise AssertionError(f"{kind} {shape}: rerun differs")
+    print(f"photometric {kind} kernel {shape} ({plan.mode}, split "
+          f"{plan.split}) extents {extents}: max_abs_err={worst} over 6 "
+          f"orders x 2 sigma edges "
+          f"{'OK' if worst <= PHOTOMETRIC_ATOL else 'MISMATCH'}")
+    if worst > PHOTOMETRIC_ATOL:
+        raise AssertionError(f"photometric {kind} kernel != plain version "
+                             f"at {shape}: {worst}")
+    return worst, plan.mode + (" split" if plan.split > 1 else "")
+
+
 def phase_photometric(torch, ph, native_shape, native_extents):
-    """Both photometric kernels vs their plain versions on the card,
-    within PHOTOMETRIC_ATOL inside each native extent, over the six jitter
-    orders and both sigma edges, in every plan (resident, split, streamed);
-    equal bits on a rerun.  Then timings of kernel, wrapper, plain version
-    and a yardstick at the main paths' shapes and at 16x3x1024x1024, each
-    with its launch plan."""
+    """Both photometric kernels vs their plain versions on the card
+    (``check_photometric``) in every plan (resident, split, streamed).
+    Then timings of kernel, wrapper, plain version and a yardstick at the
+    main paths' shapes and at 16x3x1024x1024, each with its launch
+    plan."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     errs = {"native": 0.0, "flip": 0.0}
     modes = set()
     for kind, shape, extents in [("native", native_shape, native_extents),
                                  *PHOTOMETRIC_CASES]:
-        extents = ([[min(h, shape[2]), min(w, shape[3])] for h, w in extents]
-                   if extents else [[shape[2], shape[3]]] * shape[0])
-        fn, ref = ((ph.photometric_native_chw, ph.photometric_native_reference)
-                   if kind == "native" else
-                   (ph.photometric_flip_chw, ph.photometric_flip_reference))
-        plan = ph.plan_launch(shape[0], *shape[2:])
-        modes.add(plan.mode + (" split" if plan.split > 1 else ""))
-        x = torch.rand(shape, generator=gen, device="cuda")
-        worst = 0.0
-        for order in range(6):
-            for sigma_first in (0.1, 1.0):
-                rows = photometric_rows(
-                    torch, shape[0], order,
-                    extents if kind == "native" else None, sigma_first,
-                    seed=order)
-                got, again = fn(x, rows), fn(x, rows)
-                torch.cuda.synchronize()
-                want = ref(x, rows)
-                for i, (h, w) in enumerate(extents):
-                    worst = max(worst, float(
-                        (got[i, :, :h, :w] - want[i, :, :h, :w]).abs().max()))
-                    if not torch.equal(got[i, :, :h, :w],
-                                       again[i, :, :h, :w]):
-                        raise AssertionError(f"{kind} {shape}: rerun differs")
+        worst, mode = check_photometric(torch, ph, kind, shape, extents, gen)
         errs[kind] = max(errs[kind], worst)
-        print(f"photometric {kind} kernel {shape} ({plan.mode}) extents "
-              f"{extents}: max_abs_err={worst} over 6 orders x 2 sigma edges "
-              f"{'OK' if worst <= PHOTOMETRIC_ATOL else 'MISMATCH'}")
-        if worst > PHOTOMETRIC_ATOL:
-            raise AssertionError(f"photometric {kind} kernel != plain "
-                                 f"version at {shape}: {worst}")
+        modes.add(mode)
     if modes != {"resident", "resident split", "streamed"}:
         raise AssertionError(f"photometric cases ran plans {modes}")
 
@@ -2311,6 +2337,273 @@ def device_breakdown(torch, fn, label, ours, top=8):
     return busy_us, kernels
 
 
+TUNE_TRIALS = 6  # past the pruner's 5 startup trials
+TUNE_MEMORY_SLACK = 64 << 20  # bytes a trial may leave behind; one
+# leaked trial holds about 494 MB (41.2M parameters, two Adam moments)
+TUNE_GAMMAS = (1.0, 3.0)  # the search space's gamma edges
+TUNE_BATCH_SIZES = (2, 4, 8)  # the search space's batch sizes
+GAN_FIXTURE = os.path.join(REPO, "tests", "data", "jax_gan_state_nd5_ngf4")
+GAN_FIXTURE_ARGS = ["--num-downs", "5", "--ngf", "4", "--ndf", "8",
+                    "--n-layers", "2", "--target-size", "32x32"]
+GAN_RESUME_RTOL = 1e-5  # one fp32 D+G step, card (TF32 off) vs JAX (CPU)
+
+
+def tuning_expected_counts(trials, n_train, n_val):
+    """Kernel (calls, launches) a study's trials imply: per epoch a trial
+    ran (its reports), ceil(n_train / batch) train steps of two native
+    photometric calls, one loss forward and one backward, and ceil(n_val /
+    batch) validation forwards; one launch a call."""
+    native = fwd = bwd = 0
+    for t in trials:
+        bs, epochs = t.params["batch_size"], len(t.intermediate_values)
+        steps = -(-n_train // bs)
+        native += 2 * steps * epochs
+        fwd += (steps + -(-n_val // bs)) * epochs
+        bwd += steps * epochs
+    return ({"native": (native, native), "flip": (0, 0)},
+            {"fwd": (fwd, fwd), "bwd": (bwd, bwd)})
+
+
+def phase_tuning(torch, root):
+    """Phase 14a: ``python -m gan_aug_pfa_torch.train --tune --n-trials
+    6`` at its defaults (128x128, native augmentation, bf16, 15 epochs a
+    trial) over a 14-city tree, in this process from a fresh working
+    directory, with the FocalDice, photometric and confusion (calls,
+    launches) set to 0 just before and read just after (the confusion
+    counts must stay (0, 0)); the study file, the report of
+    ``show_optuna_results`` and the memory left allocated after each
+    trial."""
+    from gan_aug_pfa_torch import show_optuna_results, tune
+    from gan_aug_pfa_torch.data.scanner import create_sample_lists
+    from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
+    from gan_aug_pfa_torch.ops.kernels.fused_loss import FocalDiceLossFn
+    from gan_aug_pfa_torch.train import __main__ as train_cli
+    from gan_aug_pfa_torch.tuning import TrialState, load_study
+
+    write_oscd_tree(root)
+    work = os.path.join(root, "work")
+    os.makedirs(work)
+    seconds, memory = [], []
+    make_objective = tune.make_objective
+
+    def measured(*args, **kwargs):
+        objective = make_objective(*args, **kwargs)
+
+        def timed(trial):
+            t0 = time.perf_counter()
+            try:
+                return objective(trial)
+            finally:
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                memory.append(torch.cuda.memory_allocated())
+        return timed
+
+    cwd = os.getcwd()
+    tune.make_objective = measured
+    confusion = cc.confusion_counts_batch
+    os.chdir(work)
+    try:
+        reset_photometric_counts(ph)
+        reset_loss_counts(FocalDiceLossFn)
+        confusion.calls = confusion.launches = 0
+        t0 = time.time()
+        run_captured(train_cli.main, ["--root-dir", root, "--tune",
+                                      "--n-trials", str(TUNE_TRIALS)])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = photometric_counts(ph)
+        loss = loss_counts(FocalDiceLossFn)
+        counts["confusion"] = (confusion.calls, confusion.launches)
+        _, report = run_captured(show_optuna_results.main, [])
+    finally:
+        os.chdir(cwd)
+        tune.make_objective = make_objective
+    study = load_study(tune.STUDY_NAME, "sqlite:///" + os.path.join(
+        work, "optuna_study.db"))
+    trials = study.trials
+    n = {mode: len(create_sample_lists(root, SUBDIR, mode=mode,
+                                       verbose=False))
+         for mode in ("train", "val")}
+    want_counts, want_loss = tuning_expected_counts(trials, n["train"],
+                                                    n["val"])
+    # Tuning reports only the validation loss: no confusion counts.
+    want_counts["confusion"] = (0, 0)
+    states = [t.state for t in trials]
+    completed = [t.value for t in trials if t.state == TrialState.COMPLETE]
+    drift = [m - memory[0] for m in memory]
+    print(f"tuning: {len(trials)} trials {[s.value for s in states]}, "
+          f"epochs {[len(t.intermediate_values) for t in trials]}, batch "
+          f"sizes {[t.params['batch_size'] for t in trials]}; study wall "
+          f"{wall:.2f} s; per-trial seconds median "
+          f"{float(np.median(seconds)):.3f} (range {min(seconds):.3f}-"
+          f"{max(seconds):.3f}); photometric and confusion (calls, "
+          f"launches) {counts} (expected {want_counts}), fused loss {loss} "
+          f"(expected "
+          f"{want_loss}); allocated after each trial {memory} bytes, "
+          f"drift from trial 1 {drift}")
+    if (len(trials) != TUNE_TRIALS
+            or not set(states) <= {TrialState.COMPLETE, TrialState.PRUNED}
+            or not completed
+            or study.best_trial.value != min(completed)):
+        raise AssertionError(f"tuning study: states {states}")
+    if counts != want_counts or loss != want_loss:
+        raise AssertionError("tuning kernel counts differ from the trials'")
+    if f"Number of trials: {TUNE_TRIALS}" not in report:
+        raise AssertionError("show_optuna_results does not report the "
+                             "study")
+    if len(memory) != TUNE_TRIALS or max(map(abs, drift)) > \
+            TUNE_MEMORY_SLACK:
+        raise AssertionError(f"memory left after the trials: {drift}")
+    return {"trials": trials, "counts": counts, "loss": loss,
+            "wall": wall, "seconds": seconds, "memory": memory,
+            "n_train": n["train"], "n_val": n["val"]}
+
+
+def batch_sizes(n, bs):
+    """The batch sizes of one pass over ``n`` samples in batches of
+    ``bs``: full batches and the tail."""
+    return {b for b in (min(bs, n), n % bs) if b}
+
+
+def phase_tuning_kernels(torch, fl, ph, tuning, native_ds):
+    """Phase 14b: the kernels of the tuning path against their plain
+    versions at every batch the path can give them: each batch size of the
+    search space over the tuning tree's train and validation sets, full
+    batches and tails.  The fused FocalDice forward and backward on
+    (B, 1, 128, 128) bf16 logits at each trial's (alpha, gamma, beta,
+    smooth) and at the search space's gamma edges, with phase 3's
+    tolerances; ``photometric_native_chw`` on the tree's padded native
+    (B, 3, H, W) with the train set's mixed extents, as phase 5 checks it.
+    Returns the largest |dloss|, max|ddx| and photometric error."""
+    trials = tuning["trials"]
+    if not {t.params["batch_size"] for t in trials} <= set(TUNE_BATCH_SIZES):
+        raise AssertionError("a trial's batch size is outside the checked "
+                             "ones")
+    train_b = sorted({b for bs in TUNE_BATCH_SIZES
+                      for b in batch_sizes(tuning["n_train"], bs)})
+    loss_b = sorted(set(train_b) | {b for bs in TUNE_BATCH_SIZES
+                                    for b in batch_sizes(tuning["n_val"],
+                                                         bs)})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 14)
+    g = torch.tensor(0.73, device="cuda")
+    cases = [(trial.params["focal_alpha"], trial.params["focal_gamma"],
+              trial.params["loss_beta"], trial.params["dice_smooth"])
+             for trial in trials]
+    cases += [(cases[0][0], gamma, cases[0][2], cases[0][3])
+              for gamma in TUNE_GAMMAS]
+    worst = [0.0, 0.0, 0.0]
+    for b in loss_b:
+        x, t = loss_inputs(torch, (b, *TRAIN_SHAPE[1:]), gen,
+                           dtype="bfloat16")
+        xf, tf = x.reshape(-1), t.reshape(-1)
+        for alpha, gamma, beta, smooth in cases:
+            kw = {"beta": beta, "focal_alpha": alpha, "dice_smooth": smooth}
+            loss, sums = fl.launch_forward(xf, tf, beta, gamma, alpha,
+                                           smooth)
+            dx = fl.launch_backward(xf, tf, sums, g, beta, gamma, alpha,
+                                    smooth)
+            torch.cuda.synchronize()
+            dloss, ddx, excess, tol, ref_loss, ok = loss_errors(
+                torch, fl, xf, tf, gamma, loss, dx, g, kw)
+            worst[:2] = [max(worst[0], dloss), max(worst[1], ddx)]
+            print(f"loss kernels B={b} at alpha={alpha:.4f} "
+                  f"gamma={gamma:.4f} beta={beta:.4f} smooth={smooth:.3e}: "
+                  f"loss {float(loss):.7f} vs {ref_loss:.7f} (|d| "
+                  f"{dloss:.2e}), max|ddx| {ddx:.2e}, beyond a bf16 step "
+                  f"{excess:.2e} (tol {tol:.2e}) {'OK' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"fused loss kernels != plain version "
+                                     f"at B={b} and a trial's "
+                                     f"hyperparameters {kw}, gamma {gamma}")
+    sizes = native_ds.sizes.tolist()
+    for b in train_b:
+        shape = (b, 3, *native_ds.img1.shape[1:3])
+        extents = [sizes[(3 * i + b) % len(sizes)] for i in range(b)]
+        err, _ = check_photometric(torch, ph, "native", shape, extents, gen)
+        worst[2] = max(worst[2], err)
+    return worst
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def phase_gan_resume(torch, root):
+    """Phase 14c: the JAX-written GAN resume pair (tests/data, from
+    tools/make_gan_resume_fixture.py) through ``python -m
+    gan_aug_pfa_torch.train_gan --resume`` for one more epoch; then, in
+    this process, the Adam moments it maps (element for element against
+    the file's) and one fp32 D+G step on the card (TF32 off) from the
+    loaded state against the JAX losses saved beside it."""
+    import shutil
+
+    from gan_aug_pfa_torch import checkpoint, interop, train_gan
+    from gan_aug_pfa_torch.config import GANTrainConfig
+    from gan_aug_pfa_torch.train.gan import GANTrainer
+
+    expected = np.load(GAN_FIXTURE + "_expected.npz")
+    epoch = int(expected["epoch"]) + 1
+    write_oscd_tree(root)
+    ckpt = os.path.join(root, "gan_checkpoints")
+    shutil.copytree(GAN_FIXTURE, ckpt)
+    t0 = time.time()
+    history, text = run_captured(train_gan.main, [
+        "--root-dir", root, *GAN_FIXTURE_ARGS, "--resume",
+        "--num-epochs", str(epoch)])
+    wall = time.time() - t0
+    files = {f"{kind}_epoch_{epoch}.pth"
+             for kind in ("generator", "discriminator")}
+    if (f"Resumed GAN from epoch {epoch}." not in text or history is None
+            or len(history["loss_d"]) != 1
+            or not files <= set(os.listdir(ckpt))):
+        raise AssertionError("the JAX GAN state did not resume through "
+                             "train_gan")
+    trainer = GANTrainer(GANTrainConfig(
+        num_downs=5, ngf=4, ndf=8, n_layers=2, target_size=(32, 32),
+        compute_dtype="float32"), "cuda")
+    for stem, model, opt in (
+            ("last_generator", trainer.generator, trainer.opt_g),
+            ("last_discriminator", trainer.discriminator, trainer.opt_d)):
+        path = os.path.join(GAN_FIXTURE, stem + ".msgpack")
+        checkpoint.restore_gan_state_from_jax(path, model, opt)
+        adam = interop.variables_from_msgpack(path)["opt_state"][
+            "inner_state"]["1"]
+        for key, field in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            # The layout changes where an element sits, not its value.
+            want = np.sort(np.concatenate(
+                [np.asarray(v, np.float32).ravel()
+                 for v in tree_leaves(adam[key])]))
+            got = np.sort(torch.cat([opt.state[p][field].reshape(-1)
+                                     for p in model.parameters()]
+                                    ).cpu().numpy())
+            if not (got.shape == want.shape and (got == want).all()):
+                raise AssertionError(f"{stem} {key}: the moments on the "
+                                     "card differ from the file's")
+        steps = {float(opt.state[p]["step"]) for p in model.parameters()}
+        if steps != {float(adam["count"])}:
+            raise AssertionError(f"{stem}: steps {steps}, count "
+                                 f"{adam['count']}")
+    a, b = (torch.from_numpy(expected[k]).cuda().permute(0, 3, 1, 2)
+            for k in ("a", "b"))
+    loss_d, loss_g = (float(v) for v in trainer.train_batch(a, b))
+    err = {"loss_d": abs(loss_d / float(expected["loss_d"]) - 1),
+           "loss_g": abs(loss_g / float(expected["loss_g"]) - 1)}
+    print(f"JAX GAN state on the card: train_gan --resume wall {wall:.2f} "
+          f"s; moments equal the file's; one fp32 D+G step loss_D "
+          f"{loss_d:.7f} vs JAX {float(expected['loss_d']):.7f}, loss_G "
+          f"{loss_g:.7f} vs {float(expected['loss_g']):.7f}, relative "
+          f"{err} (limit {GAN_RESUME_RTOL})")
+    if max(err.values()) > GAN_RESUME_RTOL:
+        raise AssertionError("the resumed GAN step differs from JAX's")
+    return err
+
+
 def main():
     import torch
 
@@ -2387,6 +2680,15 @@ def main():
         phase_jax_checkpoint(torch, root)
     with tempfile.TemporaryDirectory() as root:
         eval_extras = phase_eval_extras(torch, root)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        tuning = phase_tuning(torch, root)
+        tuning_ds = build_padded_native_dataset(
+            create_sample_lists(root, SUBDIR, mode="train", verbose=False),
+            verbose=False)
+    tuning_errs = phase_tuning_kernels(torch, fl, ph, tuning, tuning_ds)
+    with tempfile.TemporaryDirectory() as root:
+        phase_gan_resume(torch, root)
 
     # The main numbers are each path's shape: the evaluation's bs 2 for the
     # confusion counts (bs 16 and 16x1024x1024 beside them), the train
@@ -2409,6 +2711,7 @@ def main():
         "library_call": "torch.histc over 2-bit codes",
         "run_control": list(run_control["confusion_counts"]),
         "eval_extras": {k: list(v) for k, v in eval_extras.items()},
+        "tuning": list(tuning["counts"]["confusion"]),
         "shape": list(CONFUSION_SHAPES[0]),
         "plan": eval_t["plan"],
         "other": {"x".join(map(str, shape)): {
@@ -2435,6 +2738,8 @@ def main():
             "library_call": library + " (a yardstick of about the same "
                                       "bytes)",
             "run_control": list(run_control["loss"][name]),
+            "tuning": list(tuning["loss"][name]),
+            "tuning_max_abs_err": tuning_errs[name == "bwd"],
             "shape": list(TRAIN_SHAPE),
             "logits": "bfloat16",
             "plan": t["plan"],
@@ -2470,6 +2775,9 @@ def main():
             "library_ms": t["library_ms"],
             "library_graph_ms": t["library_graph_ms"],
             "library_call": "torch.mul (a yardstick of the same bytes)",
+            "tuning": list(tuning["counts"][kind]),
+            **({"tuning_max_abs_err": tuning_errs[2]}
+               if kind == "native" else {}),
             "shape": list(shape),
             "plan": t["plan"],
         })

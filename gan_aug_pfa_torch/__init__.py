@@ -17,6 +17,9 @@ checkpoints and resume, ``python -m gan_aug_pfa_torch.train``), Pix2Pix
 GAN training (``python -m gan_aug_pfa_torch.train_gan``) and synthesis of
 the fake "after" corpus (``python -m gan_aug_pfa_torch.generate_synthetic``),
 both trainers' run control (SIGTERM-safe resume, run log, profiler, NaN
-checks, deferred and background checkpoint writes) and reading the JAX
-package's ``.msgpack`` checkpoints.
+checks, deferred and background checkpoint writes), reading the JAX
+package's ``.msgpack`` checkpoints and resuming both trainers from its
+train states, and hyperparameter tuning (``python -m
+gan_aug_pfa_torch.train --tune``, ``python -m
+gan_aug_pfa_torch.show_optuna_results``).
 """

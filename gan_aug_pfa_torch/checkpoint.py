@@ -19,10 +19,16 @@ and writes it on a background thread (``--async-ckpt``).
 Models also load from the JAX package's ``.msgpack`` checkpoints
 (``restore_model_only``, through ``interop.variables_from_msgpack``):
 model-only files and full train states, Siamese, generator (EMA included)
-and discriminator.  Resuming training from a JAX train state
-(``last_state.msgpack``, ``last_generator.msgpack``, whose optax moments
-and schedule need their own mapping) is not ported yet:
-``find_resume_checkpoint`` raises ``ResumeNotPortedError`` on one.
+and discriminator.  Training resumes from a JAX train state too:
+``restore_train_state_from_jax`` reads ``last_state.msgpack`` (the model,
+optax's Adam moments and count, the injected learning rate, the plateau
+and early-stop state, the epoch and the best validation loss) and
+``restore_gan_state_from_jax`` reads ``last_generator.msgpack`` and
+``last_discriminator.msgpack`` (the model, the Adam state, the
+generator's ``ema_params`` and the epoch).  Optax layouts of the JAX
+package's speed knobs (``--flat-opt-state``, ``--momentum-dtype
+bfloat16``, ``--grad-accum`` > 1) raise ``ResumeNotPortedError`` naming
+the layout; a file that is not a train state raises ``ResumeStateError``.
 """
 
 from __future__ import annotations
@@ -30,8 +36,9 @@ from __future__ import annotations
 import copy
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -39,7 +46,13 @@ from . import interop
 
 
 class ResumeNotPortedError(NotImplementedError):
-    """``--resume`` found only a JAX train state (``.msgpack``)."""
+    """``--resume`` found a JAX train state whose optimizer layout is not
+    ported yet."""
+
+
+class ResumeStateError(ValueError):
+    """``--resume`` found a file that is not a train state it can read
+    (truncated, or another kind of checkpoint)."""
 
 
 def checkpoint_name(base: str) -> str:
@@ -55,18 +68,6 @@ def find_checkpoint(directory: str, stem: str) -> Optional[str]:
         if os.path.exists(p):
             return p
     return None
-
-
-def find_resume_checkpoint(directory: str, stem: str) -> Optional[str]:
-    """``<stem>.pth`` to resume from, None if absent.  Raises
-    ``ResumeNotPortedError`` when only a JAX ``<stem>.msgpack`` is there,
-    rather than start again at epoch 1."""
-    path = find_checkpoint(directory, stem)
-    if path is not None and path.endswith(".msgpack"):
-        raise ResumeNotPortedError(
-            f"{path}: resuming from a JAX train state (.msgpack) is not "
-            "ported yet")
-    return path
 
 
 def _save_atomic(path: str, payload) -> None:
@@ -187,8 +188,12 @@ def train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
 def restore_train_state(path: str, model: nn.Module,
                         optimizer: torch.optim.Optimizer, scheduler,
                         stopper) -> Dict[str, Any]:
-    """Load a ``train_state`` file into the given objects, in place.
-    Returns {"epoch", "best_val_loss"}."""
+    """Load a ``train_state`` file (or, for a ``.msgpack`` path, the JAX
+    package's: ``restore_train_state_from_jax``) into the given objects,
+    in place.  Returns {"epoch", "best_val_loss"}."""
+    if path.endswith(".msgpack"):
+        return restore_train_state_from_jax(path, model, optimizer,
+                                            scheduler, stopper)
     state = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(state["model"], strict=True)
     optimizer.load_state_dict(state["optimizer"])
@@ -214,9 +219,12 @@ def gan_state(model: nn.Module, optimizer: torch.optim.Optimizer,
 def restore_gan_state(path: str, model: nn.Module,
                       optimizer: torch.optim.Optimizer,
                       ema: Optional[Dict[str, torch.Tensor]] = None) -> int:
-    """Load a ``gan_state`` file into the given objects, in place.  The
-    EMA tensors, when given, take the saved EMA, or the saved model's
-    parameters if the file has none.  Returns the epoch."""
+    """Load a ``gan_state`` file (or, for a ``.msgpack`` path, the JAX
+    package's: ``restore_gan_state_from_jax``) into the given objects, in
+    place.  The EMA tensors, when given, take the saved EMA, or the saved
+    model's parameters if the file has none.  Returns the epoch."""
+    if path.endswith(".msgpack"):
+        return restore_gan_state_from_jax(path, model, optimizer, ema)
     state = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(state["model"], strict=True)
     optimizer.load_state_dict(state["optimizer"])
@@ -225,6 +233,126 @@ def restore_gan_state(path: str, model: nn.Module,
         for name, v in ema.items():
             v.copy_(source[name])
     return int(state["epoch"])
+
+
+def _jax_train_state(path: str) -> Dict[str, Any]:
+    """A JAX package train state (``save_checkpoint`` without
+    ``model_only``) as its nested dict."""
+    try:
+        state = interop.variables_from_msgpack(path)
+    except ValueError as e:
+        raise ResumeStateError(f"{path}: cannot read it to resume: {e}") \
+            from e
+    if not isinstance(state, dict) or not {
+            "params", "batch_stats", "opt_state"} <= set(state):
+        raise ResumeStateError(f"{path}: not a JAX train state (no params, "
+                               "batch_stats and opt_state)")
+    return state
+
+
+# Where make_optimizer (the JAX package's train/optim.py:44-73) keeps
+# optax's ScaleByAdamState inside inject_hyperparams' inner_state: adamw
+# is optax.adamw's chain (scale_by_adam first), adam the chain
+# (add_decayed_weights, scale_by_adam, scale_by_learning_rate).
+_ADAM_INDEX = {"adamw": "0", "adam": "1"}
+
+
+def _has_bfloat16(tree) -> bool:
+    """Whether a decoded tree holds a bfloat16 leaf (the decoder's
+    ``torch.bfloat16`` tensors)."""
+    if isinstance(tree, dict):
+        return any(_has_bfloat16(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16
+
+
+def _adam_state(path: str, opt_state: Mapping[str, Any],
+                optimizer: torch.optim.Optimizer):
+    """(ScaleByAdamState, injected hyperparams) of a JAX optimizer state
+    for ``optimizer``.  Raises ``ResumeNotPortedError`` on the layouts of
+    the JAX speed knobs, ``ResumeStateError`` on another optimizer's."""
+    if "inner_opt_state" in opt_state:
+        raise ResumeNotPortedError(
+            f"{path}: the optimizer state is optax.MultiSteps "
+            "(--grad-accum > 1): resuming from it is not ported yet")
+    name = "adamw" if isinstance(optimizer, torch.optim.AdamW) else "adam"
+    inner = opt_state.get("inner_state", {})
+    adam = inner.get(_ADAM_INDEX[name]) if isinstance(inner, dict) else None
+    if not isinstance(adam, dict) or not {"count", "mu", "nu"} <= set(adam):
+        raise ResumeStateError(
+            f"{path}: no {name} state where the JAX package's {name} keeps "
+            f"it (inner_state[{_ADAM_INDEX[name]}])")
+    if not isinstance(adam["mu"], dict):
+        raise ResumeNotPortedError(
+            f"{path}: the optimizer state is flattened (--flat-opt-state, "
+            "optax.flatten): resuming from it is not ported yet")
+    if _has_bfloat16(adam["mu"]):
+        raise ResumeNotPortedError(
+            f"{path}: the first moments are bfloat16 (--momentum-dtype "
+            "bfloat16): resuming from them is not ported yet")
+    return adam, opt_state["hyperparams"]
+
+
+def _load_jax_model_and_optimizer(path: str, state: Dict[str, Any],
+                                  model: nn.Module,
+                                  optimizer: torch.optim.Optimizer) -> None:
+    adam, hyperparams = _adam_state(path, state["opt_state"], optimizer)
+    model.load_state_dict(interop.state_dict_from_jax(model, state),
+                          strict=True)
+    optimizer.load_state_dict(interop.optimizer_state_dict_from_jax(
+        model, optimizer, adam, hyperparams, state["batch_stats"]))
+
+
+def restore_train_state_from_jax(path: str, model: nn.Module,
+                                 optimizer: torch.optim.Optimizer, scheduler,
+                                 stopper) -> Dict[str, Any]:
+    """Load the JAX package's ``last_state.msgpack`` into the given
+    objects, in place, as the JAX pipeline resumes (pipelines.py:158-175):
+    the model, the optimizer (``interop.optimizer_state_dict_from_jax``),
+    and from the extras the plateau state (its 4-key dict into torch's
+    ``ReduceLROnPlateau``, and its learning rate into the optimizer, as
+    the JAX pipeline injects it) and the early-stop state.  Returns
+    {"epoch", "best_val_loss"}."""
+    state = _jax_train_state(path)
+    _load_jax_model_and_optimizer(path, state, model, optimizer)
+    extra = state.get("extra", {})
+    epoch = int(extra.get("epoch", 0))
+    plateau = extra.get("scheduler")
+    if plateau is not None:
+        # The JAX optimizer runs with the float32 injected value.
+        lr = float(np.float32(plateau["lr"]))
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        sd = scheduler.state_dict()
+        sd.update(best=float(plateau["best"]),
+                  num_bad_epochs=int(plateau["num_bad_epochs"]),
+                  cooldown_counter=int(plateau["cooldown_counter"]),
+                  last_epoch=epoch,
+                  _last_lr=[lr] * len(optimizer.param_groups))
+        scheduler.load_state_dict(sd)
+    if "early_stop" in extra:
+        stopper.load_state_dict(extra["early_stop"])
+    return {"epoch": epoch,
+            "best_val_loss": float(extra.get("best_val_loss", float("inf")))}
+
+
+def restore_gan_state_from_jax(path: str, model: nn.Module,
+                               optimizer: torch.optim.Optimizer,
+                               ema: Optional[Dict[str, torch.Tensor]] = None
+                               ) -> int:
+    """Load the JAX package's ``last_generator.msgpack`` or
+    ``last_discriminator.msgpack`` into the given objects, in place: the
+    model and its Adam state, and for a generator with an EMA its
+    ``ema_params`` (the saved model's parameters if the file has none, as
+    ``restore_gan_state`` does).  Returns the epoch."""
+    state = _jax_train_state(path)
+    _load_jax_model_and_optimizer(path, state, model, optimizer)
+    if ema is not None:
+        source = interop.state_dict_from_jax(model, {
+            "params": state.get("ema_params", state["params"]),
+            "batch_stats": state["batch_stats"]})
+        for name, v in ema.items():
+            v.copy_(source[name])
+    return int(state.get("extra", {}).get("epoch", 0))
 
 
 def restore_model_only(path: str, model: nn.Module) -> nn.Module:

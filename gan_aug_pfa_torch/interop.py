@@ -10,7 +10,11 @@
     flax's serialization, model-only or a full train state) as the nested
     dict it holds, read by the port's own decoder (``utils/msgpack.py``);
   * ``load_torch_state_dict``: a ``.pth`` file (a bare reference
-    ``state_dict``) as a dict of CPU tensors.
+    ``state_dict``) as a dict of CPU tensors;
+  * ``optimizer_state_dict_from_jax``: optax's Adam state (the
+    ``ScaleByAdamState`` of the JAX package's ``make_optimizer``) and its
+    injected hyperparameters as a ``torch.optim`` ``state_dict`` for a
+    model's optimizer.
 
 Layout: Flax conv kernels are (kh, kw, in, out), torch's are
 (out, in, kh, kw).  A Flax ``ConvTranspose`` kernel is (kh, kw, in, out)
@@ -23,7 +27,7 @@ axes (the JAX package's interop.py:52-59).  Flax BatchNorm
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -189,3 +193,46 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """Load a ``.pth`` state dict onto the CPU (tensors only)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def optimizer_state_dict_from_jax(model: nn.Module,
+                                  optimizer: torch.optim.Optimizer,
+                                  adam_state: Mapping[str, Any],
+                                  hyperparams: Mapping[str, Any],
+                                  batch_stats: Dict[str, Any]
+                                  ) -> Dict[str, Any]:
+    """A ``state_dict`` for ``optimizer`` (an Adam or AdamW over
+    ``model``'s parameters) from optax's Adam state {"count", "mu", "nu"}
+    and the ``inject_hyperparams`` dict beside it.
+
+    ``mu`` and ``nu`` have the params tree's structure, so each goes
+    through the model's weight converter (``state_dict_from_jax``, with
+    the checkpoint's ``batch_stats`` to complete the tree): the HWIO to
+    OIHW transposes and the conv-transpose flip apply to the moments as to
+    the weights.  torch keys its state by the index of a parameter in
+    ``param_groups``; each index is matched to its parameter's name.
+    ``count`` becomes every parameter's ``step``; the learning rate, the
+    weight decay and, where they were injected (adamw), the betas and eps
+    become each group's."""
+    moments = {key: state_dict_from_jax(
+        model, {"params": adam_state[key], "batch_stats": batch_stats})
+        for key in ("mu", "nu")}
+    names = {id(p): name for name, p in model.named_parameters()}
+    step = float(_np(adam_state["count"]))
+    out = optimizer.state_dict()
+    state: Dict[int, Dict[str, torch.Tensor]] = {}
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    for index, p in enumerate(params):
+        name = names[id(p)]
+        state[index] = {"step": torch.tensor(step),
+                        "exp_avg": moments["mu"][name],
+                        "exp_avg_sq": moments["nu"][name]}
+    hp = {k: float(_np(v)) for k, v in hyperparams.items()}
+    for group in out["param_groups"]:
+        group["lr"] = hp["learning_rate"]
+        group["weight_decay"] = hp["weight_decay"]
+        if "b1" in hp:
+            group["betas"] = (hp["b1"], hp["b2"])
+            group["eps"] = hp["eps"]
+    out["state"] = state
+    return out

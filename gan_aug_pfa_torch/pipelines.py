@@ -14,11 +14,13 @@ background checkpoint writes (``--async-ckpt``); Siamese training also
 the deferred best model (``--defer-best-ckpt``).  Evaluation and synthesis
 load a JAX package ``.msgpack`` checkpoint as they load a ``.pth``.
 Evaluation takes an ensemble of checkpoints, post-processing, the
-threshold sweep and the panels (matplotlib, where it is installed).
+threshold sweep and the panels (matplotlib, where it is installed).  Both
+trainers resume from their own ``.pth`` resume files or from the JAX
+package's ``.msgpack`` train states.  Tuning is ``tune.py``'s.
 
-Not ported yet: tuning, ``--stream``, resuming from a JAX train state
-(``.msgpack``); the GAN's ``--batched-disc``, ``--concat-free-disc`` and
-``--shared-gen-fwd``; serving artifacts for synthesis and evaluation.
+Not ported yet: ``--stream``; the GAN's ``--batched-disc``,
+``--concat-free-disc`` and ``--shared-gen-fwd``; serving artifacts for
+synthesis and evaluation.
 """
 
 from __future__ import annotations
@@ -148,13 +150,14 @@ def run_siamese_training(
     of ``train_cfg``.  ``initial_state_dict`` replaces the seeded init (a
     JAX init carried across with ``interop.siamese_state_dict_from_jax``,
     say).  Returns the history {"train_loss", "val_loss", "best_val_loss",
-    "trainer"}, or None when the train split is empty.  Raises
-    ``checkpoint.ResumeNotPortedError`` when ``resume`` finds only a JAX
-    ``last_state.msgpack``."""
+    "trainer"}, or None when the train split is empty.  ``resume``
+    continues from ``last_state.pth``, else from the JAX package's
+    ``last_state.msgpack`` (``checkpoint.ResumeNotPortedError`` on an
+    optax layout not ported yet)."""
     dev = resolve_device(device)
     checkpoint_dir = os.path.join(data_cfg.root_dir, train_cfg.checkpoint_dir)
     os.makedirs(checkpoint_dir, exist_ok=True)
-    resume_path = (ckpt.find_resume_checkpoint(checkpoint_dir, "last_state")
+    resume_path = (ckpt.find_checkpoint(checkpoint_dir, "last_state")
                    if train_cfg.resume else None)
 
     train_samples = create_sample_lists(
@@ -363,14 +366,16 @@ def run_gan_training(
     ``initial_state_dicts`` = (generator, discriminator) replaces the
     seeded init (a JAX init carried across, say).  Returns the history
     {"loss_d", "loss_g", "trainer"}, or None when there is no sample.
-    Raises ``checkpoint.ResumeNotPortedError`` when ``resume`` finds only
-    a JAX ``last_generator.msgpack`` or ``last_discriminator.msgpack``."""
+    ``resume`` continues when both resume files are there, each a
+    ``.pth`` or the JAX package's ``.msgpack``
+    (``checkpoint.ResumeNotPortedError`` on an optax layout not ported
+    yet)."""
     dev = resolve_device(device)
     checkpoint_dir = os.path.join(data_cfg.root_dir, gan_cfg.checkpoint_dir)
     output_dir = os.path.join(data_cfg.root_dir, gan_cfg.output_dir)
     os.makedirs(checkpoint_dir, exist_ok=True)
     os.makedirs(output_dir, exist_ok=True)
-    resume_paths = ([ckpt.find_resume_checkpoint(checkpoint_dir, stem)
+    resume_paths = ([ckpt.find_checkpoint(checkpoint_dir, stem)
                      for stem in ("last_generator", "last_discriminator")]
                     if gan_cfg.resume else [None, None])
 

@@ -12,9 +12,12 @@ and augmentation the photometric kernels.  Run control: ``--log-jsonl``,
 ``--profile-dir``, ``--debug-nans``, ``--defer-best-ckpt`` and
 ``--async-ckpt``; SIGTERM or SIGINT finishes the epoch in flight, writes
 ``last_state.pth`` at it and exits 0, and ``--resume`` continues from
-there.  Flags of paths not ported yet (``--tune``, ``--stream`` and the
-others below), and ``--resume`` with only a JAX ``last_state.msgpack``,
-exit 2 with "not ported yet".
+there, or from the JAX package's ``last_state.msgpack``.  ``--tune
+[--n-trials N] [--parallel-trials N]`` runs the hyperparameter study
+instead (``tune.run_tuning``; the study file ``optuna_study.db`` lands in
+the working directory).  Flags of paths not ported yet (``--stream`` and the
+others below), and ``--resume`` from a JAX train state in an optax layout
+not ported yet, exit 2 with "not ported yet".
 """
 
 from __future__ import annotations
@@ -29,14 +32,13 @@ from ..config import (
     SiameseTrainConfig,
     parse_target_size,
 )
-from ..checkpoint import ResumeNotPortedError
+from ..checkpoint import ResumeNotPortedError, ResumeStateError
 from .siamese import COMPUTE_DTYPES
 
 # The root train.py's flags whose paths are not ported yet, with the value
 # that leaves them off.
 _NOT_PORTED = {
-    "tune": False, "stream": "hbm", "n_trials": None,
-    "parallel_trials": None, "batched_encoder": False, "concat_free": False,
+    "stream": "hbm", "batched_encoder": False, "concat_free": False,
     "momentum_dtype": None, "flat_opt_state": False, "remat": False,
     "grad_accum": 1,
 }
@@ -81,6 +83,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "validation-loss improvement (0 = off)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
+    p.add_argument("--tune", action="store_true",
+                   help="Run hyperparameter tuning")
+    p.add_argument("--n-trials", type=int, default=50,
+                   help="[extension] number of tuning trials for --tune")
+    p.add_argument("--parallel-trials", type=int, default=1,
+                   help="[extension] run N trials concurrently, one worker "
+                        "a device (capped at the devices of --device's "
+                        "kind)")
     p.add_argument("--augment", action="store_true",
                    help="joint augmentation of the training pairs (the "
                         "reference augments only under --tune)")
@@ -130,12 +140,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "--resume appends to the same file")
     not_ported = p.add_argument_group(
         "not ported yet (using one exits non-zero)")
-    for flag in ("--tune", "--batched-encoder", "--concat-free",
-                 "--flat-opt-state", "--remat"):
+    for flag in ("--batched-encoder", "--concat-free", "--flat-opt-state",
+                 "--remat"):
         not_ported.add_argument(flag, action="store_true")
     not_ported.add_argument("--stream", type=str, default="hbm")
-    not_ported.add_argument("--n-trials", type=int, default=None)
-    not_ported.add_argument("--parallel-trials", type=int, default=None)
     not_ported.add_argument("--momentum-dtype", type=str, default=None)
     not_ported.add_argument("--grad-accum", type=int, default=1)
     return p
@@ -145,6 +153,8 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
     parser = build_parser()
     args = parser.parse_args(argv)
     for name, off in _NOT_PORTED.items():
+        if name == "stream" and args.tune:
+            continue  # tuning keeps its data on the device (below)
         if getattr(args, name) != off:
             parser.error(f"--{name.replace('_', '-')} is not ported yet")
     try:
@@ -161,6 +171,18 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
         augment=args.augment,
         native_aug=args.native_aug,
     )
+    if args.tune:
+        if args.stream != "hbm":
+            print(
+                "--stream applies only to main training; tuning trials "
+                "use the HBM-resident cache (their datasets are rebuilt "
+                "per trial at tuning batch sizes)."
+            )
+        from ..tune import run_tuning
+
+        return run_tuning(data_cfg, n_trials=args.n_trials,
+                          n_parallel=args.parallel_trials,
+                          native_aug=args.native_aug, device=args.device)
     train_cfg = SiameseTrainConfig(
         batch_size=args.batch_size,
         num_epochs=args.num_epochs,
@@ -182,10 +204,11 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
     try:
         return pipelines.run_siamese_training(data_cfg, train_cfg,
                                               device=args.device)
-    except ResumeNotPortedError as e:
+    except (ResumeNotPortedError, ResumeStateError) as e:
         parser.error(str(e))
 
 
 if __name__ == "__main__":
-    # run_siamese_training returns None when the train split is empty.
+    # run_siamese_training returns None when the train split is empty; a
+    # study is returned by --tune.
     raise SystemExit(0 if main() is not None else 1)

@@ -9,12 +9,13 @@ raises unless ``--device cpu`` is given.  ``--ema-decay`` keeps the
 generator's EMA.  Run control: ``--log-jsonl``, ``--profile-dir``,
 ``--debug-nans`` and ``--async-ckpt``; SIGTERM or SIGINT finishes the epoch
 in flight, writes the epoch's checkpoints and the ``last_*`` resume pair at
-it and exits 0, and ``--resume`` continues from there.
+it and exits 0, and ``--resume`` continues from there, or from the JAX
+package's ``last_generator.msgpack`` and ``last_discriminator.msgpack``.
 ``--no-data-parallel`` and ``--no-compile-cache`` are accepted so that the
 JAX package's command lines run unchanged (the port trains on one device
 and has no compilation cache).  Flags of paths not ported yet, and
-``--resume`` with only a JAX ``last_*.msgpack`` pair, exit 2 with "not
-ported yet".
+``--resume`` from a JAX pair in an optax layout not ported yet, exit 2
+with "not ported yet".
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from .config import (
     GANTrainConfig,
     parse_target_size,
 )
-from .checkpoint import ResumeNotPortedError
+from .checkpoint import ResumeNotPortedError, ResumeStateError
 from .train.siamese import COMPUTE_DTYPES
 
 # The root train_gan.py's flags whose paths are not ported yet, with the
@@ -149,7 +150,7 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
     try:
         return pipelines.run_gan_training(data_cfg, gan_cfg,
                                           device=args.device)
-    except ResumeNotPortedError as e:
+    except (ResumeNotPortedError, ResumeStateError) as e:
         parser.error(str(e))
 
 

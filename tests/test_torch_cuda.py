@@ -700,3 +700,36 @@ def test_jax_written_generator_runs_on_the_card(cuda):
     with torch.no_grad(), tf32_off():
         y = model(x).permute(0, 2, 3, 1).cpu().numpy()
     np.testing.assert_allclose(y, expected["y"], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_jax_written_gan_state_resumes_on_the_card(cuda):
+    """tests/data/jax_gan_state_nd5_ngf4/ (tools/make_gan_resume_fixture.py),
+    the JAX resume pair, loaded on the card with its Adam state: one fp32
+    D+G step (TF32 off) gives the JAX losses saved beside it within 1e-5
+    relative."""
+    import os
+
+    from gan_aug_pfa_torch import checkpoint
+    from gan_aug_pfa_torch.config import GANTrainConfig
+    from gan_aug_pfa_torch.train.gan import GANTrainer
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    pair = os.path.join(data, "jax_gan_state_nd5_ngf4")
+    trainer = GANTrainer(GANTrainConfig(
+        num_downs=5, ngf=4, ndf=8, n_layers=2, target_size=(32, 32),
+        compute_dtype="float32", ema_decay=0.9), "cuda")
+    assert checkpoint.restore_gan_state_from_jax(
+        os.path.join(pair, "last_generator.msgpack"), trainer.generator,
+        trainer.opt_g, trainer.ema) == 1
+    checkpoint.restore_gan_state_from_jax(
+        os.path.join(pair, "last_discriminator.msgpack"),
+        trainer.discriminator, trainer.opt_d)
+    expected = np.load(pair + "_expected.npz")
+    a, b = (torch.from_numpy(expected[k]).cuda().permute(0, 3, 1, 2)
+            for k in ("a", "b"))
+    loss_d, loss_g = trainer.train_batch(a, b)
+    assert float(loss_d) == pytest.approx(float(expected["loss_d"]),
+                                          rel=1e-5)
+    assert float(loss_g) == pytest.approx(float(expected["loss_g"]),
+                                          rel=1e-5)

@@ -2,25 +2,36 @@
 ``num_downs`` 5: SIGTERM in epoch 2, in process, writes the epoch's
 checkpoints and the resume pair at it and returns, and ``--resume``
 continues; background writes equal synchronous ones; the NaN checks of
-both optimizer steps; the step timer; the CLI flags; and the run log's
-events and keys against the JAX pipeline's for the same preempted run."""
+both optimizer steps; the step timer; the CLI flags; resuming from the
+JAX package's train state (the committed pair of
+tools/make_gan_resume_fixture.py) against the JAX pipeline resuming it;
+and the run log's events and keys against the JAX pipeline's for the same
+preempted run."""
 
 import json
 import os
+import shutil
 import signal
 
 import numpy as np
 import pytest
 import torch
 
+from gan_aug_pfa_torch import checkpoint as tck
+from gan_aug_pfa_torch import interop as ti
 from gan_aug_pfa_torch import pipelines as tp
 from gan_aug_pfa_torch import train_gan as gan_cli
 from gan_aug_pfa_torch.config import DataConfig, GANTrainConfig
+from gan_aug_pfa_torch.models import UNetGenerator
 from gan_aug_pfa_torch.train.gan import GANTrainer
 from gan_aug_pfa_torch.utils.profiling import StepTimer, enable_nan_checks
 
 SIZE = (32, 32)
 ARCH = dict(num_downs=5, ngf=8, ndf=8)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(REPO, "tests", "data", "jax_gan_state_nd5_ngf4")
+FIXTURE_ARCH = dict(num_downs=5, ngf=4, ndf=8, n_layers=2)
+RESUME_RTOL = 1e-3  # fp32 losses of a resumed epoch, port vs JAX
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -198,17 +209,75 @@ def test_cli_accepts_run_control_flags(flags, tmp_path, capsys):
     assert "GAN Training dataset is empty" in out.out
 
 
+@pytest.fixture(scope="module")
+def jax_resumed(oscd_tree, tmp_path_factory):
+    """The JAX pipeline resuming the committed JAX pair (epoch 1, an EMA of
+    decay 0.9) for epoch 2 at float32: its losses and its epoch-2 EMA."""
+    from gan_aug_pfa_tpu import config as jcfg
+    from gan_aug_pfa_tpu import pipelines as jp
+
+    d = tmp_path_factory.mktemp("jax_gan_resume")
+    shutil.copytree(FIXTURE, d / "ckpt")
+    hist = jp.run_gan_training(
+        jcfg.DataConfig(root_dir=str(oscd_tree)),
+        jcfg.GANTrainConfig(
+            data_parallel=False, checkpoint_dir=str(d / "ckpt"),
+            output_dir=str(d / "samples"), num_epochs=2, target_size=SIZE,
+            compute_dtype="float32", ema_decay=0.9, save_every=1,
+            sample_every=100, resume=True, **FIXTURE_ARCH),
+        verbose=False)
+    ema = tck.restore_model_only(
+        str(d / "ckpt" / "generator_ema_epoch_2.msgpack"),
+        UNetGenerator(num_downs=5, ngf=4)).state_dict()
+    shutil.rmtree(d)
+    return {"loss_d": hist["loss_d"], "loss_g": hist["loss_g"], "ema": ema}
+
+
 @pytest.mark.parametrize("stem", ["last_generator", "last_discriminator"])
-def test_cli_resume_from_jax_train_state_exits_2(stem, tmp_path, capsys):
-    ckpt_dir = tmp_path / "gan_checkpoints"
-    ckpt_dir.mkdir()
-    (ckpt_dir / f"{stem}.msgpack").write_bytes(b"\x80")
+def test_cli_resume_from_jax_train_state_exits_2(stem, oscd_tree, tmp_path,
+                                                 capsys, jax_resumed):
+    """The committed JAX-written resume pair: with ``stem`` cut in half the
+    CLI exits 2 naming the file; whole, it continues at epoch 2 with the
+    JAX pipeline's losses (within 1e-3 relative at float32) and an EMA
+    carried on from the file's ``ema_params``."""
+    ckpt = tmp_path / "ckpt"
+    shutil.copytree(FIXTURE, ckpt)
+    full = (ckpt / f"{stem}.msgpack").read_bytes()
+    (ckpt / f"{stem}.msgpack").write_bytes(full[:len(full) // 2])
+    argv = ["--root-dir", str(oscd_tree), "--device", "cpu", "--resume",
+            "--num-epochs", "2", "--target-size", "32x32",
+            "--compute-dtype", "float32", "--ema-decay", "0.9",
+            "--save-every", "1", "--sample-every", "100",
+            "--checkpoint-dir", str(ckpt),
+            "--output-dir", str(tmp_path / "samples"),
+            "--num-downs", "5", "--ngf", "4", "--ndf", "8", "--n-layers",
+            "2"]
     with pytest.raises(SystemExit) as exc:
-        gan_cli.main(["--root-dir", str(tmp_path), "--device", "cpu",
-                      "--resume"])
+        gan_cli.main(argv)
     assert exc.value.code == 2
-    assert ("resuming from a JAX train state (.msgpack) is not ported yet"
-            in capsys.readouterr().err)
+    err = capsys.readouterr().err
+    assert f"{stem}.msgpack: cannot read it to resume" in err
+    assert "truncated" in err
+    (ckpt / f"{stem}.msgpack").write_bytes(full)
+    got = gan_cli.main(argv)
+    assert "Resumed GAN from epoch 2." in capsys.readouterr().out
+    for key in ("loss_d", "loss_g"):
+        assert len(got[key]) == len(jax_resumed[key]) == 1
+        assert got[key][0] == pytest.approx(jax_resumed[key][0],
+                                            rel=RESUME_RTOL)
+    assert {"generator_epoch_2.pth", "discriminator_epoch_2.pth",
+            "generator_ema_epoch_2.pth"} <= set(os.listdir(ckpt))
+    # The EMA went on from the JAX ema_params, not from the weights: its
+    # gap to JAX's is a small part of how far it moved in the epoch.
+    ema = torch.load(ckpt / "generator_ema_epoch_2.pth", weights_only=True)
+    first = ti.variables_from_msgpack(str(ckpt / "last_generator.msgpack"))
+    start = ti.generator_state_dict_from_jax(
+        {"params": first["ema_params"], "batch_stats": first["batch_stats"]})
+    for key in dict(UNetGenerator(num_downs=5, ngf=4).named_parameters()):
+        want = jax_resumed["ema"][key]
+        moved = float((want - start[key]).abs().max())
+        assert float((ema[key] - want).abs().max()) <= max(
+            1e-2 * moved, 1e-7), key
 
 
 def test_run_log_events_match_jax(oscd_tree, tmp_path, monkeypatch):

@@ -17,8 +17,8 @@ port's models on the CPU:
     weights equal to the JAX package's own converter's; the loaded
     models' fp32 forwards equal JAX's within 1e-5 (of the Siamese logits'
     largest magnitude);
-  * the committed card fixture (``tools/make_msgpack_fixture.py``) equals
-    a rebuild.
+  * the committed card fixtures (``tools/make_msgpack_fixture.py``,
+    ``tools/make_gan_resume_fixture.py``) equal a rebuild.
 """
 
 import math
@@ -372,7 +372,7 @@ def test_loading_stays_strict(jax_files):
                                jax_files["generator_epoch_1"][1])
 
 
-def test_find_checkpoint_prefers_pth_then_msgpack(tmp_path):
+def test_find_checkpoint_prefers_pth_then_msgpack(tmp_path, jax_files):
     assert tck.find_checkpoint(str(tmp_path), "best_model") is None
     (tmp_path / "best_model.msgpack").write_bytes(b"\x80")
     assert tck.find_checkpoint(str(tmp_path), "best_model") == str(
@@ -380,12 +380,26 @@ def test_find_checkpoint_prefers_pth_then_msgpack(tmp_path):
     tck.save_model(str(tmp_path / "best_model.pth"), torch.nn.Linear(1, 1))
     assert tck.find_checkpoint(str(tmp_path), "best_model") == str(
         tmp_path / "best_model.pth")
-    assert tck.find_resume_checkpoint(str(tmp_path), "best_model").endswith(
-        ".pth")
+    # A resume finds the JAX state; an empty map is no train state, and
+    # the bf16 moments of these files are a layout not ported yet.
     (tmp_path / "only_jax.msgpack").write_bytes(b"\x80")
-    with pytest.raises(tck.ResumeNotPortedError, match="not ported yet"):
-        tck.find_resume_checkpoint(str(tmp_path), "only_jax")
-    assert tck.find_resume_checkpoint(str(tmp_path), "absent") is None
+    path = tck.find_checkpoint(str(tmp_path), "only_jax")
+    assert path.endswith(".msgpack")
+    model = SiameseUNet()
+    opt = torch.optim.AdamW(model.parameters())
+    sched = torch.optim.lr_scheduler.ReduceLROnPlateau(opt)
+    with pytest.raises(tck.ResumeStateError, match="not a JAX train state"):
+        tck.restore_train_state_from_jax(path, model, opt, sched, None)
+    with pytest.raises(tck.ResumeNotPortedError,
+                       match="--momentum-dtype bfloat16.*not ported yet"):
+        tck.restore_train_state_from_jax(jax_files["last_state"][0], model,
+                                         opt, sched, None)
+    gen = UNetGenerator(num_downs=ARCH["num_downs"], ngf=ARCH["ngf"])
+    with pytest.raises(tck.ResumeNotPortedError,
+                       match="--momentum-dtype bfloat16.*not ported yet"):
+        tck.restore_gan_state_from_jax(jax_files["last_generator"][0], gen,
+                                       torch.optim.Adam(gen.parameters()))
+    assert tck.find_checkpoint(str(tmp_path), "absent") is None
 
 
 # -- the card's fixture ----------------------------------------------------------
@@ -422,3 +436,39 @@ def test_committed_card_fixture_equals_a_rebuild(tmp_path):
     with torch.no_grad():
         y = model(_nchw(got["x"])).permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(y, got["y"], rtol=0, atol=FORWARD_ATOL)
+
+
+def test_committed_gan_resume_fixture_equals_a_rebuild(tmp_path):
+    """tools/make_gan_resume_fixture.py run again (one JAX GAN epoch and
+    one D+G step on the CPU): the same step batch and epoch (exactly), the
+    same resume pair, trees of the same keys, shapes and dtypes with equal
+    values (within 1e-5 relative: XLA's CPU convolutions may split their
+    sums by the host's threads), and the same losses."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    try:
+        import make_gan_resume_fixture as fixture
+    finally:
+        sys.path.pop(0)
+    pair_dir, npz = fixture.make(str(tmp_path))
+    committed = os.path.join(REPO, "tests", "data")
+    total = 0
+    for stem in fixture.STEMS:
+        path = os.path.join(committed, fixture.NAME, stem + ".msgpack")
+        total += os.path.getsize(path)
+        want = serialization.msgpack_restore(open(path, "rb").read())
+        got = serialization.msgpack_restore(open(
+            os.path.join(pair_dir, stem + ".msgpack"), "rb").read())
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            g, w = np.asarray(g), np.asarray(w)
+            assert g.shape == w.shape and g.dtype == w.dtype
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-7)
+        assert "ema_params" in want or stem == "last_discriminator"
+        assert want["extra"] == {"epoch": 1}
+    assert total < 2 * 1024 * 1024
+    got, want = np.load(npz), np.load(os.path.join(
+        committed, fixture.NAME + "_expected.npz"))
+    for key in ("a", "b", "epoch"):
+        np.testing.assert_array_equal(got[key], want[key])
+    for key in ("loss_d", "loss_g"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-5)

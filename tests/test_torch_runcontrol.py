@@ -529,16 +529,55 @@ def test_cli_accepts_run_control_flags(flags, tmp_path, capsys):
     assert "Training dataset is empty" in out.out
 
 
-def test_cli_resume_from_jax_train_state_exits_2(tmp_path, capsys):
+def test_cli_resume_from_jax_train_state_exits_2(oscd_tree, tmp_path,
+                                                 capsys):
+    """A JAX-written ``last_state.msgpack`` (the JAX trainer's init state
+    at epoch 2, saved by the JAX package): cut in half, ``--resume`` exits
+    2 naming the file; whole, the run continues at epoch 3 from its
+    weights."""
+    import jax
+
+    from gan_aug_pfa_tpu import checkpoint as jck
+    from gan_aug_pfa_tpu import config as jcfg
+    from gan_aug_pfa_tpu.train.siamese import SiameseTrainer as JaxTrainer
+
     ckpt_dir = tmp_path / "siamese_checkpoints"
-    ckpt_dir.mkdir()
-    (ckpt_dir / "last_state.msgpack").write_bytes(b"\x80")
+    path = ckpt_dir / "last_state.msgpack"
+    trainer = JaxTrainer(jcfg.SiameseTrainConfig(data_parallel=False,
+                                                 compute_dtype="float32"))
+    state = jax.jit(lambda k: trainer.init_state(k, SIZE))(
+        jax.random.PRNGKey(5))
+    jck.save_checkpoint(str(path), state, extra={
+        "epoch": 2, "best_val_loss": 0.75,
+        "scheduler": {"lr": 1e-4, "best": 0.75, "num_bad_epochs": 1,
+                      "cooldown_counter": 0}})
+    full = path.read_bytes()
+    path.write_bytes(full[:len(full) // 2])
+    argv = ["--root-dir", str(oscd_tree), "--device", "cpu", "--resume",
+            "--target-size", "32x32", "--batch-size", "2", "--num-epochs",
+            "3", "--compute-dtype", "float32", "--checkpoint-dir",
+            str(ckpt_dir)]
     with pytest.raises(SystemExit) as exc:
-        train_cli.main(["--root-dir", str(tmp_path), "--device", "cpu",
-                        "--resume"])
+        train_cli.main(argv)
     assert exc.value.code == 2
-    assert ("resuming from a JAX train state (.msgpack) is not ported yet"
-            in capsys.readouterr().err)
+    err = capsys.readouterr().err
+    assert "last_state.msgpack: cannot read it to resume" in err
+    assert "truncated" in err
+    path.write_bytes(full)
+    del full
+    hist = train_cli.main(argv)
+    out = capsys.readouterr().out
+    assert f"Resumed from {path} at epoch 3." in out
+    assert "Epoch 3/3 - LR: 1.0e-04" in out and "Epoch 2/3" not in out
+    assert len(hist["train_loss"]) == 1
+    assert np.isfinite(hist["train_loss"] + hist["val_loss"]).all()
+    assert hist["best_val_loss"] == min(0.75, hist["val_loss"][0])
+    resumed = torch.load(ckpt_dir / "last_state.pth", weights_only=True)
+    assert resumed["epoch"] == 3
+    assert resumed["scheduler"]["last_epoch"] == 3
+    # 4 train pairs at batch 2 from JAX's count 0: step 2.
+    assert all(float(s["step"]) == 2
+               for s in resumed["optimizer"]["state"].values())
 
 
 # -- the run log against the JAX pipeline's ------------------------------------

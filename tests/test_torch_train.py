@@ -524,7 +524,7 @@ def test_cli_trains_saves_and_resumes(oscd_tree, tmp_path):
                for s in state["optimizer"]["state"].values())
 
 
-@pytest.mark.parametrize("flags", [["--tune"], ["--remat"],
+@pytest.mark.parametrize("flags", [["--grad-accum", "2"], ["--remat"],
                                    ["--stream", "host"],
                                    ["--concat-free", "--log-jsonl",
                                     "run.jsonl"]])
