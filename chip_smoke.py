@@ -121,7 +121,23 @@ Phases, each of which fails the run if it fails:
    ``tools/make_gan_resume_fixture.py``) resumed for one epoch through
    ``python -m gan_aug_pfa_torch.train_gan --resume``, its Adam moments on
    the card equal to the file's, and one fp32 D+G step from it (TF32 off)
-   within 1e-5 relative of the JAX losses saved beside it.
+   within 1e-5 relative of the JAX losses saved beside it;
+15. serve: ``python -m gan_aug_pfa_torch.export_model --backend cuda`` at
+   full width from seeded checkpoints (the Siamese net at fp32, bf16 and
+   int8, the generator at fp32 and int8, the discriminator at fp32); each
+   artifact loaded in a fresh process that cannot import the model code,
+   serving batches 1 and 4 against the eager port model (fp32 and int8
+   within 1e-5 of the eager model with the same, dequantized, weights;
+   bf16 within the eager bf16 forward's own distance from fp32, its
+   convolutions bf16 in the graph); ``evaluate --serving-artifact`` with
+   the confusion counts' (calls, launches) set to 0 just before and read
+   just after ((7, 7); the checkpoint path's counts at fp32 within the
+   phase-5 rule); ``generate_synthetic --serving-artifact`` (img2 within 1
+   LSB of the checkpoint path on at most 0.5% of pixels); ``--serving-aot
+   require`` exiting non-zero; export seconds, load ms and first-batch
+   latency in a fresh process, evaluation pairs/s at bs 2 and 16 through
+   each artifact and the checkpoint path, int8 against fp32 file and
+   device bytes.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -1024,7 +1040,9 @@ def phase_main_path(torch, root):
                         torch.from_numpy(ds.img2), "float32")[..., 0]
     cache = pipelines.DeviceCache.from_dataset(ds, "cuda")
     cfg32 = EvalConfig(compute_dtype="float32")
-    gpu32 = pipelines.evaluate_cached([gpu_model], cache, ds.cities, cfg32)
+    gpu32 = pipelines.evaluate_cached(
+        pipelines.ensemble_fn([gpu_model], cfg32.compute_dtype), cache,
+        ds.cities, cfg32)
     gpu_probs = predict(gpu_model, cache.img1.permute(0, 2, 3, 1),
                         cache.img2.permute(0, 2, 3, 1), "float32")[..., 0]
     dprob = float((gpu_probs.cpu() - cpu_probs).abs().max())
@@ -1047,20 +1065,22 @@ def phase_main_path(torch, root):
                                 cache.labels.repeat(reps, 1, 1))
     for bs in (2, 16):
         cfg = EvalConfig(batch_size=bs)
-        pipelines.evaluate_cached([gpu_model], big, ds.cities * reps, cfg)
+        probs_fn = pipelines.ensemble_fn([gpu_model], cfg.compute_dtype)
+        pipelines.evaluate_cached(probs_fn, big, ds.cities * reps, cfg)
         rates = []
         for _ in range(PASSES):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pipelines.evaluate_cached([gpu_model], big, ds.cities * reps, cfg)
+            pipelines.evaluate_cached(probs_fn, big, ds.cities * reps, cfg)
             torch.cuda.synchronize()
             rates.append(len(big) / (time.perf_counter() - t0))
         print(f"eval throughput (bf16, 128x128, {len(big)} pairs, bs {bs}): "
               f"median {float(np.median(rates)):.1f} pairs/s over {PASSES} "
               f"passes, range [{min(rates):.1f}, {max(rates):.1f}]")
     device_breakdown(
-        torch, lambda: pipelines.evaluate_cached([gpu_model], cache,
-                                                 ds.cities, EvalConfig()),
+        torch, lambda: pipelines.evaluate_cached(
+            pipelines.ensemble_fn([gpu_model], EvalConfig().compute_dtype),
+            cache, ds.cities, EvalConfig()),
         "one bs-2 evaluation pass (14 pairs, bf16)", ("confusion_counts",))
     return counts
 
@@ -2164,12 +2184,14 @@ def phase_eval_extras(torch, root):
     # pixels whose probability lies within the devices' largest probability
     # difference of it.
     cfg32 = EvalConfig(compute_dtype="float32", threshold_sweep=True)
-    gpu32 = pipelines.evaluate_cached(gpu_models, cache, ds.cities, cfg32,
-                                      keep_probs=len(ds))
+    gpu32 = pipelines.evaluate_cached(
+        pipelines.ensemble_fn(gpu_models, cfg32.compute_dtype), cache,
+        ds.cities, cfg32, keep_probs=len(ds))
     cpu_models = pipelines.load_models(paths, EvalConfig(),
                                        torch.device("cpu"), "{path}")
     cpu32 = pipelines.evaluate_cached(
-        cpu_models, pipelines.DeviceCache.from_dataset(ds, "cpu"),
+        pipelines.ensemble_fn(cpu_models, cfg32.compute_dtype),
+        pipelines.DeviceCache.from_dataset(ds, "cpu"),
         ds.cities, cfg32, keep_probs=len(ds))
     gpu_p, cpu_p = np.stack(gpu32["probs"]), np.stack(cpu32["probs"])
     dprob = float(np.abs(gpu_p - cpu_p).max())
@@ -2261,8 +2283,8 @@ def phase_eval_extras(torch, root):
     # passes (PERF.md §7).
     device_breakdown(
         torch, lambda: pipelines.evaluate_cached(
-            gpu_models[:1], cache, ds.cities,
-            EvalConfig(threshold_sweep=True)),
+            pipelines.ensemble_fn(gpu_models[:1], EvalConfig().compute_dtype),
+            cache, ds.cities, EvalConfig(threshold_sweep=True)),
         "one bs-2 evaluation pass with the sweep (14 pairs, bf16)",
         ("confusion_counts",))
     return out
@@ -2282,12 +2304,13 @@ def pass_times(torch, pipelines, models, cache, cities):
             ("ensemble of 2", models, {}),
             ("ensemble of 2 + sweep", models, {"threshold_sweep": True})):
         cfg = EvalConfig(**kw)
-        pipelines.evaluate_cached(ms, cache, cities, cfg)
+        probs_fn = pipelines.ensemble_fn(ms, cfg.compute_dtype)
+        pipelines.evaluate_cached(probs_fn, cache, cities, cfg)
         times = []
         for _ in range(PASSES):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pipelines.evaluate_cached(ms, cache, cities, cfg)
+            pipelines.evaluate_cached(probs_fn, cache, cities, cfg)
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
         print(f"eval pass ({label}, bs 2, bf16, {len(cache)} pairs): median "
@@ -2604,6 +2627,367 @@ def phase_gan_resume(torch, root):
     return err
 
 
+# Phase 15: serving artifacts.  An fp32 or int8 artifact on the card (TF32
+# off) computes what the eager port model computes with the same weights
+# (dequantized, for int8) with the same cuDNN calls: both are the same ATen
+# ops, and their outputs have agreed within float32 rounding.
+SERVE_TOL = 1e-5
+SERVE_BATCHES = (1, 4)
+SERVE_PASSES = 3  # timed evaluation passes an artifact and batch size
+SERVE_REPS = 8  # copies of the 14 pairs in the timed evaluation cache
+# A bf16 artifact runs eager bf16 autocast's casts as explicit graph ops;
+# its distance from the eager bf16 forward may not exceed the bf16
+# rounding that the eager forward itself shows against fp32 (the largest
+# |eager bf16 - eager fp32| on the same inputs).
+# An int8 artifact's file and its weights in device memory against the
+# fp32 artifact's: int8 weights and a float32 scale a channel for every
+# large conv weight, so about 0.25x; tests/test_quantize.py:166 bounds it.
+SERVE_INT8_RATIO = 0.45
+
+SERVE_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+sys.modules["gan_aug_pfa_torch.models"] = None  # the model code is gone
+import numpy as np
+import torch
+from gan_aug_pfa_torch import serve
+path, inputs, outputs, device = sys.argv[1:5]
+t1 = time.perf_counter()
+torch.zeros(1, device=device)
+torch.cuda.synchronize()
+before = torch.cuda.memory_allocated()
+t2 = time.perf_counter()
+header, fn = serve.load_serving_fn(path, device=device)
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+weights = torch.cuda.memory_allocated() - before
+t = time.perf_counter()
+serve.load_serving_fn(path, device=device)  # again, its imports done
+torch.cuda.synchronize()
+reload_ms = 1e3 * (time.perf_counter() - t)
+d = np.load(inputs)
+xs = [d[k] for k in sorted(d.files)]
+out, ms, peak = {}, {}, {}
+for i, bs in enumerate(json.loads(sys.argv[5])):
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(1 if i == 0 else 5):
+        t = time.perf_counter()
+        y = fn(*[x[:bs] for x in xs])
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t))
+    out[f"b{bs}"] = y.cpu().numpy()
+    ms[bs] = runs
+    peak[bs] = torch.cuda.max_memory_allocated() - before
+np.savez(outputs, **out)
+print(json.dumps({
+    "arch": header["arch"], "compute_dtype": header["compute_dtype"],
+    "quantize": header.get("quantize"), "import_s": t1 - t0,
+    "context_s": t2 - t1, "load_ms": 1e3 * (t3 - t2), "reload_ms": reload_ms,
+    "weight_bytes": weights, "batch_ms": ms, "peak_bytes": peak,
+    "model_modules": sorted(m for m, v in sys.modules.items()
+                            if v is not None and ".models" in m)}))
+"""
+
+
+def serve_child(path, inputs, device):
+    """Load the artifact at ``path`` in a fresh process that cannot import
+    the port's model code, serve the first 1 and 4 of ``inputs`` and
+    return (its JSON report, the outputs by batch)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "in.npz"), *inputs)
+        out = os.path.join(tmp, "out.npz")
+        proc = subprocess.run(
+            [sys.executable, "-c", SERVE_CHILD, path,
+             os.path.join(tmp, "in.npz"), out, device,
+             json.dumps(SERVE_BATCHES)],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"serving {path} in a fresh process failed:"
+                                 f"\n{proc.stderr[-4000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        with np.load(out) as d:
+            outputs = {int(k[1:]): d[k] for k in d.files}
+    if report["model_modules"]:
+        raise AssertionError(f"the serving process imported "
+                             f"{report['model_modules']}")
+    return report, outputs
+
+
+def serving_refs(torch, arch, model, inputs, compute_dtype, device):
+    """The eager port model's output on ``inputs``, by the artifact's
+    contract."""
+    from gan_aug_pfa_torch.device import tf32_off
+    from gan_aug_pfa_torch.train.gan import generate
+    from gan_aug_pfa_torch.train.siamese import predict_normalized
+
+    xs = [torch.from_numpy(x).to(device) for x in inputs]
+    with torch.no_grad():
+        if arch == "siamese":
+            y = predict_normalized(model, *(x.permute(0, 3, 1, 2) for x in xs),
+                                   compute_dtype).permute(0, 2, 3, 1)
+        elif arch == "generator":
+            y = generate(model, xs[0], compute_dtype)
+        else:
+            with tf32_off():
+                y = model(torch.cat(xs, dim=-1).permute(0, 3, 1, 2))
+            y = y.permute(0, 2, 3, 1)
+    return y.float().cpu().numpy()
+
+
+def phase_serving(torch, root, device="cuda"):
+    """Phase 15: serving artifacts on the card.  ``python -m
+    gan_aug_pfa_torch.export_model --backend cuda`` at full width from
+    seeded checkpoints: the Siamese net at fp32, bf16 and int8 (128x128),
+    the generator at fp32 and int8 and the discriminator at fp32
+    (256x256).  Each artifact loads in a fresh process with the model code
+    blocked and serves batches 1 and 4, held against the eager port model
+    (fp32 and int8: within 1e-5 of the eager model with the same,
+    dequantized, weights; bf16: within the eager bf16 forward's own
+    distance from fp32); then ``evaluate --serving-artifact`` (confusion
+    counts (7, 7), the checkpoint path's counts at fp32 within the phase-5
+    rule), ``generate_synthetic --serving-artifact`` (img2 within 1 LSB of
+    the checkpoint path on at most 0.5% of pixels) and ``--serving-aot
+    require`` (exits non-zero).  Prints export seconds, load ms and first
+    batch latency in a fresh process, evaluation pairs/s at bs 2 and 16
+    through each artifact against the checkpoint path, and the fp32 and
+    int8 artifacts' file and device bytes."""
+    from gan_aug_pfa_torch import checkpoint, evaluate, pipelines
+    from gan_aug_pfa_torch import export_model as export_cli
+    from gan_aug_pfa_torch import generate_synthetic as synth_cli
+    from gan_aug_pfa_torch import quantize as qz
+    from gan_aug_pfa_torch import serve
+    from gan_aug_pfa_torch.config import EvalConfig
+    from gan_aug_pfa_torch.data import png
+    from gan_aug_pfa_torch.data.loader import build_cached_dataset
+    from gan_aug_pfa_torch.data.scanner import create_sample_lists
+    from gan_aug_pfa_torch.models import (
+        NLayerDiscriminator,
+        SiameseUNet,
+        UNetGenerator,
+    )
+    from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
+
+    write_oscd_tree(root)
+    torch.manual_seed(SEED)
+    models = {"siamese": seeded_model(torch, SiameseUNet),
+              "generator": UNetGenerator().eval(),
+              "discriminator": NLayerDiscriminator().eval()}
+    stems = {"siamese": "siamese_checkpoints/best_model",
+             "generator": "gan_checkpoints/generator_epoch_1",
+             "discriminator": "gan_checkpoints/discriminator_epoch_1"}
+    pths = {arch: os.path.join(root, stem + ".pth")
+            for arch, stem in stems.items()}
+    for arch, model in models.items():
+        checkpoint.save_model(pths[arch], model)
+    cases = [("siamese", "float32", None), ("siamese", "bfloat16", None),
+             ("siamese", "float32", "int8"), ("generator", "float32", None),
+             ("generator", "float32", "int8"),
+             ("discriminator", "float32", None)]
+    arts = {}
+    for arch, dtype, quant in cases:
+        key = (arch, dtype, quant)
+        arts[key] = os.path.join(
+            root, "artifacts", f"{arch}_{quant or dtype}.pt2")
+        argv = ["--checkpoint-path", pths[arch], "--output", arts[key],
+                "--backend", device, "--compute-dtype", dtype]
+        t0 = time.perf_counter()
+        run_captured(export_cli.main, argv + (["--quantize", quant]
+                                              if quant else []))
+        print(f"serving: exported {arch} {quant or dtype} in "
+              f"{time.perf_counter() - t0:.2f} s "
+              f"({os.path.getsize(arts[key])} bytes)")
+
+    # Each artifact in a fresh process, against the eager model.
+    rng = np.random.RandomState(SEED + 15)
+    reports = {}
+    for key, path in arts.items():
+        arch, dtype, quant = key
+        size = 128 if arch == "siamese" else 256
+        lo = 0.0 if arch == "generator" else -1.0
+        inputs = [(rng.rand(max(SERVE_BATCHES), size, size, 3) * (1 - lo)
+                   + lo).astype(np.float32)
+                  for _ in range(1 if arch == "generator" else 2)]
+        report, outputs = serve_child(path, inputs, device)
+        reports[key] = report
+        model = models[arch].to(device)
+        if quant:
+            qtree, _ = qz.quantize_tree(model.state_dict(),
+                                        out_axes=qz.out_channel_axes(model))
+            model = type(model)()
+            model.load_state_dict(qz.dequantize_tree(qtree), strict=True)
+            model = model.to(device).eval()
+        # At each batch size, as convolution algorithms are chosen by shape.
+        want = {bs: serving_refs(torch, arch, model, [x[:bs] for x in inputs],
+                                 dtype, device) for bs in SERVE_BATCHES}
+        errs = {bs: float(np.abs(outputs[bs] - want[bs]).max())
+                for bs in SERVE_BATCHES}
+        if dtype == "float32":
+            limit = SERVE_TOL
+        else:
+            limit = max(float(np.abs(
+                want[bs] - serving_refs(torch, arch, model,
+                                        [x[:bs] for x in inputs], "float32",
+                                        device)).max())
+                for bs in SERVE_BATCHES)
+        ms = report["batch_ms"]
+        print(f"serving: {arch} {quant or dtype} in a fresh process: import "
+              f"{report['import_s']:.2f} s, CUDA context "
+              f"{report['context_s']:.2f} s, load {report['load_ms']:.1f} "
+              f"ms (a second load {report['reload_ms']:.1f} ms), weights on "
+              f"the device {report['weight_bytes']} bytes; "
+              f"first batch (bs 1) {ms['1'][0]:.2f} ms, bs 4 median "
+              f"{float(np.median(ms['4'])):.2f} ms; peak "
+              f"{report['peak_bytes']} bytes; max |artifact - eager| by "
+              f"batch {errs} (limit {limit})")
+        if max(errs.values()) > limit or not all(
+                np.isfinite(o).all() for o in outputs.values()):
+            raise AssertionError(f"{path}: the artifact disagrees with the "
+                                 "eager model")
+        if dtype == "bfloat16":
+            # It computes in bf16, not silently in fp32.
+            _, program = serve.load_artifact(path, device=device)
+            convs = {str(n.meta["val"].dtype) for n in program.graph.nodes
+                     if n.target == torch.ops.aten.convolution.default}
+            print(f"serving: {arch} bf16 artifact's convolution dtypes "
+                  f"{sorted(convs)}")
+            if convs != {"torch.bfloat16"} or limit == 0.0:
+                raise AssertionError("the bf16 artifact does not compute in "
+                                     "bf16")
+    for arch in ("siamese", "generator"):
+        fp = arts[(arch, "float32", None)]
+        q8 = arts[(arch, "float32", "int8")]
+        file_ratio = os.path.getsize(q8) / os.path.getsize(fp)
+        dev_ratio = (reports[(arch, "float32", "int8")]["weight_bytes"]
+                     / reports[(arch, "float32", None)]["weight_bytes"])
+        print(f"serving: {arch} int8 vs fp32: file {os.path.getsize(q8)} vs "
+              f"{os.path.getsize(fp)} bytes ({file_ratio:.4f}x), device "
+              f"weights {dev_ratio:.4f}x (limit {SERVE_INT8_RATIO}x)")
+        if max(file_ratio, dev_ratio) > SERVE_INT8_RATIO:
+            raise AssertionError(f"the int8 {arch} artifact is not smaller")
+
+    # The evaluation CLI through the fp32 artifact, against the checkpoint
+    # path at fp32.
+    fn = cc.confusion_counts_batch
+    siamese_fp32 = arts[("siamese", "float32", None)]
+    fn.calls = fn.launches = 0
+    t0 = time.time()
+    art_result, _ = run_captured(evaluate.main, [
+        "--root-dir", root, "--serving-artifact", siamese_fp32, "--device",
+        device, "--json-out", os.path.join(root, "artifact.json")])
+    counts = (fn.calls, fn.launches)
+    print(f"serving: evaluate --serving-artifact wall {time.time() - t0:.2f} "
+          f"s, confusion counts (calls, launches) {counts}")
+    if art_result is None or counts != (7, 7):
+        raise AssertionError(f"evaluate --serving-artifact: (calls, "
+                             f"launches) {counts}, expected (7, 7)")
+    check_report(art_result, os.path.join(root, "artifact.json"))
+    with open(os.path.join(root, "artifact.json")) as f:
+        if json.load(f)["checkpoints"] != [siamese_fp32]:
+            raise AssertionError("the report does not name the artifact")
+    ckpt_result, _ = run_captured(evaluate.main, [
+        "--root-dir", root, "--checkpoint-path", pths["siamese"],
+        "--compute-dtype", "float32", "--device", device])
+    ds = build_cached_dataset(
+        create_sample_lists(root, SUBDIR, mode="all", verbose=False),
+        (128, 128), verbose=False)
+    cache = pipelines.DeviceCache.from_dataset(ds, device)
+    _, serve_fn = serve.load_serving_fn(siamese_fp32, device=device)
+    probs = {"artifact": pipelines.artifact_fn(serve_fn),
+             "checkpoint": pipelines.ensemble_fn([models["siamese"]],
+                                                 "float32")}
+    p = {k: f(cache.img1.permute(0, 2, 3, 1),
+              cache.img2.permute(0, 2, 3, 1)).cpu()
+         for k, f in probs.items()}
+    dprob = float((p["artifact"] - p["checkpoint"]).abs().max())
+    near = ((p["checkpoint"] - 0.5).abs() <= dprob).sum(dim=(1, 2)).numpy()
+    dcounts = np.abs(art_result["counts"] - ckpt_result["counts"]).max(axis=1)
+    print(f"serving: evaluation artifact vs checkpoint (fp32): max |dprob| = "
+          f"{dprob}, max |dcount| per sample {dcounts.tolist()}, "
+          f"near-threshold pixels {near.tolist()}")
+    if dprob > SERVE_TOL or (dcounts > near).any():
+        raise AssertionError("evaluation through the artifact disagrees with "
+                             "the checkpoint path")
+
+    # Evaluation pairs/s through each Siamese artifact against the
+    # checkpoint path in the same dtype.
+    big = pipelines.DeviceCache(cache.img1.repeat(SERVE_REPS, 1, 1, 1),
+                                cache.img2.repeat(SERVE_REPS, 1, 1, 1),
+                                cache.labels.repeat(SERVE_REPS, 1, 1))
+    cities = ds.cities * SERVE_REPS
+    paths = {"checkpoint fp32": probs["checkpoint"],
+             "artifact fp32": probs["artifact"],
+             "checkpoint bf16": pipelines.ensemble_fn([models["siamese"]],
+                                                      "bfloat16")}
+    for name, key in (("artifact bf16", ("siamese", "bfloat16", None)),
+                      ("artifact int8", ("siamese", "float32", "int8"))):
+        paths[name] = pipelines.artifact_fn(
+            serve.load_serving_fn(arts[key], device=device)[1])
+    for bs in (2, 16):
+        cfg = EvalConfig(batch_size=bs)
+        for name, probs_fn in paths.items():
+            pipelines.evaluate_cached(probs_fn, big, cities, cfg)
+            rates = []
+            for _ in range(SERVE_PASSES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pipelines.evaluate_cached(probs_fn, big, cities, cfg)
+                torch.cuda.synchronize()
+                rates.append(len(big) / (time.perf_counter() - t0))
+            print(f"serving: eval throughput ({name}, 128x128, {len(big)} "
+                  f"pairs, bs {bs}): median {float(np.median(rates)):.1f} "
+                  f"pairs/s over {SERVE_PASSES} passes, range "
+                  f"[{min(rates):.1f}, {max(rates):.1f}]")
+    del big, paths
+
+    # Synthesis through the fp32 generator artifact against the checkpoint.
+    out = {k: os.path.join(root, f"synth_{k}")
+           for k in ("artifact", "checkpoint")}
+    t0 = time.time()
+    n_art, _ = run_captured(synth_cli.main, [
+        "--root-dir", root, "--device", device, "--synthetic-data-dir",
+        out["artifact"], "--serving-artifact",
+        arts[("generator", "float32", None)]])
+    wall = time.time() - t0
+    n_ckpt, _ = run_captured(synth_cli.main, [
+        "--root-dir", root, "--device", device, "--synthetic-data-dir",
+        out["checkpoint"], "--generator-checkpoint-name",
+        "generator_epoch_1.pth"])
+    if n_art != len(CITIES) or n_ckpt != len(CITIES):
+        raise AssertionError(f"synthesis wrote {n_art} and {n_ckpt} samples")
+    diffs = []
+    for i, city in enumerate(CITIES):
+        for kind, name in (("images", f"img1_synth_{i}.png"),
+                           ("images", f"img2_synth_{i}.png"),
+                           ("labels", f"cm_synth_{i}.png")):
+            a, b = (png.decode_rgb(os.path.join(out[k], kind, city, name))
+                    if kind == "images" else
+                    png.decode_gray(os.path.join(out[k], kind, city, name))
+                    for k in ("artifact", "checkpoint"))
+            if name.startswith("img2"):
+                diffs.append(np.abs(a.astype(int) - b).ravel())
+            elif not np.array_equal(a, b):
+                raise AssertionError(f"synthesis {city}/{name} differs")
+    diffs = np.concatenate(diffs)
+    share = float((diffs > 0).mean())
+    print(f"serving: generate_synthetic --serving-artifact {n_art} triples "
+          f"in {wall:.2f} s; img2 vs the checkpoint path max {diffs.max()} "
+          f"LSB on {100 * share:.4f}% of pixels (limit 1 LSB on "
+          f"{100 * SYNTH_LSB_SHARE}%)")
+    if diffs.max() > 1 or share > SYNTH_LSB_SHARE:
+        raise AssertionError("synthesis through the artifact disagrees")
+
+    # No executable sidecar: --serving-aot require must fail.
+    rc, lines, _ = run_child(
+        ["-m", "gan_aug_pfa_torch.evaluate", "--root-dir", root, "--device",
+         device, "--serving-artifact", siamese_fp32, "--serving-aot",
+         "require"], timeout=300)
+    if rc == 0 or not any("aot='require'" in line for line in lines):
+        raise AssertionError(f"--serving-aot require exited {rc}")
+    print(f"serving: --serving-aot require exited {rc}")
+    return {"confusion_counts": counts}
+
+
 def main():
     import torch
 
@@ -2689,6 +3073,9 @@ def main():
     tuning_errs = phase_tuning_kernels(torch, fl, ph, tuning, tuning_ds)
     with tempfile.TemporaryDirectory() as root:
         phase_gan_resume(torch, root)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        serving = phase_serving(torch, root)
 
     # The main numbers are each path's shape: the evaluation's bs 2 for the
     # confusion counts (bs 16 and 16x1024x1024 beside them), the train
@@ -2712,6 +3099,7 @@ def main():
         "run_control": list(run_control["confusion_counts"]),
         "eval_extras": {k: list(v) for k, v in eval_extras.items()},
         "tuning": list(tuning["counts"]["confusion"]),
+        "serving": list(serving["confusion_counts"]),
         "shape": list(CONFUSION_SHAPES[0]),
         "plan": eval_t["plan"],
         "other": {"x".join(map(str, shape)): {

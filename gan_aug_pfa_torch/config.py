@@ -115,8 +115,16 @@ class EvalConfig:
     # Write the metrics report (overall + per-city means) as one JSON file.
     json_out: Optional[str] = None
     # "bfloat16" runs the model under bf16 autocast; "float32" runs it in
-    # full float32 with TF32 off.
+    # full float32 with TF32 off.  A serving artifact computes in the dtype
+    # it was exported with instead.
     compute_dtype: str = "bfloat16"
+    # Serve an exported artifact (``python -m gan_aug_pfa_torch.
+    # export_model``) instead of restoring a checkpoint.
+    serving_artifact: Optional[str] = None
+    # Executable-sidecar policy for the artifact, the JAX package's: "auto"
+    # and "never" run the exported program (the port writes no sidecar
+    # yet); "require" fails.
+    serving_aot: str = "auto"
 
 
 @dataclasses.dataclass
@@ -179,6 +187,10 @@ class GenerateConfig:
     ngf: int = 64
     # float32 (TF32 off) by default, for PNGs comparable bit for bit.
     compute_dtype: str = "float32"
+    # An exported generator artifact in place of the checkpoint, and its
+    # sidecar policy (see EvalConfig).
+    serving_artifact: Optional[str] = None
+    serving_aot: str = "auto"
 
 
 def parse_target_size(value: str) -> Tuple[int, int]:

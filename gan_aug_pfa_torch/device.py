@@ -1,6 +1,9 @@
-"""Device selection: entry points run on the card unless told otherwise."""
+"""Device selection: entry points run on the card unless told otherwise;
+and the process-wide precision flags that float32 runs turn off."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -15,3 +18,17 @@ def resolve_device(device="cuda") -> torch.device:
             "False; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for convolutions (cuDNN) and matrix products."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev

@@ -8,12 +8,15 @@ visualizations, or one image pair.
 Flag names and defaults are the root ``evaluate.py``'s; ``--device``
 (default ``cuda``) picks the device.  ``--checkpoint-path`` and each
 ``--ensemble`` checkpoint take the port's ``.pth`` or a JAX package
-``.msgpack`` (model-only or a full train state).  The panels need
-matplotlib; without it one line says they were skipped.  The root CLI's
-``--stream`` and serving artifacts are not ported yet: they are accepted
-with the value that leaves their path off, and any other value exits
-non-zero with "not ported yet".  ``--no-compile-cache`` is accepted so
-that the JAX package's command lines run unchanged.
+``.msgpack`` (model-only or a full train state).
+``--serving-artifact`` evaluates an artifact of ``python -m
+gan_aug_pfa_torch.export_model`` in place of a checkpoint; it computes in
+the dtype it was exported with, and single-pair evaluation ignores it, as
+the JAX package's does.  The panels need matplotlib; without it one line
+says they were skipped.  The root CLI's ``--stream`` is not ported yet: it
+is accepted with the value that leaves its path off, and any other value
+exits non-zero with "not ported yet".  ``--no-compile-cache`` is accepted
+so that the JAX package's command lines run unchanged.
 """
 
 from __future__ import annotations
@@ -31,8 +34,7 @@ from .train.siamese import COMPUTE_DTYPES
 
 # The root evaluate.py's flags whose paths are not ported yet, with the
 # value that leaves them off.
-_NOT_PORTED = {"stream": "hbm", "serving_artifact": None,
-               "serving_aot": "auto"}
+_NOT_PORTED = {"stream": "hbm"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,6 +81,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", type=str, default="bfloat16",
                    choices=list(COMPUTE_DTYPES),
                    help="model compute dtype for evaluation")
+    p.add_argument("--serving-artifact", type=str, default=None,
+                   help="Evaluate an exported artifact (python -m "
+                        "gan_aug_pfa_torch.export_model) instead of a "
+                        "checkpoint; it computes in its exported dtype")
+    p.add_argument("--serving-aot", type=str, default="auto",
+                   choices=["auto", "never", "require"],
+                   help="executable-sidecar policy for --serving-artifact: "
+                        "auto and never run the exported program; require "
+                        "fails (the port writes no sidecar yet)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
     p.add_argument("--no-compile-cache", action="store_true",
@@ -88,9 +99,6 @@ def build_parser() -> argparse.ArgumentParser:
         "not ported yet (a value other than the default exits non-zero)")
     not_ported.add_argument("--stream", type=str, default="hbm",
                             choices=["hbm", "host", "decode"])
-    not_ported.add_argument("--serving-artifact", type=str, default=None)
-    not_ported.add_argument("--serving-aot", type=str, default="auto",
-                            choices=["auto", "never", "require"])
     return p
 
 
@@ -122,6 +130,8 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
         threshold_sweep=args.threshold_sweep,
         json_out=args.json_out,
         compute_dtype=args.compute_dtype,
+        serving_artifact=args.serving_artifact,
+        serving_aot=args.serving_aot,
     )
     from . import pipelines
 

@@ -7,14 +7,16 @@ Flag names and defaults are the root ``generate_synthetic_data.py``'s
 (256x256, batch 4, float32), with the default checkpoint named ``.pth``;
 a generator the JAX package wrote (``generator_epoch_N.msgpack``,
 ``generator_ema_epoch_N.msgpack``, or the ``params`` of a
-``last_generator.msgpack``) loads as well.  ``--device`` (default ``cuda``)
-picks the device; without a card the run raises unless ``--device cpu``
-is given.  The output is the reference's layout:
+``last_generator.msgpack``) loads as well; ``--serving-artifact`` runs a
+generator artifact of ``python -m gan_aug_pfa_torch.export_model`` in
+place of the checkpoint.  ``--device`` (default ``cuda``) picks the
+device; without a card the run raises unless ``--device cpu`` is given.
+The output is the reference's layout:
 ``<synthetic-data-dir>/images/<city>/img{1,2}_synth_N.png`` and
 ``labels/<city>/cm_synth_N.png``, which ``python -m gan_aug_pfa_torch.train
 --use-synthetic`` reads.  ``--no-compile-cache`` is accepted for the JAX
-package's command lines; ``--stream`` other than ``hbm`` and the serving
-artifacts exit non-zero with "not ported yet".
+package's command lines; ``--stream`` other than ``hbm`` exits non-zero
+with "not ported yet".
 """
 
 from __future__ import annotations
@@ -33,8 +35,7 @@ from .train.siamese import COMPUTE_DTYPES
 
 # The root generate_synthetic_data.py's flags whose paths are not ported
 # yet, with the value that leaves them off.
-_NOT_PORTED = {"stream": "hbm", "serving_artifact": None,
-               "serving_aot": "auto"}
+_NOT_PORTED = {"stream": "hbm"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,6 +62,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ngf", type=int, default=64,
                    help="generator base filter count; must match the "
                         "checkpoint")
+    p.add_argument("--serving-artifact", type=str, default=None,
+                   help="Run an exported generator artifact (python -m "
+                        "gan_aug_pfa_torch.export_model) instead of the "
+                        "checkpoint")
+    p.add_argument("--serving-aot", type=str, default="auto",
+                   choices=["auto", "never", "require"],
+                   help="executable-sidecar policy for --serving-artifact: "
+                        "auto and never run the exported program; require "
+                        "fails (the port writes no sidecar yet)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
     p.add_argument("--no-compile-cache", action="store_true",
@@ -69,8 +79,6 @@ def build_parser() -> argparse.ArgumentParser:
     not_ported = p.add_argument_group(
         "not ported yet (a value other than the default exits non-zero)")
     not_ported.add_argument("--stream", type=str, default="hbm")
-    not_ported.add_argument("--serving-artifact", type=str, default=None)
-    not_ported.add_argument("--serving-aot", type=str, default="auto")
     return p
 
 
@@ -94,6 +102,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         num_downs=args.num_downs,
         ngf=args.ngf,
         compute_dtype=args.compute_dtype,
+        serving_artifact=args.serving_artifact,
+        serving_aot=args.serving_aot,
     )
     from . import pipelines
 

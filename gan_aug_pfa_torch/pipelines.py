@@ -14,19 +14,21 @@ background checkpoint writes (``--async-ckpt``); Siamese training also
 the deferred best model (``--defer-best-ckpt``).  Evaluation and synthesis
 load a JAX package ``.msgpack`` checkpoint as they load a ``.pth``.
 Evaluation takes an ensemble of checkpoints, post-processing, the
-threshold sweep and the panels (matplotlib, where it is installed).  Both
-trainers resume from their own ``.pth`` resume files or from the JAX
-package's ``.msgpack`` train states.  Tuning is ``tune.py``'s.
+threshold sweep and the panels (matplotlib, where it is installed).
+Evaluation and synthesis also run a serving artifact (``serve.py``) in
+place of a checkpoint.  Both trainers resume from their own ``.pth``
+resume files or from the JAX package's ``.msgpack`` train states.  Tuning
+is ``tune.py``'s.
 
 Not ported yet: ``--stream``; the GAN's ``--batched-disc``,
-``--concat-free-disc`` and ``--shared-gen-fwd``; serving artifacts for
-synthesis and evaluation.
+``--concat-free-disc`` and ``--shared-gen-fwd``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt
+from . import serve
 from .config import (
     DataConfig,
     EvalConfig,
@@ -53,6 +56,7 @@ from .data.loader import (
 from .data.pil_resize import resize_bicubic_rgb, resize_nearest
 from .data.png import decode_gray, decode_rgb, write_png
 from .data.scanner import create_sample_lists
+from .data.transforms import normalize
 from .device import resolve_device
 from .metrics import (
     METRIC_KEYS,
@@ -523,8 +527,11 @@ def run_generate_synthetic(
     33-89): for every sample of every city, ``images/<city>/
     img1_synth_N.png`` (the cached img1), ``img2_synth_N.png`` (the
     generator's eval-mode output) and ``labels/<city>/cm_synth_N.png``
-    (the real label x255).  Returns the number of samples written, 0 when
-    there is no sample or no checkpoint."""
+    (the real label x255).  With ``gen_cfg.serving_artifact`` an exported
+    generator (its [0, 1] -> [0, 1] function, in its exported dtype) takes
+    the checkpoint's place (JAX pipelines.py:645-666).  Returns the number
+    of samples written, 0 when there is no sample, no checkpoint or no
+    artifact."""
     dev = resolve_device(device)
     samples = create_sample_lists(
         data_cfg.root_dir, data_cfg.dataset_subdir, data_cfg.synthetic_data_dir,
@@ -535,18 +542,30 @@ def run_generate_synthetic(
               "synthetic data.")
         return 0
     ds = build_cached_dataset(samples, gen_cfg.target_size, verbose=verbose)
-    gen_path = os.path.join(data_cfg.root_dir, gen_cfg.gan_checkpoint_dir,
-                            gen_cfg.generator_checkpoint_name)
-    if verbose:
-        print(f"Loading GAN generator from: {gen_path}")
-    if not os.path.exists(gen_path):
-        print(f"Error: Generator checkpoint not found at {gen_path}")
-        return 0
-    nc = gen_cfg.n_channels
-    generator = UNetGenerator(nc, nc, num_downs=gen_cfg.num_downs,
-                              ngf=gen_cfg.ngf)
-    ckpt.restore_model_only(gen_path, generator)
-    generator.to(dev)
+    if gen_cfg.serving_artifact:
+        artifact = gen_cfg.serving_artifact
+        if verbose:
+            print(f"Loading serving artifact: {artifact}")
+        if not os.path.exists(artifact):
+            print(f"Error: Serving artifact not found at {artifact}")
+            return 0
+        _, generate_fn = serve.load_serving_fn(
+            artifact, aot=gen_cfg.serving_aot, device=dev)
+    else:
+        gen_path = os.path.join(data_cfg.root_dir, gen_cfg.gan_checkpoint_dir,
+                                gen_cfg.generator_checkpoint_name)
+        if verbose:
+            print(f"Loading GAN generator from: {gen_path}")
+        if not os.path.exists(gen_path):
+            print(f"Error: Generator checkpoint not found at {gen_path}")
+            return 0
+        nc = gen_cfg.n_channels
+        generator = UNetGenerator(nc, nc, num_downs=gen_cfg.num_downs,
+                                  ngf=gen_cfg.ngf)
+        ckpt.restore_model_only(gen_path, generator)
+        generator.to(dev)
+        generate_fn = functools.partial(generate, generator,
+                                        compute_dtype=gen_cfg.compute_dtype)
 
     out_base = os.path.join(data_cfg.root_dir, gen_cfg.synthetic_data_dir)
     # NCHW on the device, as the training caches; the generator takes NHWC
@@ -556,8 +575,7 @@ def run_generate_synthetic(
     bs = gen_cfg.batch_size
     count = 0
     for start in range(0, len(ds), bs):
-        fake = generate(generator, img1_dev[start:start + bs],
-                        gen_cfg.compute_dtype).cpu().numpy()
+        fake = generate_fn(img1_dev[start:start + bs]).cpu().numpy()
         for j, fake_j in enumerate(fake):
             i = start + j
             img_dir = os.path.join(out_base, "images", ds.cities[i])
@@ -627,13 +645,32 @@ def ensemble_probs(models: List[torch.nn.Module], img1: torch.Tensor,
     return probs[..., 0]
 
 
-def evaluate_cached(models: List[torch.nn.Module], cache: DeviceCache,
+def ensemble_fn(models: List[torch.nn.Module], compute_dtype: str):
+    """``evaluate_cached``'s probabilities callable for one model or an
+    ensemble (``ensemble_probs``)."""
+    return functools.partial(ensemble_probs, models,
+                             compute_dtype=compute_dtype)
+
+
+def artifact_fn(serve_fn):
+    """``evaluate_cached``'s probabilities callable for a Siamese serving
+    artifact's function, which takes [-1, 1] images (JAX
+    pipelines.py:823-824)."""
+    def probs(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+        return serve_fn(normalize(img1), normalize(img2))[..., 0]
+
+    return probs
+
+
+def evaluate_cached(probs_fn, cache: DeviceCache,
                     cities: List[str], eval_cfg: EvalConfig,
                     keep_probs: int = 0) -> Dict:
     """Per-sample metrics over contiguous batches of the device cache,
     accumulated overall and per city in sample order (pipelines.py:872-916).
 
-    ``models`` are one model or an ensemble (``ensemble_probs``).  With
+    ``probs_fn(img1, img2)`` maps NHWC [0, 1] batches to (B, H, W)
+    probabilities: ``ensemble_fn`` of one model or an ensemble, or
+    ``artifact_fn`` of a serving artifact.  With
     ``eval_cfg.post_process`` the probabilities become
     ``postprocess_prediction``'s masks on the device.  Each batch
     runs the confusion counts at ``eval_cfg.threshold`` and, with
@@ -662,10 +699,8 @@ def evaluate_cached(models: List[torch.nn.Module], cache: DeviceCache,
         sweep_iou = np.zeros(len(grid))
     for start in range(0, len(cache), bs):
         stop = min(start + bs, len(cache))
-        probs = ensemble_probs(
-            models, cache.img1[start:stop].permute(0, 2, 3, 1),
-            cache.img2[start:stop].permute(0, 2, 3, 1),
-            eval_cfg.compute_dtype)
+        probs = probs_fn(cache.img1[start:stop].permute(0, 2, 3, 1),
+                         cache.img2[start:stop].permute(0, 2, 3, 1))
         if eval_cfg.post_process:
             probs = postprocess_prediction(
                 probs, kernel_size=eval_cfg.post_process_kernel)
@@ -726,13 +761,16 @@ def run_evaluation(
 ) -> Optional[Dict]:
     """Evaluate ``best_model.pth`` (or ``eval_cfg.checkpoint_path``, or the
     ensemble of ``eval_cfg.ensemble_paths``; each a ``.pth`` or a JAX
-    package ``.msgpack``) over every OSCD city, with the options of
+    package ``.msgpack``; or the Siamese serving artifact
+    ``eval_cfg.serving_artifact``, which computes in its exported dtype)
+    over every OSCD city, with the options of
     ``EvalConfig``: post-processing, the threshold sweep (also written to
     ``<output_dir>/threshold_sweep.json``) and the first
     ``num_visualizations`` samples' panels.  Returns overall and per-city
     macro means, per-city sample counts, ``sweep`` (None without the
     sweep), each sample's confusion counts and the sweep's (T, N, 4)
-    counts; None when no samples or no checkpoint are found."""
+    counts; None when no samples, no checkpoint or no artifact are found,
+    or an artifact is given with an ensemble."""
     dev = resolve_device(device)
     output_dir = os.path.join(data_cfg.root_dir, eval_cfg.output_dir)
     os.makedirs(output_dir, exist_ok=True)
@@ -749,18 +787,37 @@ def run_evaluation(
         return None
     ds = build_cached_dataset(samples, eval_cfg.target_size, verbose=verbose)
 
-    paths = checkpoint_paths(data_cfg, eval_cfg)
-    models = load_models(paths, eval_cfg, dev,
-                         "Error: Checkpoint file not found at {path}")
-    if models is None:
-        return None
-    if verbose and len(models) > 1:
-        print(f"Ensembling {len(models)} checkpoints (averaged sigmoid "
-              f"probabilities).")
+    if eval_cfg.serving_artifact:
+        artifact = eval_cfg.serving_artifact
+        if eval_cfg.ensemble_paths:
+            print("Error: --serving-artifact and --ensemble are mutually "
+                  "exclusive (export one artifact per model).")
+            return None
+        if not os.path.exists(artifact):
+            print(f"Error: Serving artifact not found at {artifact}")
+            return None
+        header, serve_fn = serve.load_serving_fn(
+            artifact, aot=eval_cfg.serving_aot, device=dev)
+        if verbose:
+            print(f"Serving artifact: {artifact} ({header['arch']}, "
+                  f"{header['compute_dtype']}, quantize="
+                  f"{header.get('quantize')}, aot=none)")
+        paths = [artifact]
+        probs_fn = artifact_fn(serve_fn)
+    else:
+        paths = checkpoint_paths(data_cfg, eval_cfg)
+        models = load_models(paths, eval_cfg, dev,
+                             "Error: Checkpoint file not found at {path}")
+        if models is None:
+            return None
+        if verbose and len(models) > 1:
+            print(f"Ensembling {len(models)} checkpoints (averaged sigmoid "
+                  f"probabilities).")
+        probs_fn = ensemble_fn(models, eval_cfg.compute_dtype)
 
     n_panels = min(max(eval_cfg.num_visualizations, 0), len(ds))
     keep = n_panels if have_matplotlib() else 0
-    acc = evaluate_cached(models, DeviceCache.from_dataset(ds, dev),
+    acc = evaluate_cached(probs_fn, DeviceCache.from_dataset(ds, dev),
                           ds.cities, eval_cfg, keep_probs=keep)
     draw_panels([(ds.img1[i], ds.img2[i], ds.labels[i],
                   acc["probs"][i] if keep else None, ds.cities[i], i)
@@ -859,7 +916,9 @@ def evaluate_single_pair(
       ``single_eval``.
 
     Reads PNG files only: another format raises ``ValueError`` (PIL would
-    read it).  Returns ``{"pred": (1, H, W) probabilities}`` and, with a
+    read it).  ``eval_cfg.serving_artifact`` is ignored: the checkpoints
+    are evaluated, as in the JAX package, whose single pair has no
+    artifact path.  Returns ``{"pred": (1, H, W) probabilities}`` and, with a
     label, ``"metrics"``; None when an image or a checkpoint is missing."""
     dev = resolve_device(device)
     output_dir = os.path.join(data_cfg.root_dir, eval_cfg.output_dir)

@@ -40,7 +40,7 @@ from ..data.transforms import (
     normalize,
     sample_augment_params,
 )
-from ..device import resolve_device
+from ..device import resolve_device, tf32_off
 from ..models.siamese_unet import SiameseUNet
 from ..ops.kernels.fused_loss import focal_dice_loss_fused
 from ..utils.profiling import step_guard, sync
@@ -52,20 +52,6 @@ COMPUTE_DTYPES = ("float32", "bfloat16")
 def step_label(epoch, step: int) -> str:
     """The place of a step in a run, for error messages."""
     return f"step {step}" if epoch is None else f"epoch {epoch}, step {step}"
-
-
-@contextlib.contextmanager
-def tf32_off():
-    """TF32 off for convolutions (cuDNN) and matrix products."""
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 @contextlib.contextmanager

@@ -175,8 +175,8 @@ def test_default_device_is_cuda_and_never_falls_back(slice_setup):
 # The root evaluate.py's flags, by group: (command lines that parse and
 # run, each with the line an empty root prints; command lines that exit
 # 2, each with its message).  Single-pair evaluation, the panels,
-# post-processing, the ensemble and the sweep are ported; --stream and
-# serving artifacts exit 2 "not ported yet" on any value that turns their
+# post-processing, the ensemble, the sweep and serving artifacts are
+# ported; --stream exits 2 "not ported yet" on any value that turns its
 # path on.
 NO_SAMPLES = "No validation samples found"
 NOT_PORTED = "not ported yet"
@@ -196,9 +196,10 @@ NOT_PORTED_GROUPS = {
     "stream": ([(["--stream", "hbm"], NO_SAMPLES)],
                [(["--stream", "host"], NOT_PORTED),
                 (["--stream", "decode"], NOT_PORTED)]),
-    "serving": ([(["--serving-aot", "auto"], NO_SAMPLES)],
-                [(["--serving-artifact", "m.ghlo"], NOT_PORTED),
-                 (["--serving-aot", "never"], NOT_PORTED)]),
+    "serving": ([(["--serving-aot", "auto"], NO_SAMPLES),
+                 (["--serving-artifact", "m.pt2"], NO_SAMPLES),
+                 (["--serving-aot", "never"], NO_SAMPLES)],
+                [(["--serving-aot", "sometimes"], "invalid choice")]),
     "compile_cache": ([(["--no-compile-cache"], NO_SAMPLES)], []),
 }
 

@@ -9,6 +9,8 @@ the logits over a few units, as a trained model's are, and its bias
 centres them on seeded random images, so that about half the pixels are
 predicted as change."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -55,12 +57,19 @@ def jax_siamese_variables(seed=0, size=32, head_scale=HEAD_SCALE):
     return v
 
 
-def jax_siamese_logits(variables, x1, x2, batched_encoder=False):
-    """JAX fp32 eval-mode logits for [-1,1] NHWC numpy inputs."""
+@functools.lru_cache(maxsize=None)
+def _jax_siamese_apply(batched_encoder):
+    """One jitted eval-mode apply for each encoder form, so that calls at
+    a shape already seen reuse its compile."""
     model = SiameseUNet(3, 1, dtype=jnp.float32,
                         batched_encoder=batched_encoder)
-    return np.asarray(jax.jit(
-        lambda v, a, b: model.apply(v, a, b, train=False))(variables, x1, x2))
+    return jax.jit(lambda v, a, b: model.apply(v, a, b, train=False))
+
+
+def jax_siamese_logits(variables, x1, x2, batched_encoder=False):
+    """JAX fp32 eval-mode logits for [-1,1] NHWC numpy inputs."""
+    return np.asarray(
+        _jax_siamese_apply(batched_encoder)(variables, x1, x2))
 
 
 def jax_pix2pix_models(num_downs=5, ngf=8, ndf=8, n_layers=3,
