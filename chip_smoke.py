@@ -7,7 +7,8 @@ Phases, each of which fails the run if it fails:
 
 1. print the card (``nvidia-smi`` name and power limit);
 2. build every CUDA kernel of the evaluation and training paths from
-   ``csrc/`` with nvcc, one process per source, all at once;
+   ``csrc/`` with nvcc, and the PNG unfilter (``csrc/png_decode.c``) with
+   the host cc, one process per source, all at once;
 3. hold each kernel against its plain PyTorch version on the card (exact
    equality for the confusion counts, also on two streams in turn, in two
    CUDA graphs replayed in turn and after its workspace grows, with one
@@ -139,6 +140,30 @@ Phases, each of which fails the run if it fails:
    each artifact and the checkpoint path, int8 against fp32 file and
    device bytes.
 
+16. stream: hold the C unfilter of ``data/native_loader.py`` (built in
+   phase 2) against ``data/png.py`` byte for byte on every file of a
+   14-city tree and on all-Paeth and all-Average 600x600 RGB files, with
+   both decoders' MB/s
+   on 1 and 8 threads and the set-up seconds of the scan and the cache
+   through each; a synthesis pass's 42 PNG writes serially and through
+   ``PngWriterPool`` (ms, byte-identical files); then, over the tree and
+   990 synthetic 256x256 triplets written by the pooled writer, in this
+   process a resident epoch of a fresh trainer at the defaults (128x128,
+   batch 4, bf16, full width), steps/s of a resident, a host and a decode
+   epoch at batch 4 and 16 and each epoch's peak device memory above the
+   step's own (streamed within (depth + 2) batches, resident the corpus);
+   then one epoch of ``python -m gan_aug_pfa_torch.train --use-synthetic
+   --stream host`` and ``--stream decode`` (train losses equal to the
+   resident epoch's within 1e-3; fused-loss (calls, launches) set to 0
+   just before each and read just after: a forward a step and a val step,
+   a backward a step); one ``--augment --stream host`` epoch (JAX's
+   note, the flip kernel once an image a step, the native kernel never);
+   ``train_gan`` for one epoch at its defaults resident and ``--stream
+   decode`` (equal losses); ``generate_synthetic --stream decode`` (files
+   byte-identical to the resident run's, cuDNN's deterministic algorithms
+   in both); ``evaluate --stream host`` and ``--stream decode``
+   (confusion counts (7, 7) each, JSON equal to the resident report).
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero.
@@ -217,10 +242,10 @@ SYNTH_LSB_SHARE = 0.005
 SUBDIR = "Onera Satellite Change Detection Dataset"
 
 
-def write_png(path, arr):
+def write_png(path, arr, filter_type=None):
     """Write an 8-bit gray (H, W) or RGB (H, W, 3) PNG with the standard
     library's zlib.  Row y uses filter y % 5, so every filter type
-    appears."""
+    appears, or ``filter_type`` (0-4) on every row."""
     arr = np.ascontiguousarray(arr, dtype=np.uint8)
     h, w = arr.shape[:2]
     bpp = 1 if arr.ndim == 2 else arr.shape[2]
@@ -236,7 +261,8 @@ def write_png(path, arr):
     paeth = np.where((pa <= pb) & (pa <= pc), left,
                      np.where(pb <= pc, prev, upleft))
     preds = [np.zeros_like(rows), left, prev, (left + prev) >> 1, paeth]
-    ftype = np.arange(h) % 5
+    ftype = (np.arange(h) % 5 if filter_type is None
+             else np.full(h, filter_type))
     pred = np.choose(ftype[:, None], preds)
     body = ((rows - pred) & 0xFF).astype(np.uint8)
     raw = np.concatenate([ftype[:, None].astype(np.uint8), body], axis=1)
@@ -2988,6 +3014,517 @@ def phase_serving(torch, root, device="cuda"):
     return {"confusion_counts": counts}
 
 
+# Phase 16: the C PNG decoder, the pooled PNG writer and --stream.
+STREAM_PER_CITY = 90  # synthetic 256x256 samples written for each train city
+STREAM_DEPTH = 2  # prefetch_batches' depth, the trainers' default
+DECODE_SIDE = 600  # the all-Paeth and all-Average decoder cases
+DECODE_THREADS = 8
+WRITER_PASSES = 3
+
+
+def sync_device(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def smooth_rgb(rng, side):
+    """A seeded RGB image with the smooth areas and edges of a photograph:
+    8x8 blocks of random colour plus a little noise, so that PIL's filter
+    choice (the port's writer) picks Sub, Up and Paeth rows."""
+    blocks = rng.randint(0, 256, (side // 8, side // 8, 3))
+    img = np.kron(blocks, np.ones((8, 8, 1), np.int64))
+    return np.clip(img + rng.randint(-6, 7, img.shape), 0, 255).astype(
+        np.uint8)
+
+
+def write_stream_corpus(root, per_city, seed=SEED):
+    """``per_city`` synthetic 256x256 triplets for each train city, in the
+    synthetic corpus's layout, written by the port's pooled PNG writer."""
+    from gan_aug_pfa_torch.config import TRAIN_CITIES
+    from gan_aug_pfa_torch.data.png import PngWriterPool
+
+    rng = np.random.RandomState(seed + 16)
+    base = os.path.join(root, "synthetic_data")
+    with PngWriterPool() as writer:
+        for city in TRAIN_CITIES:
+            images = os.path.join(base, "images", city)
+            labels = os.path.join(base, "labels", city)
+            os.makedirs(images)
+            os.makedirs(labels)
+            for i in range(per_city):
+                writer.write(os.path.join(images, f"img1_synth_{i}.png"),
+                             smooth_rgb(rng, 256))
+                writer.write(os.path.join(images, f"img2_synth_{i}.png"),
+                             smooth_rgb(rng, 256))
+                writer.write(os.path.join(labels, f"cm_synth_{i}.png"),
+                             (rng.rand(256, 256) > 0.8).astype(np.uint8)
+                             * 255)
+
+
+def decode_rates(decode, path, threads, reps):
+    """MB/s of decoded bytes: ``reps`` decodes of the file one after the
+    other on one thread, then ``threads`` decodes on ``threads`` threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    nbytes = sum(decode(path).nbytes for _ in range(reps)) // reps
+    one = reps * nbytes / 1e6 / (time.perf_counter() - t0)
+    with ThreadPoolExecutor(max_workers=threads) as ex:
+        t0 = time.perf_counter()
+        list(ex.map(decode, [path] * threads))
+        many = threads * nbytes / 1e6 / (time.perf_counter() - t0)
+    return one, many
+
+
+def stream_decoder(root):
+    """The C decoder against ``data/png.py`` byte for byte on every file of
+    the 14-city tree and on all-Paeth and all-Average 600x600 RGB files;
+    MB/s of both, one thread and 8; set-up seconds of the scan and the
+    decode-once cache on the tree through each."""
+    from gan_aug_pfa_torch.data import native_loader as nl
+    from gan_aug_pfa_torch.data import png
+    from gan_aug_pfa_torch.data.loader import build_cached_dataset
+    from gan_aug_pfa_torch.data.scanner import create_sample_lists
+
+    files = []
+    for dirpath, _, names in os.walk(os.path.join(root, SUBDIR)):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith(".png")]
+    for path in sorted(files):
+        gray = os.path.basename(path) == "cm.png"
+        fast, plain = ((nl.decode_gray, png.decode_gray) if gray
+                       else (nl.decode_rgb, png.decode_rgb))
+        if not np.array_equal(fast(path), plain(path)):
+            raise AssertionError(f"C decoder differs from png.py on {path}")
+    rng = np.random.RandomState(SEED)
+    rates = {}
+    for name, ftype in (("paeth", 4), ("average", 3)):
+        path = os.path.join(root, f"{name}.png")
+        arr = rng.randint(0, 256, (DECODE_SIDE, DECODE_SIDE, 3))
+        write_png(path, arr, filter_type=ftype)
+        got = nl.decode_rgb(path)
+        if not (np.array_equal(got, arr) and np.array_equal(
+                got, png.decode_rgb(path))):
+            raise AssertionError(f"all-{name} file decoded wrong")
+        # png.py's Python loop takes about 0.2-0.6 s a file: one decode.
+        for label, decode, reps in (("C", nl.decode_rgb, 16),
+                                    ("png.py", png.decode_rgb, 1)):
+            rates[name, label] = decode_rates(decode, path, DECODE_THREADS,
+                                              reps)
+    print(f"decoder: C equals png.py byte for byte on the tree's "
+          f"{len(files)} files and on all-Paeth and all-Average "
+          f"{DECODE_SIDE}x{DECODE_SIDE} RGB files")
+    for (name, label), (one, many) in rates.items():
+        print(f"decoder MB/s (all-{name} {DECODE_SIDE}x{DECODE_SIDE} RGB, "
+              f"{label}): {one:.1f} on 1 thread, {many:.1f} on "
+              f"{DECODE_THREADS} threads")
+
+    setup = {}
+    for label, unfilter in (("C", nl.unfilter), ("png.py", png._unfilter)):
+        saved = nl.unfilter
+        nl.unfilter = unfilter  # what decode_rgb/decode_gray call
+        try:
+            t0 = time.perf_counter()
+            samples = create_sample_lists(root, SUBDIR, mode="all",
+                                          verbose=False)
+            t1 = time.perf_counter()
+            ds = build_cached_dataset(samples, (128, 128), verbose=False)
+            t2 = time.perf_counter()
+        finally:
+            nl.unfilter = saved
+        setup[label] = (t1 - t0, t2 - t1, ds)
+    c, p = setup["C"], setup["png.py"]
+    if not all(np.array_equal(getattr(c[2], k), getattr(p[2], k))
+               for k in ("img1", "img2", "labels")):
+        raise AssertionError("the caches of the two decoders differ")
+    print(f"set-up on the 14-city tree (scan, cache at 128x128): C "
+          f"{c[0]:.3f} + {c[1]:.3f} s, png.py {p[0]:.3f} + {p[1]:.3f} s "
+          f"({(p[0] + p[1]) / (c[0] + c[1]):.1f}x); caches equal")
+    return {"rates": {f"{n} {l}": v for (n, l), v in rates.items()},
+            "setup_s": {k: v[:2] for k, v in setup.items()}}
+
+
+def stream_writer(root):
+    """A synthesis pass's 42 PNG writes (the 14 pairs' img1 replay, a
+    generator-like img2 and the label at 256x256), serially with
+    ``write_png`` and through ``PngWriterPool``: ms and equal bytes."""
+    from gan_aug_pfa_torch.data import png
+    from gan_aug_pfa_torch.data.loader import (
+        build_cached_dataset,
+        float_to_uint8,
+    )
+    from gan_aug_pfa_torch.data.scanner import create_sample_lists
+
+    ds = build_cached_dataset(
+        create_sample_lists(root, SUBDIR, mode="all", verbose=False),
+        (256, 256), verbose=False)
+    arrays = []
+    for i in range(len(ds)):
+        arrays += [(f"a{i}.png", float_to_uint8(ds.img1[i])),
+                   (f"b{i}.png", float_to_uint8(ds.img2[i] * 0.5 + 0.25)),
+                   (f"c{i}.png", ds.labels[i].astype(np.uint8) * 255)]
+    times = {"serial": [], "pool": []}
+    for rep in range(WRITER_PASSES):
+        for kind in ("serial", "pool"):
+            out = os.path.join(root, f"writer_{kind}_{rep}")
+            os.makedirs(out)
+            t0 = time.perf_counter()
+            if kind == "serial":
+                for name, arr in arrays:
+                    png.write_png(os.path.join(out, name), arr)
+            else:
+                with png.PngWriterPool() as writer:
+                    for name, arr in arrays:
+                        writer.write(os.path.join(out, name), arr)
+            times[kind].append(1e3 * (time.perf_counter() - t0))
+    for name, _ in arrays:
+        with open(os.path.join(root, "writer_serial_0", name), "rb") as f:
+            want = f.read()
+        for rep in range(WRITER_PASSES):
+            with open(os.path.join(root, f"writer_pool_{rep}", name),
+                      "rb") as f:
+                if f.read() != want:
+                    raise AssertionError(f"pooled writer's {name} differs")
+    s, p = (float(np.median(times[k])) for k in ("serial", "pool"))
+    print(f"PNG writer ({len(arrays)} files at 256x256, median of "
+          f"{WRITER_PASSES}): serial {s:.1f} ms (range "
+          f"[{min(times['serial']):.1f}, {max(times['serial']):.1f}]), "
+          f"pool of 8 threads {p:.1f} ms (range [{min(times['pool']):.1f}, "
+          f"{max(times['pool']):.1f}]), {s / p:.2f}x; files byte-identical")
+    return times
+
+
+def stream_cli_training(torch, root, extra):
+    """One epoch of ``train --use-synthetic`` over the tree and its
+    synthetic corpus with ``--stream host`` and ``--stream decode``, with
+    the FocalDice (calls, launches) set to 0 just before each and read just
+    after."""
+    from gan_aug_pfa_torch.ops.kernels.fused_loss import FocalDiceLossFn
+    from gan_aug_pfa_torch.train import __main__ as train_cli
+
+    runs = {}
+    for mode in ("host", "decode"):
+        reset_loss_counts(FocalDiceLossFn)
+        t0 = time.time()
+        history = train_cli.main(
+            ["--root-dir", root, "--use-synthetic", "--num-epochs", "1",
+             "--stream", mode, "--checkpoint-dir", f"stream_ckpt_{mode}",
+             *extra])
+        wall = time.time() - t0
+        runs[mode] = (history["train_loss"][0], history["val_loss"][0],
+                      loss_counts(FocalDiceLossFn), wall)
+        print(f"train --stream {mode}: wall {wall:.2f} s, train loss "
+              f"{runs[mode][0]!r}, val loss {runs[mode][1]!r}, fused-loss "
+              f"(calls, launches) {runs[mode][2]}")
+    return runs
+
+
+def stream_check_training(runs, resident_loss, n_train, bs=4):
+    """The streamed CLI epochs against the resident epoch of the same init
+    and order: train losses within TRAIN_STEP_RTOL (cuDNN's backward is not
+    deterministic on the card; equal bits on the CPU), the val losses of
+    the two streams too; one forward a train and a val step, one backward
+    a train step."""
+    steps = -(-n_train // bs)
+    want = {"fwd": (steps + 1, steps + 1), "bwd": (steps, steps)}
+    for mode, (loss, val, counts, _) in runs.items():
+        rel = abs(loss - resident_loss) / abs(resident_loss)
+        print(f"train --stream {mode} against the resident epoch: train "
+              f"loss {loss!r} against {resident_loss!r}, relative "
+              f"difference {rel!r} (limit {TRAIN_STEP_RTOL})")
+        if rel > TRAIN_STEP_RTOL:
+            raise AssertionError(f"--stream {mode} train loss differs")
+        if counts != want:
+            raise AssertionError(f"--stream {mode} fused-loss counts "
+                                 f"{counts}; expected {want}")
+    vals = [run[1] for run in runs.values()]
+    if abs(vals[0] - vals[1]) > TRAIN_STEP_RTOL * abs(vals[0]):
+        raise AssertionError(f"streamed val losses {vals} differ")
+
+
+def batch_bytes(bs, size=128):
+    """A staged Siamese batch: two NCHW float32 images and float32 labels."""
+    return bs * (2 * 3 + 1) * size * size * 4
+
+
+class StepMemory:
+    """Device memory around each ``train_batch`` call of ``trainer``: the
+    peak since the last step ended (the put of the next batches while the
+    last one is still held), the bytes allocated as a step starts, and the
+    step's own peak above them (its activations, gradients and workspace,
+    the partial batch's too)."""
+
+    def __init__(self, torch, trainer):
+        self.cuda = torch.cuda
+        self.gap, self.start, self.own = [], [], []
+        step = trainer.train_batch
+
+        def probed(*args, **kw):
+            self.gap.append(self.cuda.max_memory_allocated())
+            self.start.append(self.cuda.memory_allocated())
+            self.cuda.reset_peak_memory_stats()
+            out = step(*args, **kw)
+            self.own.append(self.cuda.max_memory_allocated() - self.start[-1])
+            self.cuda.reset_peak_memory_stats()
+            return out
+
+        self.trainer = trainer
+        trainer.train_batch = probed
+
+    def close(self):
+        del self.trainer.train_batch  # the class's method again
+
+    def excess(self, base):
+        """(the epoch's peak less ``base`` and the largest step's own, the
+        most held as a step starts, the most held between steps), each
+        above ``base``."""
+        peak = max([a + o for a, o in zip(self.start, self.own)]
+                   + self.gap)
+        return (peak - base - max(self.own), max(self.start) - base,
+                max(self.gap) - base)
+
+
+def stream_memory_and_rates(torch, samples, device):
+    """In this process, at the Siamese net's full width (128x128, bf16):
+    the resident epoch of a fresh trainer (the streamed CLI epochs' init and
+    order: their reference loss); steps/s of a resident, a ``host`` and a
+    ``decode`` epoch at batch 4 and 16; and at batch 4 each epoch's device
+    memory above what the model, the optimizer and the gradients hold
+    (``StepMemory``): streamed, the peak less the largest step's own and
+    the most held between steps within (depth + 2) batches; resident, at
+    least the corpus held as each step starts."""
+    from gan_aug_pfa_torch.config import SiameseTrainConfig
+    from gan_aug_pfa_torch.data.loader import build_cached_dataset
+    from gan_aug_pfa_torch.data.stream import StreamingSource
+    from gan_aug_pfa_torch.pipelines import DeviceCache
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+
+    cuda = device == "cuda"
+    ds = build_cached_dataset(samples, (128, 128), verbose=False)
+    sources = {mode: StreamingSource(samples, (128, 128), cache=mode,
+                                     verbose=False)
+               for mode in ("host", "decode")}
+    rates, excess, resident_loss, base = {}, {}, None, None
+    try:
+        for bs in (4, 16):
+            trainer = SiameseTrainer(SiameseTrainConfig(batch_size=bs),
+                                     device)
+            cache = DeviceCache.from_dataset(ds, device)
+            loss = trainer.train_epoch(cache, np.random.RandomState(SEED))
+            if bs == 4:
+                resident_loss = loss
+            del cache
+            steps = -(-len(ds) // bs)
+            for mode in ("host", "decode", "hbm"):
+                probe = None
+                if cuda and bs == 4:
+                    sync_device(torch, device)
+                    base = torch.cuda.memory_allocated()
+                    probe = StepMemory(torch, trainer)
+                cache = (DeviceCache.from_dataset(ds, device)
+                         if mode == "hbm" else None)
+                rng = np.random.RandomState(SEED)
+                sync_device(torch, device)
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                if cache is None:
+                    trainer.train_epoch_streaming(sources[mode], rng,
+                                                  depth=STREAM_DEPTH)
+                else:
+                    trainer.train_epoch(cache, rng)
+                sync_device(torch, device)
+                rates[mode, bs] = steps / (time.perf_counter() - t0)
+                if probe is not None:
+                    probe.close()
+                    excess[mode] = probe.excess(base)
+                del cache
+            del trainer
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        for src in sources.values():
+            src.close()
+    for (mode, bs), r in rates.items():
+        print(f"train steps/s ({len(ds)} pairs, 128x128, bf16, bs {bs}, "
+              f"{mode}): {r:.2f}")
+    if excess:
+        bound = (STREAM_DEPTH + 2) * batch_bytes(4)
+        corpus = len(ds) * batch_bytes(1)
+        print(f"device memory at batch 4 above the model, optimizer and "
+              f"gradients ({base / 1e6:.2f} MB): the peak less the largest "
+              f"step's own, the most held as a step starts, the most held "
+              f"between steps")
+        for mode, (peak, held, gap) in excess.items():
+            print(f"  {mode}: {peak / 1e6:.2f}, {held / 1e6:.2f}, "
+                  f"{gap / 1e6:.2f} MB")
+        print(f"  a stream's bound: (depth + 2) x {batch_bytes(4)} B = "
+              f"{bound / 1e6:.2f} MB; the resident corpus of {len(ds)} "
+              f"pairs {corpus / 1e6:.2f} MB")
+        if max(max(excess[m][0], excess[m][2])
+               for m in ("host", "decode")) > bound:
+            raise AssertionError("a streamed epoch held more than "
+                                 "(depth + 2) batches on the device")
+        if excess["hbm"][1] < corpus:
+            raise AssertionError("the resident epoch does not hold the "
+                                 "corpus")
+    return rates, excess, resident_loss
+
+
+def stream_augment(torch, root, extra):
+    """One ``--augment --stream host`` epoch over the 11 train pairs: the
+    note, the fixed-size chain, ``photometric_flip_chw`` once for each
+    image of each step and never the native kernel."""
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
+    from gan_aug_pfa_torch.train import __main__ as train_cli
+
+    reset_photometric_counts(ph)
+    history, text = run_captured(train_cli.main, [
+        "--root-dir", root, "--augment", "--stream", "host", "--num-epochs",
+        "1", "--checkpoint-dir", "stream_ckpt_augment", *extra])
+    counts = photometric_counts(ph)
+    steps = -(-(len(CITIES) - 3) // 4)  # the 11 train cities
+    print(f"train --augment --stream host: photometric (calls, launches) "
+          f"{counts}, train loss {history['train_loss']}")
+    if ("streaming the fixed-size chain instead" not in text
+            or counts != {"native": (0, 0),
+                          "flip": (2 * steps, 2 * steps)}
+            or not np.isfinite(history["train_loss"]).all()):
+        raise AssertionError(f"augmented stream: counts {counts}")
+    return counts["flip"]
+
+
+def stream_synthesis_files(synth_cli, root, mode, extra):
+    """``generate_synthetic --stream mode`` with the GAN epoch's generator
+    into a corpus of its own: {relative path: bytes}."""
+    out = f"stream_synth_{mode}"
+    n = synth_cli.main([
+        "--root-dir", root, "--gan-checkpoint-dir", "stream_gan_hbm",
+        "--generator-checkpoint-name", "generator_epoch_1.pth",
+        "--synthetic-data-dir", out, "--stream", mode, *extra])
+    if n != len(CITIES):
+        raise AssertionError(f"synthesis --stream {mode} wrote {n}")
+    files = {}
+    base = os.path.join(root, out)
+    for dirpath, _, names in os.walk(base):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                files[os.path.relpath(path, base)] = f.read()
+    return files
+
+
+def stream_gan_synthesis_eval(torch, root, device, extra):
+    """``train_gan`` for one epoch at its defaults (256x256, batch 1, bf16,
+    full width), resident and ``--stream decode``: losses equal; then
+    ``generate_synthetic`` with its generator, resident and ``--stream
+    decode``, cuDNN deterministic: files byte-identical; then ``evaluate``
+    of a seeded checkpoint, resident, ``--stream host`` and ``--stream
+    decode``, with the confusion counts' (calls, launches) set to 0 just
+    before each and read just after: (7, 7) each, the JSON reports
+    equal."""
+    from gan_aug_pfa_torch import checkpoint, evaluate
+    from gan_aug_pfa_torch import generate_synthetic as synth_cli
+    from gan_aug_pfa_torch import train_gan as gan_cli
+    from gan_aug_pfa_torch.models import SiameseUNet
+    from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
+
+    gan = {}
+    for mode in ("hbm", "decode"):
+        t0 = time.time()
+        history = gan_cli.main([
+            "--root-dir", root, "--num-epochs", "1", "--stream", mode,
+            "--checkpoint-dir", f"stream_gan_{mode}", "--output-dir",
+            f"stream_gan_samples_{mode}", *extra])
+        gan[mode] = (history["loss_d"][0], history["loss_g"][0],
+                     time.time() - t0)
+        print(f"train_gan --stream {mode}: wall {gan[mode][2]:.2f} s, loss "
+              f"D {gan[mode][0]!r}, loss G {gan[mode][1]!r}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(gan["decode"][:2],
+                                               gan["hbm"][:2])]
+    print(f"train_gan --stream decode against resident: relative "
+          f"differences {rel} (limit {TRAIN_STEP_RTOL})")
+    if max(rel) > TRAIN_STEP_RTOL:
+        raise AssertionError("the streamed GAN epoch differs")
+
+    # cuDNN's conv-transpose (its backward-data algorithms) may add in any
+    # order: both runs take deterministic algorithms, so that the files
+    # show what the stream feeds the generator and nothing else.
+    synth = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("hbm", "decode"):
+            synth[mode] = stream_synthesis_files(
+                synth_cli, root, mode, extra)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    differ = sorted(k for k in synth["hbm"]
+                    if synth["decode"].get(k) != synth["hbm"][k])
+    if differ or len(synth["hbm"]) != 3 * len(CITIES):
+        raise AssertionError(f"generate_synthetic --stream decode files "
+                             f"differ from the resident run's: {differ}")
+    print(f"generate_synthetic --stream decode: {len(synth['hbm'])} files "
+          "byte-identical to the resident run's (cuDNN deterministic)")
+
+    model = seeded_model(torch, SiameseUNet)
+    pth = os.path.join(root, "stream_eval", "model.pth")
+    checkpoint.save_model(pth, model)
+    fn = cc.confusion_counts_batch
+    reports, counts = {}, {}
+    for mode in ("hbm", "host", "decode"):
+        path = os.path.join(root, f"stream_report_{mode}.json")
+        fn.calls = fn.launches = 0
+        result = evaluate.main([
+            "--root-dir", root, "--checkpoint-path", pth, "--json-out", path,
+            "--stream", mode, "--output-dir", f"stream_eval_{mode}", *extra])
+        sync_device(torch, device)
+        counts[mode] = (fn.calls, fn.launches)
+        check_report(result, path)
+        with open(path) as f:
+            reports[mode] = json.load(f)
+        print(f"evaluate --stream {mode}: confusion counts (calls, "
+              f"launches) {counts[mode]}")
+    if any(c != (7, 7) for c in counts.values()):
+        raise AssertionError(f"evaluation counts {counts}")
+    if not reports["hbm"] == reports["host"] == reports["decode"]:
+        raise AssertionError("the streamed evaluation reports differ")
+    print("evaluate --stream host and decode: JSON reports equal the "
+          "resident one")
+    return {"gan": gan, "eval_counts": counts}
+
+
+def phase_stream(torch, root, device="cuda"):
+    """Phase 16: the C PNG decoder, the pooled PNG writer and ``--stream``
+    at full width.  Returns the kernels' counts of the streamed runs."""
+    from gan_aug_pfa_torch.data.scanner import create_sample_lists
+    from gan_aug_pfa_torch.ops.kernels import build
+
+    extra = [] if device == "cuda" else ["--device", "cpu"]
+    t0 = time.time()
+    write_oscd_tree(root)
+    decoder = stream_decoder(root)
+    writer = stream_writer(root)
+    t1 = time.time()
+    write_stream_corpus(root, STREAM_PER_CITY)
+    print(f"stream corpus: {STREAM_PER_CITY} synthetic 256x256 triplets for "
+          f"each of the 11 train cities written in {time.time() - t1:.2f} s "
+          "(pooled writer)")
+    samples = create_sample_lists(root, SUBDIR, mode="train",
+                                  use_synthetic=True, verbose=False)
+    rates, excess, resident_loss = stream_memory_and_rates(torch, samples,
+                                                           device)
+    runs = stream_cli_training(torch, root, extra)
+    stream_check_training(runs, resident_loss, len(samples))
+    flip = stream_augment(torch, root, extra)
+    rest = stream_gan_synthesis_eval(torch, root, device, extra)
+    print(f"phase 16 (stream) took {time.time() - t0:.1f} s")
+    return {"loss": runs["decode"][2], "flip": flip,
+            "confusion_counts": rest["eval_counts"]["decode"],
+            "decoder": decoder, "writer": writer, "rates": rates,
+            "excess": excess, "build": build.BUILD_DIR}
+
+
 def main():
     import torch
 
@@ -2995,6 +3532,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA card", file=sys.stderr)
         return 2
+    from gan_aug_pfa_torch.data import native_loader as nl
     from gan_aug_pfa_torch.data.loader import (
         build_cached_dataset,
         build_padded_native_dataset,
@@ -3016,9 +3554,9 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.time()
-    logs = build.build([cc.NAME, fl.NAME, ph.NAME])
-    print(f"kernel build: {time.time() - t0:.1f} s "
-          f"({', '.join(logs) or 'already built'})")
+    logs = build.build([cc.NAME, fl.NAME, ph.NAME, nl.NAME])
+    print(f"kernel build (with the host C decoder {nl.NAME}, all at once): "
+          f"{time.time() - t0:.1f} s ({', '.join(logs) or 'already built'})")
     for name, log in logs.items():
         if log.strip():
             print(f"nvcc {name}:\n{log.strip()}")
@@ -3076,6 +3614,9 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         serving = phase_serving(torch, root)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        stream = phase_stream(torch, root)
 
     # The main numbers are each path's shape: the evaluation's bs 2 for the
     # confusion counts (bs 16 and 16x1024x1024 beside them), the train
@@ -3100,6 +3641,7 @@ def main():
         "eval_extras": {k: list(v) for k, v in eval_extras.items()},
         "tuning": list(tuning["counts"]["confusion"]),
         "serving": list(serving["confusion_counts"]),
+        "stream": list(stream["confusion_counts"]),
         "shape": list(CONFUSION_SHAPES[0]),
         "plan": eval_t["plan"],
         "other": {"x".join(map(str, shape)): {
@@ -3128,6 +3670,7 @@ def main():
             "run_control": list(run_control["loss"][name]),
             "tuning": list(tuning["loss"][name]),
             "tuning_max_abs_err": tuning_errs[name == "bwd"],
+            "stream": list(stream["loss"][name]),
             "shape": list(TRAIN_SHAPE),
             "logits": "bfloat16",
             "plan": t["plan"],
@@ -3165,7 +3708,7 @@ def main():
             "library_call": "torch.mul (a yardstick of the same bytes)",
             "tuning": list(tuning["counts"][kind]),
             **({"tuning_max_abs_err": tuning_errs[2]}
-               if kind == "native" else {}),
+               if kind == "native" else {"stream": list(stream["flip"])}),
             "shape": list(shape),
             "plan": t["plan"],
         })

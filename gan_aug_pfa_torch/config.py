@@ -41,6 +41,12 @@ class DataConfig:
     # chain step 5 (the reference's order, dataset.py:172-193); False
     # augments the target-size cache instead.  Read only with augment.
     native_aug: bool = True
+    # Data placement of training, GAN training, synthesis and evaluation
+    # (data/stream.py): "hbm" decodes once and keeps the corpus on the
+    # device; "host" keeps the decoded corpus in host memory and copies
+    # each batch to the device; "decode" holds only file paths and decodes
+    # each batch on demand (corpora larger than host memory).
+    stream: str = "hbm"
 
 
 @dataclasses.dataclass

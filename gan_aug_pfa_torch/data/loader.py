@@ -1,13 +1,14 @@
 """Host-side decode and one-time resize into a fixed-size cache (own copy
 of the JAX package's ``data/loader.py`` numerics).
 
-Each PNG is decoded once and resized on the host with the reference's
-numerics: bilinear, align_corners=False, coefficients in float64 and the
-lerp in float32 for images after /255; legacy nearest for labels, which
-are binarized at >128 before the resize (reference dataset.py:31-33 then
-146).  The pipeline moves the cache to the device once.  For
-native-resolution augmentation, ``build_padded_native_dataset`` keeps each
-sample at its decoded size in a zero-padded buffer instead.
+Each PNG is decoded once (``data/native_loader.py``: the C unfilter) and
+resized on the host with the reference's numerics: bilinear,
+align_corners=False, coefficients in float64 and the lerp in float32 for
+images after /255; legacy nearest for labels, which are binarized at >128
+before the resize (reference dataset.py:31-33 then 146).  The pipeline
+moves the cache to the device once.  For native-resolution augmentation,
+``build_padded_native_dataset`` keeps each sample at its decoded size in a
+zero-padded buffer instead.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from . import png
+from . import native_loader
 from .scanner import Sample
 
 
@@ -68,13 +69,14 @@ def load_sample_arrays(
     Returns (img1, img2, label): float32 HWC in [0,1] for images, int32 HW
     in {0,1} for the label.
     """
-    img1 = png.decode_rgb(sample.img1).astype(np.float32) / 255.0
-    img2 = png.decode_rgb(sample.img2).astype(np.float32) / 255.0
+    img1 = native_loader.decode_rgb(sample.img1).astype(np.float32) / 255.0
+    img2 = native_loader.decode_rgb(sample.img2).astype(np.float32) / 255.0
     img1 = _resize_bilinear_np(img1, target_size)
     img2 = _resize_bilinear_np(img2, target_size)
     label = None
     if sample.label is not None:
-        label = (png.decode_gray(sample.label) > 128).astype(np.int32)
+        label = (native_loader.decode_gray(sample.label) > 128).astype(
+            np.int32)
         label = _resize_nearest_np(label, target_size)
     return img1, img2, label
 
@@ -107,7 +109,10 @@ def build_cached_dataset(
             print(f"Failed to load sample for city {s.city}: {e}. Skipping.")
             return None
 
-    # zlib and numpy release the GIL for part of each decode.
+    # The decoder is built (or its build error raised) here, not skipped
+    # per sample; zlib, the C unfilter and numpy release the GIL for most
+    # of each decode.
+    native_loader.get_lib()
     with ThreadPoolExecutor(max_workers=min(8, max(1, len(samples)))) as ex:
         results = list(ex.map(load_one, samples))
     for s, res in zip(samples, results):
@@ -160,8 +165,8 @@ class PaddedNativeDataset:
 def _load_native(s: Sample):
     """One triplet at native size.  img2 and the label are brought to
     img1's extent when they differ, with a printed warning each."""
-    i1 = png.decode_rgb(s.img1).astype(np.float32) / 255.0
-    i2 = png.decode_rgb(s.img2).astype(np.float32) / 255.0
+    i1 = native_loader.decode_rgb(s.img1).astype(np.float32) / 255.0
+    i2 = native_loader.decode_rgb(s.img2).astype(np.float32) / 255.0
     if i1.shape != i2.shape:
         # Joint augmentation needs one canvas per pair: keep the pair and
         # resize img2 with the cache's bilinear resize.
@@ -171,7 +176,7 @@ def _load_native(s: Sample):
         i2 = _resize_bilinear_np(i2, (i1.shape[0], i1.shape[1]))
     lb = None
     if s.label is not None:
-        lb = (png.decode_gray(s.label) > 128).astype(np.int32)
+        lb = (native_loader.decode_gray(s.label) > 128).astype(np.int32)
         if lb.shape != i1.shape[:2]:
             print(f"label native size differs for {s.city} ({lb.shape} vs "
                   f"{i1.shape[:2]}); nearest-resizing the label to img1's "
@@ -195,6 +200,7 @@ def build_padded_native_dataset(
             print(f"Failed to load sample for city {s.city}: {e}. Skipping.")
             return None
 
+    native_loader.get_lib()
     with ThreadPoolExecutor(max_workers=min(8, max(1, len(samples)))) as ex:
         results = list(ex.map(load_one, samples))
     loaded = [(s, r) for s, r in zip(samples, results) if r is not None]

@@ -39,12 +39,19 @@ Average/Paeth rows one by one (each byte depends on its left neighbour
 after decoding).  An interlaced file is seven sub-images, one for each
 Adam7 pass, each with its own filter rows; they are unfiltered in turn
 and scattered into the full image.
+
+This module is the plain version.  The scanner, the caches, the stream
+and single-pair evaluation decode through ``data/native_loader.py``, which
+runs this module's parse and conversions with the unfilter in C
+(``csrc/png_decode.c``).
 """
 
 from __future__ import annotations
 
+import collections
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
 
 import numpy as np
@@ -186,11 +193,18 @@ def _passes(width: int, height: int):
             yield x0, y0, dx, dy, pw, ph
 
 
-def decode(path: str) -> Tuple[np.ndarray, int, int, np.ndarray]:
+def decode(path: str, unfilter=None
+           ) -> Tuple[np.ndarray, int, int, np.ndarray]:
     """Decode to the file's own channels and samples: ``(H, W, C)`` uint8
     (uint16 at bit depth 16; gray and palette samples at 1, 2 and 4 bits as
     they are, not scaled), the colour type, the bit depth, and the
-    ``(entries, 3)`` palette (empty unless colour type 3)."""
+    ``(entries, 3)`` palette (empty unless colour type 3).
+
+    ``unfilter(raw, height, stride, bpp)`` undoes the scanline filters of
+    one image or Adam7 pass (``raw``: uint8, ``height * (stride + 1)``
+    bytes) into a ``(height, stride)`` uint8 array; ``_unfilter`` (numpy)
+    by default, ``native_loader``'s C function on the main path."""
+    unfilter = unfilter or _unfilter
     with open(path, "rb") as f:
         data = f.read()
     ihdr, idat, plte = _read_chunks(data)
@@ -216,7 +230,7 @@ def decode(path: str) -> Tuple[np.ndarray, int, int, np.ndarray]:
         if raw.size != h * (stride + 1):
             raise ValueError(f"PNG image data is {raw.size} bytes, expected "
                              f"{h * (stride + 1)}")
-        img = _unfilter(raw, h, stride, bpp)
+        img = unfilter(raw, h, stride, bpp)
         if depth == 8:
             return img.reshape(h, w, nch), ct, depth, palette
         return _samples(img, w, nch, depth), ct, depth, palette
@@ -228,8 +242,8 @@ def decode(path: str) -> Tuple[np.ndarray, int, int, np.ndarray]:
     img = np.empty((h, w, nch), np.uint16 if depth == 16 else np.uint8)
     pos = 0
     for (x0, y0, dx, dy, pw, ph), size in zip(passes, sizes):
-        rows = _unfilter(raw[pos:pos + size], ph, _stride(pw, nch, depth),
-                         bpp)
+        rows = unfilter(raw[pos:pos + size], ph, _stride(pw, nch, depth),
+                        bpp)
         img[y0::dy, x0::dx] = _samples(rows, pw, nch, depth)
         pos += size
     return img, ct, depth, palette
@@ -259,9 +273,10 @@ def _to_8bit(img: np.ndarray, ct: int, depth: int) -> np.ndarray:
     return img
 
 
-def decode_rgb(path: str) -> np.ndarray:
-    """``(H, W, 3)`` uint8, as PIL's ``convert("RGB")``."""
-    img, ct, depth, palette = decode(path)
+def to_rgb(img: np.ndarray, ct: int, depth: int,
+           palette: np.ndarray) -> np.ndarray:
+    """``decode``'s result as ``(H, W, 3)`` uint8, as PIL's
+    ``convert("RGB")``."""
     if depth != 8:
         img = _to_8bit(img, ct, depth)
     if ct == 2:
@@ -273,9 +288,10 @@ def decode_rgb(path: str) -> np.ndarray:
     return np.repeat(img[..., :1], 3, axis=2)  # gray, gray + alpha
 
 
-def decode_gray(path: str) -> np.ndarray:
-    """``(H, W)`` uint8, as PIL's ``convert("L")``."""
-    img, ct, depth, palette = decode(path)
+def to_gray(img: np.ndarray, ct: int, depth: int,
+            palette: np.ndarray) -> np.ndarray:
+    """``decode``'s result as ``(H, W)`` uint8, as PIL's
+    ``convert("L")``."""
     if depth != 8:
         img = _to_8bit(img, ct, depth)
     if ct in (0, 4):
@@ -283,6 +299,16 @@ def decode_gray(path: str) -> np.ndarray:
     if ct == 3:
         return _luma(_palette_lookup(img[..., 0], palette))
     return _luma(img)
+
+
+def decode_rgb(path: str) -> np.ndarray:
+    """``(H, W, 3)`` uint8, as PIL's ``convert("RGB")``."""
+    return to_rgb(*decode(path))
+
+
+def decode_gray(path: str) -> np.ndarray:
+    """``(H, W)`` uint8, as PIL's ``convert("L")``."""
+    return to_gray(*decode(path))
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -346,3 +372,37 @@ def write_png(path: str, arr: np.ndarray) -> None:
     data = encode_png(arr)
     with open(path, "wb") as f:
         f.write(data)
+
+
+class PngWriterPool:
+    """``write_png`` on a pool of ``workers`` threads (zlib's deflate and
+    the file write release the GIL), with at most ``max_pending`` writes
+    queued or running: ``write`` waits for the oldest one beyond that, so
+    host memory does not grow with the corpus.  Used as a context manager:
+    leaving it waits for every write and raises the first write error
+    (``future.result()``); on an error inside the block it still waits for
+    the writes in flight, and the block's error propagates.  The files are
+    ``write_png``'s, byte for byte."""
+
+    def __init__(self, workers: int = 8, max_pending: int = 64):
+        self._pool = ThreadPoolExecutor(max_workers=max(1, workers))
+        self._pending = collections.deque()
+        self._max = max(1, max_pending)
+
+    def write(self, path: str, arr: np.ndarray) -> None:
+        """Queue ``write_png(path, arr)``; ``arr`` must not change
+        afterwards."""
+        while len(self._pending) >= self._max:
+            self._pending.popleft().result()
+        self._pending.append(self._pool.submit(write_png, path, arr))
+
+    def __enter__(self) -> "PngWriterPool":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        try:
+            if exc_type is None:
+                while self._pending:
+                    self._pending.popleft().result()
+        finally:
+            self._pool.shutdown(wait=True)

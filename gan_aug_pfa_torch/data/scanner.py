@@ -8,9 +8,10 @@ corpus's pairing (own copy of the JAX package's ``data/scanner.py``).
   synthetic city:    "<city>_synth"
 
 Every file is decoded once at scan time (reference dataset.py:285-295
-verifies and loads each image), so unreadable files are skipped here.
-Decoding goes through the port's own PNG decoder (``data/png.py``); a file
-that is not a PNG it supports counts as unreadable.
+verifies and loads each image), on a pool of threads, so unreadable files
+are skipped here.  Decoding goes through the port's own PNG decoder
+(``data/native_loader.py``); a file that is not a PNG it supports counts
+as unreadable.  A decoder that does not build raises.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import glob
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 from ..config import (
@@ -27,7 +29,7 @@ from ..config import (
     TRAIN_CITIES,
     VAL_CITIES,
 )
-from . import png
+from . import native_loader
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +48,7 @@ def _image_readable(path: Optional[str]) -> bool:
     if path is None:
         return True
     try:
-        png.decode_rgb(path)
+        native_loader.decode_rgb(path)
         return True
     except (OSError, ValueError):
         return False
@@ -60,8 +62,10 @@ def scan_dataset(
 ) -> List[Sample]:
     """Walk city folders and collect valid (img1, img2, label) triplets
     (reference dataset.py:240-283): the same globbing, the same pairing of
-    synthetic files by basename, the same skip counting."""
-    samples: List[Sample] = []
+    synthetic files by basename, the same skip counting.  The files of the
+    triplets found are decoded on a pool of threads (the decoder releases
+    the GIL), and the samples keep the walk's order."""
+    candidates: List[Sample] = []
     skipped = 0
     for city_folder in sorted(glob.glob(os.path.join(data_dir, "*"))):
         if not os.path.isdir(city_folder):
@@ -83,15 +87,8 @@ def scan_dataset(
                 if label_dir and not os.path.exists(label_file):
                     skipped += 1
                     continue
-                if (
-                    _image_readable(img1_file)
-                    and _image_readable(img2_file)
-                    and _image_readable(label_file)
-                ):
-                    samples.append(Sample(img1_file, img2_file, label_file,
-                                          f"{city}_synth"))
-                else:
-                    skipped += 1
+                candidates.append(Sample(img1_file, img2_file, label_file,
+                                         f"{city}_synth"))
             continue
         img1_file = os.path.join(city_folder, "pair", "img1.png")
         img2_file = os.path.join(city_folder, "pair", "img2.png")
@@ -105,14 +102,21 @@ def scan_dataset(
         if label_dir and not os.path.exists(label_file):
             skipped += 1
             continue
-        if (
-            _image_readable(img1_file)
-            and _image_readable(img2_file)
-            and _image_readable(label_file)
-        ):
-            samples.append(Sample(img1_file, img2_file, label_file, city))
-        else:
-            skipped += 1
+        candidates.append(Sample(img1_file, img2_file, label_file, city))
+
+    def readable(s: Sample) -> bool:
+        return (_image_readable(s.img1) and _image_readable(s.img2)
+                and _image_readable(s.label))
+
+    samples: List[Sample] = []
+    if candidates:
+        native_loader.get_lib()  # build once, before the threads
+        with ThreadPoolExecutor(max_workers=min(8, len(candidates))) as ex:
+            for s, ok in zip(candidates, ex.map(readable, candidates)):
+                if ok:
+                    samples.append(s)
+                else:
+                    skipped += 1
     if verbose:
         print(
             f"Scanned {data_dir}. Found {len(samples)} valid samples. "

@@ -13,10 +13,10 @@ Flag names and defaults are the root ``evaluate.py``'s; ``--device``
 gan_aug_pfa_torch.export_model`` in place of a checkpoint; it computes in
 the dtype it was exported with, and single-pair evaluation ignores it, as
 the JAX package's does.  The panels need matplotlib; without it one line
-says they were skipped.  The root CLI's ``--stream`` is not ported yet: it
-is accepted with the value that leaves its path off, and any other value
-exits non-zero with "not ported yet".  ``--no-compile-cache`` is accepted
-so that the JAX package's command lines run unchanged.
+says they were skipped.  ``--stream host|decode`` keeps the corpus off the
+device, one batch there at a time (``data/stream.py``); single-pair
+evaluation ignores it.  ``--no-compile-cache`` is accepted so that the JAX
+package's command lines run unchanged.
 """
 
 from __future__ import annotations
@@ -31,11 +31,6 @@ from .config import (
     parse_target_size,
 )
 from .train.siamese import COMPUTE_DTYPES
-
-# The root evaluate.py's flags whose paths are not ported yet, with the
-# value that leaves them off.
-_NOT_PORTED = {"stream": "hbm"}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Evaluate Change Detection Model")
@@ -95,10 +90,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted for the JAX package's command lines; "
                         "the port has no compilation cache")
-    not_ported = p.add_argument_group(
-        "not ported yet (a value other than the default exits non-zero)")
-    not_ported.add_argument("--stream", type=str, default="hbm",
-                            choices=["hbm", "host", "decode"])
+    p.add_argument("--stream", type=str, default="hbm",
+                   choices=["hbm", "host", "decode"],
+                   help="[extension] corpus placement: 'hbm' puts the "
+                        "whole corpus on the device (default); 'host' "
+                        "keeps it in host memory, copying a batch at a "
+                        "time; 'decode' re-decodes each batch (corpora "
+                        "beyond host memory)")
     return p
 
 
@@ -110,13 +108,10 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
             "--ensemble needs two or more checkpoints; for a single "
             "checkpoint use --checkpoint-path"
         )
-    for name, off in _NOT_PORTED.items():
-        if getattr(args, name) != off:
-            parser.error(f"--{name.replace('_', '-')} is not ported yet")
     target_size = parse_target_size(args.target_size)
     data_cfg = DataConfig(root_dir=args.root_dir,
                           dataset_subdir=args.dataset_subdir,
-                          target_size=target_size)
+                          target_size=target_size, stream=args.stream)
     eval_cfg = EvalConfig(
         batch_size=args.batch_size,
         target_size=target_size,

@@ -14,9 +14,10 @@ device; without a card the run raises unless ``--device cpu`` is given.
 The output is the reference's layout:
 ``<synthetic-data-dir>/images/<city>/img{1,2}_synth_N.png`` and
 ``labels/<city>/cm_synth_N.png``, which ``python -m gan_aug_pfa_torch.train
---use-synthetic`` reads.  ``--no-compile-cache`` is accepted for the JAX
-package's command lines; ``--stream`` other than ``hbm`` exits non-zero
-with "not ported yet".
+--use-synthetic`` reads.  ``--stream host|decode`` keeps the corpus off the
+device, one batch there at a time (``data/stream.py``); the PNGs are
+written from a thread pool either way.  ``--no-compile-cache`` is
+accepted for the JAX package's command lines.
 """
 
 from __future__ import annotations
@@ -32,11 +33,6 @@ from .config import (
     parse_target_size,
 )
 from .train.siamese import COMPUTE_DTYPES
-
-# The root generate_synthetic_data.py's flags whose paths are not ported
-# yet, with the value that leaves them off.
-_NOT_PORTED = {"stream": "hbm"}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Generate synthetic change data")
@@ -76,23 +72,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted for the JAX package's command lines; "
                         "the port has no compilation cache")
-    not_ported = p.add_argument_group(
-        "not ported yet (a value other than the default exits non-zero)")
-    not_ported.add_argument("--stream", type=str, default="hbm")
+    p.add_argument("--stream", type=str, default="hbm",
+                   choices=["hbm", "host", "decode"],
+                   help="[extension] corpus placement: 'hbm' puts the "
+                        "whole corpus on the device (default); 'host' "
+                        "keeps it in host memory, copying a batch at a "
+                        "time; 'decode' re-decodes each batch (corpora "
+                        "beyond host memory)")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for name, off in _NOT_PORTED.items():
-        if getattr(args, name) != off:
-            parser.error(f"--{name.replace('_', '-')} is not ported yet")
     target_size = parse_target_size(args.target_size)
     data_cfg = DataConfig(root_dir=args.root_dir,
                           dataset_subdir=args.dataset_subdir,
                           synthetic_data_dir=args.synthetic_data_dir,
-                          target_size=target_size)
+                          target_size=target_size, stream=args.stream)
     gen_cfg = GenerateConfig(
         batch_size=args.batch_size,
         target_size=target_size,

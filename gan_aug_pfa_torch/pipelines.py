@@ -20,8 +20,14 @@ place of a checkpoint.  Both trainers resume from their own ``.pth``
 resume files or from the JAX package's ``.msgpack`` train states.  Tuning
 is ``tune.py``'s.
 
-Not ported yet: ``--stream``; the GAN's ``--batched-disc``,
-``--concat-free-disc`` and ``--shared-gen-fwd``.
+Under ``--stream host|decode`` (``data_cfg.stream``) training, GAN
+training, synthesis and evaluation take their samples from a
+``data.stream.StreamingSource`` instead of a device cache; validation
+stays resident.  Every cache, source and single pair decodes its PNGs
+through ``data/native_loader.py`` (the C unfilter).
+
+Not ported yet: the GAN's ``--batched-disc``, ``--concat-free-disc`` and
+``--shared-gen-fwd``.
 """
 
 from __future__ import annotations
@@ -53,9 +59,11 @@ from .data.loader import (
     build_padded_native_dataset,
     float_to_uint8,
 )
+from .data.native_loader import decode_gray, decode_rgb
 from .data.pil_resize import resize_bicubic_rgb, resize_nearest
-from .data.png import decode_gray, decode_rgb, write_png
+from .data.png import PngWriterPool
 from .data.scanner import create_sample_lists
+from .data.stream import BatchPut, StreamingSource
 from .data.transforms import normalize
 from .device import resolve_device
 from .metrics import (
@@ -120,6 +128,24 @@ class NativeDeviceCache(DeviceCache):
                    torch.from_numpy(ds.sizes).to(device, torch.int64))
 
 
+def _open_dataset(samples, target_size, data_cfg: DataConfig,
+                  verbose: bool):
+    """The samples' decode-once host cache, or under ``data_cfg.stream``
+    (``host`` or ``decode``) their ``StreamingSource``, which
+    ``_closing`` closes."""
+    if data_cfg.stream == "hbm":
+        return build_cached_dataset(samples, target_size, verbose=verbose)
+    return StreamingSource(samples, target_size, cache=data_cfg.stream,
+                           verbose=verbose)
+
+
+def _closing(ds):
+    """A context that closes ``ds`` if it is a ``StreamingSource``."""
+    if isinstance(ds, StreamingSource):
+        return contextlib.closing(ds)
+    return contextlib.nullcontext(ds)
+
+
 def _setup_observability(trainer, cfg, items_per_step: int, verbose: bool):
     """Attach the step timer (``profile_dir``) and the NaN checks
     (``debug_nans``) to ``trainer``; returns the profiler's context."""
@@ -178,67 +204,81 @@ def run_siamese_training(
     if not val_samples:
         print("Warning: Validation dataset is empty. Check paths and data.")
     native = data_cfg.augment and data_cfg.native_aug
+    stream = data_cfg.stream != "hbm"
+    if native and stream:
+        print(
+            "--stream has no native-resolution variant (dynamic per-sample "
+            "extents need the padded HBM cache); streaming the fixed-size "
+            "chain instead."
+        )
+        native = False
     if native:
         train_ds = build_padded_native_dataset(train_samples, verbose=verbose)
     else:
-        train_ds = build_cached_dataset(train_samples, data_cfg.target_size,
-                                        verbose=verbose)
-    val_ds = build_cached_dataset(val_samples, data_cfg.target_size,
-                                  verbose=verbose)
-    if verbose:
-        print(f"Dataset loaded: {len(train_ds)} train samples, "
-              f"{len(val_ds)} val samples.")
-
-    trainer = SiameseTrainer(
-        train_cfg, dev, augment=data_cfg.augment,
-        native_out_size=data_cfg.target_size if native else None)
-    if initial_state_dict is not None:
-        trainer.model.load_state_dict(initial_state_dict, strict=True)
-    scheduler = make_plateau_scheduler(
-        trainer.optimizer, train_cfg.plateau_factor,
-        train_cfg.plateau_patience)
-    stopper = EarlyStopping(train_cfg.early_stop_patience)
-    start_epoch = 1
-    best_val_loss = float("inf")
-    if resume_path:
-        extra = ckpt.restore_train_state(
-            resume_path, trainer.model, trainer.optimizer, scheduler,
-            stopper)
-        start_epoch = extra["epoch"] + 1
-        best_val_loss = extra["best_val_loss"]
+        train_ds = _open_dataset(train_samples, data_cfg.target_size,
+                                 data_cfg, verbose)
+    with _closing(train_ds):
+        val_ds = build_cached_dataset(val_samples, data_cfg.target_size,
+                                      verbose=verbose)
         if verbose:
-            print(f"Resumed from {resume_path} at epoch {start_epoch}.")
+            print(f"Dataset loaded: {len(train_ds)} train samples, "
+                  f"{len(val_ds)} val samples.")
 
-    dev_train = (NativeDeviceCache if native else DeviceCache).from_dataset(
-        train_ds, dev)
-    dev_val = DeviceCache.from_dataset(val_ds, dev) if len(val_ds) else None
-    # The epoch order's and the augmentation's only sources; a resumed run
-    # starts both afresh, as the JAX package restarts its epoch order and
-    # PRNGKey(seed) (pipelines.py:148, 180).
-    epoch_rng = np.random.RandomState(train_cfg.seed)
-    trainer.generator.manual_seed(train_cfg.seed)
-    history = {"train_loss": [], "val_loss": []}
-    profiler_ctx = _setup_observability(trainer, train_cfg,
-                                        train_cfg.batch_size, verbose)
-    runlog = open_run_log(train_cfg.log_jsonl, append=train_cfg.resume)
-    if runlog:
-        runlog.log(
-            "run_start", kind="siamese_train", start_epoch=start_epoch,
-            n_train=len(train_ds), n_val=len(val_ds),
-            data=dataclasses.asdict(data_cfg),
-            config=dataclasses.asdict(train_cfg),
-        )
-    try:
-        with profiler_ctx, GracefulShutdown() as stop:
-            history["best_val_loss"] = _run_siamese_epochs(
-                trainer, train_cfg, scheduler, stopper, start_epoch,
-                best_val_loss, dev_train, dev_val, epoch_rng,
-                checkpoint_dir, history, verbose, stop, runlog)
+        trainer = SiameseTrainer(
+            train_cfg, dev, augment=data_cfg.augment,
+            native_out_size=data_cfg.target_size if native else None)
+        if initial_state_dict is not None:
+            trainer.model.load_state_dict(initial_state_dict, strict=True)
+        scheduler = make_plateau_scheduler(
+            trainer.optimizer, train_cfg.plateau_factor,
+            train_cfg.plateau_patience)
+        stopper = EarlyStopping(train_cfg.early_stop_patience)
+        start_epoch = 1
+        best_val_loss = float("inf")
+        if resume_path:
+            extra = ckpt.restore_train_state(
+                resume_path, trainer.model, trainer.optimizer, scheduler,
+                stopper)
+            start_epoch = extra["epoch"] + 1
+            best_val_loss = extra["best_val_loss"]
+            if verbose:
+                print(f"Resumed from {resume_path} at epoch {start_epoch}.")
+
+        # Streamed, the train split stays in its source; validation is
+        # always resident (JAX pipelines.py:178).
+        dev_train = (train_ds if stream else (
+            NativeDeviceCache if native else DeviceCache).from_dataset(
+                train_ds, dev))
+        dev_val = (DeviceCache.from_dataset(val_ds, dev) if len(val_ds)
+                   else None)
+        # The epoch order's and the augmentation's only sources; a resumed
+        # run starts both afresh, as the JAX package restarts its epoch
+        # order and PRNGKey(seed) (pipelines.py:148, 180).
+        epoch_rng = np.random.RandomState(train_cfg.seed)
+        trainer.generator.manual_seed(train_cfg.seed)
+        history = {"train_loss": [], "val_loss": []}
+        profiler_ctx = _setup_observability(trainer, train_cfg,
+                                            train_cfg.batch_size, verbose)
+        runlog = open_run_log(train_cfg.log_jsonl, append=train_cfg.resume)
         if runlog:
-            runlog.log("run_end", best_val_loss=history["best_val_loss"])
-    finally:
-        if runlog:
-            runlog.close()
+            runlog.log(
+                "run_start", kind="siamese_train", start_epoch=start_epoch,
+                n_train=len(train_ds), n_val=len(val_ds),
+                data=dataclasses.asdict(data_cfg),
+                config=dataclasses.asdict(train_cfg),
+            )
+        try:
+            with profiler_ctx, GracefulShutdown() as stop:
+                history["best_val_loss"] = _run_siamese_epochs(
+                    trainer, train_cfg, scheduler, stopper, start_epoch,
+                    best_val_loss, dev_train, dev_val, epoch_rng,
+                    checkpoint_dir, history, verbose, stop, runlog)
+            if runlog:
+                runlog.log("run_end",
+                           best_val_loss=history["best_val_loss"])
+        finally:
+            if runlog:
+                runlog.close()
     _report_observability(trainer, train_cfg, verbose)
     history["trainer"] = trainer
     if verbose:
@@ -251,7 +291,9 @@ def _run_siamese_epochs(trainer, train_cfg, scheduler, stopper, start_epoch,
                         checkpoint_dir, history, verbose, stop=None,
                         runlog=None) -> float:
     """The epoch loop, its writes and its events in the JAX package's
-    order (pipelines.py:221-392).  Returns the best validation loss."""
+    order (pipelines.py:221-392).  ``dev_train`` is the train split's
+    device cache, or its ``StreamingSource`` under ``--stream``.  Returns
+    the best validation loss."""
     def path(stem):
         return os.path.join(checkpoint_dir, ckpt.checkpoint_name(stem))
 
@@ -270,8 +312,12 @@ def _run_siamese_epochs(trainer, train_cfg, scheduler, stopper, start_epoch,
                 print(f"\nEpoch {epoch}/{cfg.num_epochs} - LR: {lr_now:.1e}")
             t0 = time.perf_counter()
             with annotate("train_epoch"):
-                train_loss = trainer.train_epoch(dev_train, epoch_rng,
-                                                 epoch=epoch)
+                if isinstance(dev_train, StreamingSource):
+                    train_loss = trainer.train_epoch_streaming(
+                        dev_train, epoch_rng, epoch=epoch)
+                else:
+                    train_loss = trainer.train_epoch(dev_train, epoch_rng,
+                                                     epoch=epoch)
             with annotate("validate"):
                 val_loss = (trainer.validate(dev_val) if dev_val is not None
                             else 0.0)
@@ -366,7 +412,8 @@ def run_gan_training(
 ) -> Optional[Dict]:
     """Train the Pix2Pix GAN on every city, no split (reference
     train_gan.py:95-155, quirk kept), from a cache at the target size on
-    the device, under the run control of ``gan_cfg``.
+    the device (or, under ``data_cfg.stream``, a ``StreamingSource``),
+    under the run control of ``gan_cfg``.
     ``initial_state_dicts`` = (generator, discriminator) replaces the
     seeded init (a JAX init carried across, say).  Returns the history
     {"loss_d", "loss_g", "trainer"}, or None when there is no sample.
@@ -391,7 +438,17 @@ def run_gan_training(
         print("Error: GAN Training dataset is empty. Check dataset path and "
               "structure.")
         return None
-    ds = build_cached_dataset(samples, gan_cfg.target_size, verbose=verbose)
+    ds = _open_dataset(samples, gan_cfg.target_size, data_cfg, verbose)
+    with _closing(ds):
+        return _train_gan(ds, data_cfg, gan_cfg, dev, checkpoint_dir,
+                          output_dir, resume_paths, initial_state_dicts,
+                          verbose)
+
+
+def _train_gan(ds, data_cfg, gan_cfg, dev, checkpoint_dir, output_dir,
+               resume_paths, initial_state_dicts, verbose) -> Dict:
+    """``run_gan_training`` from its dataset on: the host cache, or the
+    ``StreamingSource`` under ``--stream``."""
     if verbose:
         print(f"GAN Dataset loaded: {len(ds)} train samples.")
 
@@ -408,7 +465,8 @@ def run_gan_training(
         if verbose:
             print(f"Resumed GAN from epoch {start_epoch}.")
 
-    cache = DeviceCache.from_dataset(ds, dev)
+    stream = isinstance(ds, StreamingSource)
+    cache = None if stream else DeviceCache.from_dataset(ds, dev)
     # The epoch order's only source; a resumed run restarts it, as the JAX
     # package does (pipelines.py:456).
     epoch_rng = np.random.RandomState(gan_cfg.seed)
@@ -442,8 +500,12 @@ def run_gan_training(
         for epoch in range(start_epoch, gan_cfg.num_epochs + 1):
             t0 = time.perf_counter()
             with annotate("train_epoch"):
-                loss_d, loss_g = trainer.train_epoch(cache, epoch_rng,
-                                                     epoch=epoch)
+                if stream:
+                    loss_d, loss_g = trainer.train_epoch_streaming(
+                        ds, epoch_rng, epoch=epoch)
+                else:
+                    loss_d, loss_g = trainer.train_epoch(cache, epoch_rng,
+                                                         epoch=epoch)
             dt = time.perf_counter() - t0
             history["loss_d"].append(loss_d)
             history["loss_g"].append(loss_g)
@@ -455,10 +517,16 @@ def run_gan_training(
             last = epoch == gan_cfg.num_epochs
             if epoch % gan_cfg.sample_every == 0 or last:
                 i = preview_i
-                fake = trainer.generate(
-                    cache.img1[i:i + 1].permute(0, 2, 3, 1))
-                p = save_gan_sample_strip(ds.img1[i], fake[0].cpu().numpy(),
-                                          ds.img2[i], ds.cities[i], epoch,
+                if stream:
+                    h1, h2, _ = ds.batch(np.array([i]))
+                    a = BatchPut(dev, labels=False)((h1, h2, None)).get()[0]
+                    strip1, strip2 = h1[0], h2[0]
+                else:
+                    a = cache.img1[i:i + 1]
+                    strip1, strip2 = ds.img1[i], ds.img2[i]
+                fake = trainer.generate(a.permute(0, 2, 3, 1))
+                p = save_gan_sample_strip(strip1, fake[0].cpu().numpy(),
+                                          strip2, ds.cities[i], epoch,
                                           output_dir)
                 if verbose:
                     print(f"Saved sample image to {p}")
@@ -529,9 +597,12 @@ def run_generate_synthetic(
     generator's eval-mode output) and ``labels/<city>/cm_synth_N.png``
     (the real label x255).  With ``gen_cfg.serving_artifact`` an exported
     generator (its [0, 1] -> [0, 1] function, in its exported dtype) takes
-    the checkpoint's place (JAX pipelines.py:645-666).  Returns the number
-    of samples written, 0 when there is no sample, no checkpoint or no
-    artifact."""
+    the checkpoint's place (JAX pipelines.py:645-666).  Under
+    ``data_cfg.stream`` the samples come from a ``StreamingSource`` one
+    batch at a time.  The PNGs are encoded and written on a pool of
+    threads (``data.png.PngWriterPool``), with the serial writer's bytes.
+    Returns the number of samples written, 0 when there is no sample, no
+    checkpoint or no artifact."""
     dev = resolve_device(device)
     samples = create_sample_lists(
         data_cfg.root_dir, data_cfg.dataset_subdir, data_cfg.synthetic_data_dir,
@@ -541,61 +612,94 @@ def run_generate_synthetic(
         print("Error: Original training dataset is empty. Cannot generate "
               "synthetic data.")
         return 0
-    ds = build_cached_dataset(samples, gen_cfg.target_size, verbose=verbose)
+    ds = _open_dataset(samples, gen_cfg.target_size, data_cfg, verbose)
+    with _closing(ds):
+        return _generate(ds, data_cfg, gen_cfg, dev, verbose)
+
+
+def _generator_fn(data_cfg: DataConfig, gen_cfg: GenerateConfig, dev,
+                  verbose: bool):
+    """The [0, 1] NHWC -> [0, 1] NHWC generator of a synthesis run: the
+    serving artifact's function or the checkpoint's model; None, after
+    printing why, when the file is missing."""
     if gen_cfg.serving_artifact:
         artifact = gen_cfg.serving_artifact
         if verbose:
             print(f"Loading serving artifact: {artifact}")
         if not os.path.exists(artifact):
             print(f"Error: Serving artifact not found at {artifact}")
-            return 0
-        _, generate_fn = serve.load_serving_fn(
-            artifact, aot=gen_cfg.serving_aot, device=dev)
-    else:
-        gen_path = os.path.join(data_cfg.root_dir, gen_cfg.gan_checkpoint_dir,
-                                gen_cfg.generator_checkpoint_name)
-        if verbose:
-            print(f"Loading GAN generator from: {gen_path}")
-        if not os.path.exists(gen_path):
-            print(f"Error: Generator checkpoint not found at {gen_path}")
-            return 0
-        nc = gen_cfg.n_channels
-        generator = UNetGenerator(nc, nc, num_downs=gen_cfg.num_downs,
-                                  ngf=gen_cfg.ngf)
-        ckpt.restore_model_only(gen_path, generator)
-        generator.to(dev)
-        generate_fn = functools.partial(generate, generator,
-                                        compute_dtype=gen_cfg.compute_dtype)
+            return None
+        return serve.load_serving_fn(artifact, aot=gen_cfg.serving_aot,
+                                     device=dev)[1]
+    gen_path = os.path.join(data_cfg.root_dir, gen_cfg.gan_checkpoint_dir,
+                            gen_cfg.generator_checkpoint_name)
+    if verbose:
+        print(f"Loading GAN generator from: {gen_path}")
+    if not os.path.exists(gen_path):
+        print(f"Error: Generator checkpoint not found at {gen_path}")
+        return None
+    nc = gen_cfg.n_channels
+    generator = UNetGenerator(nc, nc, num_downs=gen_cfg.num_downs,
+                              ngf=gen_cfg.ngf)
+    ckpt.restore_model_only(gen_path, generator)
+    generator.to(dev)
+    return functools.partial(generate, generator,
+                             compute_dtype=gen_cfg.compute_dtype)
 
+
+def _generate(ds, data_cfg: DataConfig, gen_cfg: GenerateConfig, dev,
+              verbose: bool) -> int:
+    """``run_generate_synthetic`` from its dataset on: the host cache, or
+    the ``StreamingSource`` under ``--stream``."""
+    generate_fn = _generator_fn(data_cfg, gen_cfg, dev, verbose)
+    if generate_fn is None:
+        return 0
     out_base = os.path.join(data_cfg.root_dir, gen_cfg.synthetic_data_dir)
-    # NCHW on the device, as the training caches; the generator takes NHWC
-    # views of it.
-    img1_dev = torch.from_numpy(ds.img1).to(dev).permute(0, 3, 1, 2)
-    img1_dev = img1_dev.contiguous().permute(0, 2, 3, 1)
+    stream = isinstance(ds, StreamingSource)
+    if not stream:
+        # NCHW on the device, as the training caches; the generator takes
+        # NHWC views of it.
+        img1_dev = torch.from_numpy(ds.img1).to(dev).permute(0, 3, 1, 2)
+        img1_dev = img1_dev.contiguous().permute(0, 2, 3, 1)
+    put = BatchPut(dev)
     bs = gen_cfg.batch_size
     count = 0
-    for start in range(0, len(ds), bs):
-        fake = generate_fn(img1_dev[start:start + bs]).cpu().numpy()
-        for j, fake_j in enumerate(fake):
-            i = start + j
-            img_dir = os.path.join(out_base, "images", ds.cities[i])
-            lbl_dir = os.path.join(out_base, "labels", ds.cities[i])
-            os.makedirs(img_dir, exist_ok=True)
-            os.makedirs(lbl_dir, exist_ok=True)
-            # The reference's img1 went through normalize -> denormalize in
-            # float32 before the truncating byte cast; that round trip lands
-            # a hair below integer pixel values, so it is replayed here, in
-            # numpy float32 with separate roundings (JAX :713-726).
-            img1 = ds.img1[i].astype(np.float32)
-            img1 = (img1 * np.float32(2.0) - np.float32(1.0)) * np.float32(
-                0.5) + np.float32(0.5)
-            write_png(os.path.join(img_dir, f"img1_synth_{i}.png"),
-                      float_to_uint8(img1))
-            write_png(os.path.join(img_dir, f"img2_synth_{i}.png"),
-                      float_to_uint8(fake_j))
-            write_png(os.path.join(lbl_dir, f"cm_synth_{i}.png"),
-                      ds.labels[i].astype(np.uint8) * np.uint8(255))
-            count += 1
+    with PngWriterPool() as writer:
+        for start in range(0, len(ds), bs):
+            if stream:
+                # Only this batch is decoded (or gathered) and copied; the
+                # same NCHW layout as the device cache, so the generator
+                # computes the same bits.
+                host1, _, host_lbl = ds.batch(
+                    np.arange(start, min(start + bs, len(ds))))
+                batch = put((host1, None, None)).get()[0].permute(
+                    0, 2, 3, 1)
+            else:
+                batch = img1_dev[start:start + bs]
+                host1 = ds.img1[start:start + bs]
+                host_lbl = ds.labels[start:start + bs]
+            fake = generate_fn(batch).cpu().numpy()
+            for j, fake_j in enumerate(fake):
+                i = start + j
+                img_dir = os.path.join(out_base, "images", ds.cities[i])
+                lbl_dir = os.path.join(out_base, "labels", ds.cities[i])
+                os.makedirs(img_dir, exist_ok=True)
+                os.makedirs(lbl_dir, exist_ok=True)
+                # The reference's img1 went through normalize ->
+                # denormalize in float32 before the truncating byte cast;
+                # that round trip lands a hair below integer pixel values,
+                # so it is replayed here, in numpy float32 with separate
+                # roundings (JAX :713-726).
+                img1 = host1[j].astype(np.float32)
+                img1 = (img1 * np.float32(2.0) - np.float32(1.0)
+                        ) * np.float32(0.5) + np.float32(0.5)
+                writer.write(os.path.join(img_dir, f"img1_synth_{i}.png"),
+                             float_to_uint8(img1))
+                writer.write(os.path.join(img_dir, f"img2_synth_{i}.png"),
+                             float_to_uint8(fake_j))
+                writer.write(os.path.join(lbl_dir, f"cm_synth_{i}.png"),
+                             host_lbl[j].astype(np.uint8) * np.uint8(255))
+                count += 1
     if verbose:
         print(f"\nSynthetic data generation finished. Saved {count} samples "
               f"to {out_base}")
@@ -662,10 +766,28 @@ def artifact_fn(serve_fn):
     return probs
 
 
-def evaluate_cached(probs_fn, cache: DeviceCache,
-                    cities: List[str], eval_cfg: EvalConfig,
-                    keep_probs: int = 0) -> Dict:
-    """Per-sample metrics over contiguous batches of the device cache,
+def _eval_batches(data, bs: int, device):
+    """(start, img1, img2, labels, host) of each contiguous batch of
+    ``data``: NCHW [0, 1] images and float labels on the device, sliced
+    from a ``DeviceCache``, or assembled by a ``StreamingSource`` and
+    copied to ``device`` one batch at a time (JAX pipelines.py:874-881),
+    with its host batch (None for a cache)."""
+    if isinstance(data, StreamingSource):
+        put = BatchPut(device)
+        for start in range(0, len(data), bs):
+            host = data.batch(np.arange(start, min(start + bs, len(data))))
+            yield (start, *put(host).get(), host)
+        return
+    for start in range(0, len(data), bs):
+        yield (start, data.img1[start:start + bs],
+               data.img2[start:start + bs], data.labels[start:start + bs],
+               None)
+
+
+def evaluate_cached(probs_fn, cache, cities: List[str], eval_cfg: EvalConfig,
+                    keep_probs: int = 0, device=None) -> Dict:
+    """Per-sample metrics over contiguous batches of the device cache (or
+    of a ``StreamingSource``, whose batches are copied to ``device``),
     accumulated overall and per city in sample order (pipelines.py:872-916).
 
     ``probs_fn(img1, img2)`` maps NHWC [0, 1] batches to (B, H, W)
@@ -683,7 +805,9 @@ def evaluate_cached(probs_fn, cache: DeviceCache,
 
     Returns the sums, the per-city sample counts, each sample's (tp, fp,
     fn, tn) as an (N, 4) array; the sweep's float64 F1 and IoU sums (T,)
-    and its counts (T, N, 4), or None; and the kept maps."""
+    and its counts (T, N, 4), or None; the kept maps; and, from a
+    source, the kept samples' host (img1, img2, label) arrays for the
+    panels."""
     bs = eval_cfg.batch_size
     grid = sweep_thresholds() if eval_cfg.threshold_sweep else None
     thresholds = [eval_cfg.threshold] + ([] if grid is None else list(grid))
@@ -692,20 +816,18 @@ def evaluate_cached(probs_fn, cache: DeviceCache,
     total = {k: 0.0 for k in METRIC_KEYS}
     per_city: Dict[str, Dict[str, float]] = {}
     per_city_counts: Dict[str, int] = {}
-    counts, sweep_counts, kept = [], [], []
+    counts, sweep_counts, kept, kept_host = [], [], [], []
     sweep_f1 = sweep_iou = None
     if grid is not None:
         sweep_f1 = np.zeros(len(grid))
         sweep_iou = np.zeros(len(grid))
-    for start in range(0, len(cache), bs):
-        stop = min(start + bs, len(cache))
-        probs = probs_fn(cache.img1[start:stop].permute(0, 2, 3, 1),
-                         cache.img2[start:stop].permute(0, 2, 3, 1))
+    for start, img1, img2, labels, rows in _eval_batches(cache, bs, device):
+        stop = start + img1.shape[0]
+        probs = probs_fn(img1.permute(0, 2, 3, 1), img2.permute(0, 2, 3, 1))
         if eval_cfg.post_process:
             probs = postprocess_prediction(
                 probs, kernel_size=eval_cfg.post_process_kernel)
-        c = confusion_counts_sweep(probs, cache.labels[start:stop],
-                                   thresholds)
+        c = confusion_counts_sweep(probs, labels, thresholds)
         m = metrics_from_counts(c[..., 0], c[..., 1], c[..., 2], c[..., 3])
         # One device->host copy per batch: (T+1, B, metrics + counts).
         host = torch.cat(
@@ -719,6 +841,9 @@ def evaluate_cached(probs_fn, cache: DeviceCache,
                 axis=1)
         if start < keep_probs:
             kept.extend(probs[:keep_probs - start].cpu().numpy())
+            if rows is not None:
+                kept_host.extend(zip(*(a[:keep_probs - start]
+                                       for a in rows)))
         for k_in_batch, sample_i in enumerate(range(start, stop)):
             city = cities[sample_i]
             if city not in per_city:
@@ -738,6 +863,7 @@ def evaluate_cached(probs_fn, cache: DeviceCache,
         "sweep_counts": (np.concatenate(sweep_counts, axis=1)
                          if sweep_counts else None),
         "probs": kept,
+        "host": kept_host,
     }
 
 
@@ -770,7 +896,9 @@ def run_evaluation(
     macro means, per-city sample counts, ``sweep`` (None without the
     sweep), each sample's confusion counts and the sweep's (T, N, 4)
     counts; None when no samples, no checkpoint or no artifact are found,
-    or an artifact is given with an ensemble."""
+    or an artifact is given with an ensemble.  Under ``data_cfg.stream``
+    the samples come from a ``StreamingSource``, one batch on the device at
+    a time."""
     dev = resolve_device(device)
     output_dir = os.path.join(data_cfg.root_dir, eval_cfg.output_dir)
     os.makedirs(output_dir, exist_ok=True)
@@ -785,8 +913,15 @@ def run_evaluation(
         print("Error: No validation samples found. Check dataset paths and "
               "structure.")
         return None
-    ds = build_cached_dataset(samples, eval_cfg.target_size, verbose=verbose)
+    ds = _open_dataset(samples, eval_cfg.target_size, data_cfg, verbose)
+    with _closing(ds):
+        return _evaluate(ds, data_cfg, eval_cfg, output_dir, dev, verbose)
 
+
+def _evaluate(ds, data_cfg: DataConfig, eval_cfg: EvalConfig,
+              output_dir: str, dev, verbose: bool) -> Optional[Dict]:
+    """``run_evaluation`` from its dataset on: the host cache, or the
+    ``StreamingSource`` under ``--stream``."""
     if eval_cfg.serving_artifact:
         artifact = eval_cfg.serving_artifact
         if eval_cfg.ensemble_paths:
@@ -817,11 +952,19 @@ def run_evaluation(
 
     n_panels = min(max(eval_cfg.num_visualizations, 0), len(ds))
     keep = n_panels if have_matplotlib() else 0
-    acc = evaluate_cached(probs_fn, DeviceCache.from_dataset(ds, dev),
-                          ds.cities, eval_cfg, keep_probs=keep)
-    draw_panels([(ds.img1[i], ds.img2[i], ds.labels[i],
-                  acc["probs"][i] if keep else None, ds.cities[i], i)
-                 for i in range(n_panels)], output_dir)
+    stream = isinstance(ds, StreamingSource)
+    acc = evaluate_cached(
+        probs_fn, ds if stream else DeviceCache.from_dataset(ds, dev),
+        ds.cities, eval_cfg, keep_probs=keep, device=dev)
+    if stream:
+        # The panels come from the host batches (JAX pipelines.py:918-924);
+        # without matplotlib only their number is needed.
+        rows = acc["host"] or [(None, None, None)] * n_panels
+    else:
+        rows = [(ds.img1[i], ds.img2[i], ds.labels[i])
+                for i in range(n_panels)]
+    draw_panels([(*rows[i], acc["probs"][i] if keep else None,
+                  ds.cities[i], i) for i in range(n_panels)], output_dir)
     total, per_city = acc["total"], acc["per_city"]
     per_city_counts = acc["per_city_counts"]
     n = sum(per_city_counts.values())

@@ -15,9 +15,12 @@ and augmentation the photometric kernels.  Run control: ``--log-jsonl``,
 there, or from the JAX package's ``last_state.msgpack``.  ``--tune
 [--n-trials N] [--parallel-trials N]`` runs the hyperparameter study
 instead (``tune.run_tuning``; the study file ``optuna_study.db`` lands in
-the working directory).  Flags of paths not ported yet (``--stream`` and the
-others below), and ``--resume`` from a JAX train state in an optax layout
-not ported yet, exit 2 with "not ported yet".
+the working directory).  ``--stream host|decode`` keeps the train split
+off the device (``data/stream.py``; validation stays resident; with
+``--augment`` it streams the fixed-size chain, and tuning ignores it with
+the JAX package's note).  Flags of paths not ported yet (below), and
+``--resume`` from a JAX train state in an optax layout not ported yet,
+exit 2 with "not ported yet".
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from .siamese import COMPUTE_DTYPES
 # The root train.py's flags whose paths are not ported yet, with the value
 # that leaves them off.
 _NOT_PORTED = {
-    "stream": "hbm", "batched_encoder": False, "concat_free": False,
+    "batched_encoder": False, "concat_free": False,
     "momentum_dtype": None, "flat_opt_state": False, "remat": False,
     "grad_accum": 1,
 }
@@ -138,12 +141,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "(run_start/epoch/checkpoint/preemption/run_end) "
                         "as one JSON object per line to this file; "
                         "--resume appends to the same file")
+    p.add_argument("--stream", type=str, default="hbm",
+                   choices=["hbm", "host", "decode"],
+                   help="[extension] train-data placement: 'hbm' keeps the "
+                        "decoded corpus device-resident (default, fastest "
+                        "for small corpora); 'host' keeps it in host memory "
+                        "and copies batches to the device per step, "
+                        "prefetched (corpora larger than the card); "
+                        "'decode' re-decodes batches on demand (larger than "
+                        "host memory)")
     not_ported = p.add_argument_group(
         "not ported yet (using one exits non-zero)")
     for flag in ("--batched-encoder", "--concat-free", "--flat-opt-state",
                  "--remat"):
         not_ported.add_argument(flag, action="store_true")
-    not_ported.add_argument("--stream", type=str, default="hbm")
     not_ported.add_argument("--momentum-dtype", type=str, default=None)
     not_ported.add_argument("--grad-accum", type=int, default=1)
     return p
@@ -153,8 +164,6 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
     parser = build_parser()
     args = parser.parse_args(argv)
     for name, off in _NOT_PORTED.items():
-        if name == "stream" and args.tune:
-            continue  # tuning keeps its data on the device (below)
         if getattr(args, name) != off:
             parser.error(f"--{name.replace('_', '-')} is not ported yet")
     try:
@@ -170,6 +179,7 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
         use_synthetic=args.use_synthetic,
         augment=args.augment,
         native_aug=args.native_aug,
+        stream=args.stream,
     )
     if args.tune:
         if args.stream != "hbm":

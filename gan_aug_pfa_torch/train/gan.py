@@ -19,6 +19,8 @@ models cast theirs (pix2pix.py:144, :198).  Batch losses stay on the
 device; an epoch reads their means once.  The pipeline's observability
 hooks, ``step_timer`` and ``nan_checks``, are ``SiameseTrainer``'s; the
 NaN check runs before each of the two optimizer steps.
+``train_epoch_streaming`` runs the same ``train_batch`` on batches from a
+``data.stream.StreamingSource`` (``--stream host|decode``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import GANTrainConfig
+from ..data.stream import BatchPut, prefetch_batches
 from ..data.transforms import normalize
 from ..device import resolve_device
 from ..losses import gan_bce_loss, l1_loss
@@ -187,20 +190,46 @@ class GANTrainer:
             return 0.0, 0.0
         batches = torch.from_numpy(perm[:n_full].reshape(-1, bs)).to(
             self.device)
-        losses = [torch.stack(self._observed_step(cache, idx, epoch, i))
+        losses = [torch.stack(self._observed(self.train_step, cache, idx,
+                                             epoch=epoch, step=i))
                   for i, idx in enumerate(batches, 1)]
         loss_d, loss_g = torch.stack(losses).mean(dim=0).tolist()
         return loss_d, loss_g
 
-    def _observed_step(self, cache, idx: torch.Tensor, epoch, step: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``train_step``, under the step timer when there is one (up to a
-        device sync)."""
+    def train_epoch_streaming(self, source, epoch_rng: np.random.RandomState,
+                              epoch=None, depth: int = 2
+                              ) -> Tuple[float, float]:
+        """``train_epoch`` fed from a ``data.stream.StreamingSource``: the
+        same order and full batches, ``train_batch`` for each, the means
+        read once.  Batches are assembled and copied to the device (images
+        only: the step reads no label) ``depth`` batches ahead."""
+        bs = self.config.batch_size
+        n = len(source)
+        n_full = n // bs * bs
+        if n_full == 0:
+            return 0.0, 0.0
+        perm = epoch_rng.permutation(n)
+        batches = [perm[s:s + bs] for s in range(0, n_full, bs)]
+        put = BatchPut(self.device, labels=False)
+        losses = []
+        for i, (_, staged) in enumerate(
+                prefetch_batches(source, batches, put, depth=depth), 1):
+            a, b, _ = staged.get()
+            losses.append(torch.stack(self._observed(
+                self.train_batch, a, b, epoch=epoch, step=i)))
+        loss_d, loss_g = torch.stack(losses).mean(dim=0).tolist()
+        return loss_d, loss_g
+
+    def _observed(self, fn, *args, epoch, step: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``fn(*args)`` (``train_step`` or ``train_batch``), under the step
+        timer when there is one (up to a device sync), naming the step in
+        the NaN check's error when that is on."""
         kw = {"where": step_label(epoch, step)} if self.nan_checks else {}
         if self.step_timer is None:
-            return self.train_step(cache, idx, **kw)
+            return fn(*args, **kw)
         with self.step_timer.step():
-            losses = self.train_step(cache, idx, **kw)
+            losses = fn(*args, **kw)
             sync(self.device)
         return losses
 

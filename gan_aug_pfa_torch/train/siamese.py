@@ -21,8 +21,13 @@ Two observability hooks, both off by default, are set by the pipeline
 (``--profile-dir``, ``--debug-nans``): ``step_timer`` (a
 ``utils.profiling.StepTimer``) times each step up to a device sync, and
 ``nan_checks`` checks each step's loss and gradients before the optimizer
-step.  With neither, a step makes no host sync.  The JAX package's
-streaming and mesh paths are not ported.
+step.  With neither, a step makes no host sync.
+
+``train_epoch_streaming`` trains from a ``data.stream.StreamingSource``
+(``--stream host|decode``) with the same batch-level step,
+``train_batch``, as the resident path; there is no native-size variant,
+so an augmented streamed epoch runs the fixed-size chain.  The JAX
+package's mesh path is not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from torch import nn
 
 from ..config import SiameseTrainConfig
+from ..data.stream import BatchPut, prefetch_batches
 from ..data.transforms import (
     augment_batch,
     augment_batch_native,
@@ -143,20 +149,25 @@ class SiameseTrainer:
         """FocalDice of (B, 1, H, W) logits against (B, H, W) labels."""
         return focal_dice_loss_fused(logits, labels, **self.loss_kwargs)
 
-    def _batch(self, cache, idx: torch.Tensor, params=None):
-        """The train step's input: the cache rows ``idx`` (a device index
-        tensor), augmented with ``params`` (drawn from ``generator`` when
-        None) or normalized.  Returns NCHW images in [-1, 1] and labels."""
-        img1 = cache.img1.index_select(0, idx)
-        img2 = cache.img2.index_select(0, idx)
-        labels = cache.labels.index_select(0, idx)
+    def _batch(self, cache, idx: torch.Tensor):
+        """The gather: the cache rows ``idx`` (a device index tensor) as
+        NCHW [0, 1] images, labels and, from a native-size cache, their
+        native sizes (else None)."""
+        sizes = (cache.sizes.index_select(0, idx)
+                 if self.native_out_size is not None else None)
+        return (cache.img1.index_select(0, idx),
+                cache.img2.index_select(0, idx),
+                cache.labels.index_select(0, idx), sizes)
+
+    def _prepare(self, img1, img2, labels, sizes=None, params=None):
+        """The train step's input from a batch: augmented with ``params``
+        (drawn from ``generator`` when None) or normalized.  Returns NCHW
+        images in [-1, 1] and labels."""
         if not self.augment:
             return normalize(img1), normalize(img2), labels
-        if self.native_out_size is not None:
-            sizes = cache.sizes.index_select(0, idx)
-        else:
+        if sizes is None:
             # Filled on the device: no host-to-device copy in a step.
-            sizes = torch.full((idx.shape[0], 2), img1.shape[2],
+            sizes = torch.full((img1.shape[0], 2), img1.shape[2],
                                device=self.device)
             sizes[:, 1] = img1.shape[3]
         if params is None:
@@ -174,11 +185,23 @@ class SiameseTrainer:
     def train_step(self, cache, idx: torch.Tensor, params=None,
                    where: str = "") -> torch.Tensor:
         """One optimization step on the cache rows ``idx`` (a device index
-        tensor), augmented with ``params`` (a ``sample_augment_params``
-        dict; drawn from ``generator`` when None) if the trainer augments.
-        Returns the batch loss as a detached 0-dim device tensor (no host
-        sync unless ``nan_checks``, whose error names ``where``)."""
-        img1, img2, labels = self._batch(cache, idx, params)
+        tensor): the gather, then ``train_batch``."""
+        img1, img2, labels, sizes = self._batch(cache, idx)
+        return self.train_batch(img1, img2, labels, params, where, sizes)
+
+    def train_batch(self, img1: torch.Tensor, img2: torch.Tensor,
+                    labels: torch.Tensor, params=None, where: str = "",
+                    sizes=None) -> torch.Tensor:
+        """One optimization step on a batch of NCHW [0, 1] images and
+        (B, H, W) float labels on the device, the body that the resident
+        and the streamed paths share (the JAX package's
+        ``_train_step_batch``): augmented with ``params`` (a
+        ``sample_augment_params`` dict; drawn from ``generator`` when None)
+        if the trainer augments, at the native ``sizes`` on the native
+        chain, else normalized.  Returns the batch loss as a detached 0-dim
+        device tensor (no host sync unless ``nan_checks``, whose error
+        names ``where``)."""
+        img1, img2, labels = self._prepare(img1, img2, labels, sizes, params)
         self.model.train()
         # At float32 the backward's convolutions run without TF32 too.
         with (tf32_off() if self.config.compute_dtype == "float32"
@@ -204,20 +227,40 @@ class SiameseTrainer:
         bs = self.config.batch_size
         n = len(cache)
         perm = torch.from_numpy(epoch_rng.permutation(n)).to(self.device)
-        losses = [self._observed_step(cache, perm[start:start + bs], epoch,
-                                      i)
+        losses = [self._observed(self.train_step, cache,
+                                 perm[start:start + bs], epoch=epoch, step=i)
                   for i, start in enumerate(range(0, n, bs), 1)]
         return _mean(losses)
 
-    def _observed_step(self, cache, idx: torch.Tensor, epoch,
-                       step: int) -> torch.Tensor:
-        """``train_step``, under the step timer when there is one (up to a
-        device sync, so that the time holds the card's work)."""
+    def train_epoch_streaming(self, source, epoch_rng: np.random.RandomState,
+                              epoch=None, depth: int = 2) -> float:
+        """``train_epoch`` fed from a ``data.stream.StreamingSource``: the
+        same order (one ``epoch_rng.permutation(n)``), the partial final
+        batch kept, the mean of the per-batch losses, and ``train_batch``
+        for each batch.  Host batches are assembled and copied to the
+        device ``depth`` batches ahead (``data.stream.prefetch_batches``),
+        so device memory holds O(depth) batches, not the corpus."""
+        bs = self.config.batch_size
+        n = len(source)
+        perm = epoch_rng.permutation(n)
+        batches = [perm[s:s + bs] for s in range(0, n, bs)]
+        losses = []
+        for i, (_, staged) in enumerate(prefetch_batches(
+                source, batches, BatchPut(self.device), depth=depth), 1):
+            losses.append(self._observed(self.train_batch, *staged.get(),
+                                         epoch=epoch, step=i))
+        return _mean(losses)
+
+    def _observed(self, fn, *args, epoch, step: int) -> torch.Tensor:
+        """``fn(*args)`` (``train_step`` or ``train_batch``), under the step
+        timer when there is one (up to a device sync, so that the time
+        holds the card's work), naming the step in the NaN check's error
+        when that is on."""
         kw = {"where": step_label(epoch, step)} if self.nan_checks else {}
         if self.step_timer is None:
-            return self.train_step(cache, idx, **kw)
+            return fn(*args, **kw)
         with self.step_timer.step():
-            loss = self.train_step(cache, idx, **kw)
+            loss = fn(*args, **kw)
             sync(self.device)
         return loss
 

@@ -13,7 +13,8 @@ it and exits 0, and ``--resume`` continues from there, or from the JAX
 package's ``last_generator.msgpack`` and ``last_discriminator.msgpack``.
 ``--no-data-parallel`` and ``--no-compile-cache`` are accepted so that the
 JAX package's command lines run unchanged (the port trains on one device
-and has no compilation cache).  Flags of paths not ported yet, and
+and has no compilation cache).  ``--stream host|decode`` keeps the corpus
+off the device (``data/stream.py``).  Flags of paths not ported yet, and
 ``--resume`` from a JAX pair in an optax layout not ported yet, exit 2
 with "not ported yet".
 """
@@ -35,7 +36,7 @@ from .train.siamese import COMPUTE_DTYPES
 # The root train_gan.py's flags whose paths are not ported yet, with the
 # value that leaves them off.
 _NOT_PORTED = {
-    "stream": "hbm", "batched_disc": False, "concat_free_disc": False,
+    "batched_disc": False, "concat_free_disc": False,
     "shared_gen_fwd": False, "momentum_dtype": None, "flat_opt_state": False,
 }
 
@@ -100,13 +101,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "(run_start/epoch/checkpoint/sample/preemption/"
                         "run_end) as one JSON object per line to this "
                         "file; --resume appends to the same file")
+    p.add_argument("--stream", type=str, default="hbm",
+                   choices=["hbm", "host", "decode"],
+                   help="[extension] train-data placement: 'hbm' keeps the "
+                        "decoded corpus device-resident (default); 'host' "
+                        "keeps it in host memory, copying batches to the "
+                        "device per step; 'decode' re-decodes batches on "
+                        "demand")
     not_ported = p.add_argument_group(
         "not ported yet (using one exits non-zero)")
     for flag in ("--batched-disc", "--concat-free-disc", "--shared-gen-fwd",
                  "--flat-opt-state"):
         not_ported.add_argument(flag, action="store_true")
     not_ported.add_argument("--momentum-dtype", type=str, default=None)
-    not_ported.add_argument("--stream", type=str, default="hbm")
     return p
 
 
@@ -119,7 +126,7 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
     target_size = parse_target_size(args.target_size)
     data_cfg = DataConfig(root_dir=args.root_dir,
                           dataset_subdir=args.dataset_subdir,
-                          target_size=target_size)
+                          target_size=target_size, stream=args.stream)
     gan_cfg = GANTrainConfig(
         batch_size=args.batch_size,
         num_epochs=args.num_epochs,

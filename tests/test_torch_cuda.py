@@ -733,3 +733,34 @@ def test_jax_written_gan_state_resumes_on_the_card(cuda):
                                           rel=1e-5)
     assert float(loss_g) == pytest.approx(float(expected["loss_g"]),
                                           rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_batch_put_stages_rows_on_a_copy_stream(cuda):
+    """``data.stream.BatchPut`` on the card: pinned host memory, a copy
+    stream of its own, the consumer's stream made to wait: the rows equal
+    the host arrays laid out as the device cache's, also when the consumer
+    is a side stream and the next batches are put before it reads."""
+    from gan_aug_pfa_torch.data.stream import BatchPut
+
+    rng = np.random.RandomState(0)
+    put = BatchPut("cuda")
+    hosts = [(rng.rand(4, 64, 48, 3).astype(np.float32),
+              rng.rand(4, 64, 48, 3).astype(np.float32),
+              (rng.rand(4, 64, 48) > 0.5).astype(np.int32))
+             for _ in range(3)]
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        staged = [put(h) for h in hosts]
+        got = [[t.clone() for t in s.get()] for s in staged]
+    torch.cuda.synchronize()
+    for (img1, img2, labels), (g1, g2, gl) in zip(hosts, got):
+        assert g1.is_contiguous() and gl.dtype == torch.float32
+        assert torch.equal(g1.cpu(), torch.from_numpy(img1).permute(
+            0, 3, 1, 2))
+        assert torch.equal(g2.cpu(), torch.from_numpy(img2).permute(
+            0, 3, 1, 2))
+        assert torch.equal(gl.cpu(), torch.from_numpy(labels).float())
+    pinned = put.pin(hosts[0])
+    assert all(t.is_pinned() for t in pinned.tensors)
+    assert BatchPut("cuda", labels=False)(hosts[0]).get()[2] is None

@@ -174,10 +174,9 @@ def test_default_device_is_cuda_and_never_falls_back(slice_setup):
 
 # The root evaluate.py's flags, by group: (command lines that parse and
 # run, each with the line an empty root prints; command lines that exit
-# 2, each with its message).  Single-pair evaluation, the panels,
-# post-processing, the ensemble, the sweep and serving artifacts are
-# ported; --stream exits 2 "not ported yet" on any value that turns its
-# path on.
+# 2, each with its message).  Every group is ported: single-pair
+# evaluation, the panels, post-processing, the ensemble, the sweep,
+# serving artifacts and --stream.
 NO_SAMPLES = "No validation samples found"
 NOT_PORTED = "not ported yet"
 NOT_PORTED_GROUPS = {
@@ -193,9 +192,10 @@ NOT_PORTED_GROUPS = {
     "ensemble": ([(["--ensemble", "a.pth", "b.pth"], NO_SAMPLES)],
                  [(["--ensemble", "a.pth"], "needs two or more")]),
     "threshold_sweep": ([(["--threshold-sweep"], NO_SAMPLES)], []),
-    "stream": ([(["--stream", "hbm"], NO_SAMPLES)],
-               [(["--stream", "host"], NOT_PORTED),
-                (["--stream", "decode"], NOT_PORTED)]),
+    "stream": ([(["--stream", "hbm"], NO_SAMPLES),
+                (["--stream", "host"], NO_SAMPLES),
+                (["--stream", "decode"], NO_SAMPLES)],
+               [(["--stream", "sometimes"], "invalid choice")]),
     "serving": ([(["--serving-aot", "auto"], NO_SAMPLES),
                  (["--serving-artifact", "m.pt2"], NO_SAMPLES),
                  (["--serving-aot", "never"], NO_SAMPLES)],

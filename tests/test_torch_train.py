@@ -525,7 +525,7 @@ def test_cli_trains_saves_and_resumes(oscd_tree, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--grad-accum", "2"], ["--remat"],
-                                   ["--stream", "host"],
+                                   ["--stream", "host", "--batched-encoder"],
                                    ["--concat-free", "--log-jsonl",
                                     "run.jsonl"]])
 def test_cli_rejects_flags_not_ported(flags, capsys):
