@@ -164,6 +164,33 @@ Phases, each of which fails the run if it fails:
    in both); ``evaluate --stream host`` and ``--stream decode``
    (confusion counts (7, 7) each, JSON equal to the resident report).
 
+17. knobs: over the phase-6 tree at full width, in this process, ``python
+   -m gan_aug_pfa_torch.train`` for 2 epochs with each of
+   ``--batched-encoder``, ``--concat-free``, ``--remat``, ``--grad-accum
+   2``, ``--momentum-dtype bfloat16`` and ``--flat-opt-state``, then all
+   six (at ``--grad-accum 4``) with ``--augment --stream host``, and
+   ``--resume`` for a third epoch from that run's ``last_state.pth``,
+   written with 2 of 4 gradients held (the resume state's Adam count,
+   ``mini_step`` and layout checked), with the FocalDice and photometric
+   (calls, launches) set to 0 just before each run and read just after (a
+   forward a train and a val step, a backward a train step, the flip
+   kernel twice a streamed augmented step); one fp32 train step of each
+   knob (TF32 off), card against CPU, within phase 6's 1e-5; each
+   optimizer knob (and all three), Adam and AdamW, over the full-width
+   discriminator's shapes on seeded gradients, card against CPU (the
+   parameters, moments and accumulator within 1e-6 of each tensor's
+   largest value, the counters and bf16 moments equal); train
+   steps/s of the plain trainer and of each knob at batch 4 and 16, the
+   device memory each held above the model, optimizer and cache, and
+   kernel launches a step of the plain trainer, ``--batched-encoder``,
+   ``--concat-free`` and ``--flat-opt-state``; ``python -m
+   gan_aug_pfa_torch.train_gan`` for one epoch with each of
+   ``--batched-disc``, ``--concat-free-disc``, ``--shared-gen-fwd``,
+   ``--momentum-dtype bfloat16`` and ``--flat-opt-state``, one fp32 D+G
+   step each, card against CPU, within phase 9's 1e-5, and GAN steps/s,
+   launches a step and the device's busy share of each against the
+   plain step.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero.
@@ -173,6 +200,7 @@ import dataclasses
 import functools
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -3525,6 +3553,394 @@ def phase_stream(torch, root, device="cuda"):
             "excess": excess, "build": build.BUILD_DIR}
 
 
+# The JAX package's training knobs (phase 17).  Each Siamese knob's flags,
+# its SiameseTrainConfig fields, and the same for the GAN's.
+SIAMESE_KNOBS = {
+    "batched_encoder": (["--batched-encoder"], dict(batched_encoder=True)),
+    "concat_free": (["--concat-free"], dict(concat_free=True)),
+    "remat": (["--remat"], dict(remat=True)),
+    "grad_accum": (["--grad-accum", "2"], dict(grad_accum=2)),
+    "momentum_bf16": (["--momentum-dtype", "bfloat16"],
+                      dict(opt_momentum_dtype="bfloat16")),
+    "flat_opt_state": (["--flat-opt-state"], dict(opt_flat_state=True)),
+}
+# All six at once, at k 4: two epochs of 3 steps leave 2 of 4 gradients
+# held, so that the resume starts in the middle of an accumulation.
+ALL_KNOB_FLAGS = ["--batched-encoder", "--concat-free", "--remat",
+                  "--grad-accum", "4", "--momentum-dtype", "bfloat16",
+                  "--flat-opt-state"]
+GAN_KNOBS = {
+    "batched_disc": (["--batched-disc"], dict(batched_disc=True)),
+    "concat_free_disc": (["--concat-free-disc"],
+                         dict(concat_free_disc=True)),
+    "shared_gen_fwd": (["--shared-gen-fwd"], dict(shared_gen_fwd=True)),
+    "momentum_bf16": (["--momentum-dtype", "bfloat16"],
+                      dict(opt_momentum_dtype="bfloat16")),
+    "flat_opt_state": (["--flat-opt-state"], dict(opt_flat_state=True)),
+}
+KNOB_REPS = 8  # copies of the 11 train pairs in the timed Siamese epochs
+KNOB_PASSES = 2  # timed epochs a configuration, after one warm-up epoch
+
+
+def knob_cli_training(torch, root, extra, val_steps=1, train_steps=3):
+    """``python -m gan_aug_pfa_torch.train`` for 2 epochs with each knob,
+    then all six with ``--augment --stream host`` and a resumed third
+    epoch, in this process, with the FocalDice and photometric (calls,
+    launches) set to 0 just before each run and read just after: a
+    forward a train and a val step, a backward a train step, the flip
+    kernel twice a streamed augmented step, one launch a call."""
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
+    from gan_aug_pfa_torch.ops.kernels.fused_loss import FocalDiceLossFn
+    from gan_aug_pfa_torch.train import __main__ as train_cli
+
+    def run(name, flags, epochs, augment=False, keep=False):
+        ckpt = os.path.join(root, f"knob_{name}")
+        reset_loss_counts(FocalDiceLossFn)
+        reset_photometric_counts(ph)
+        t0 = time.time()
+        history = train_cli.main(["--root-dir", root, "--checkpoint-dir",
+                                  ckpt, "--num-epochs", str(epochs), *flags,
+                                  *extra])
+        wall = time.time() - t0
+        loss, photo = loss_counts(FocalDiceLossFn), photometric_counts(ph)
+        ran = len(history["train_loss"])
+        steps = train_steps * ran
+        want = {"fwd": (steps + val_steps * ran,) * 2, "bwd": (steps,) * 2}
+        want_photo = {"native": (0, 0),
+                      "flip": (2 * steps,) * 2 if augment else (0, 0)}
+        losses = history["train_loss"] + history["val_loss"]
+        print(f"train {' '.join(flags)}: {ran} epochs, wall {wall:.2f} s, "
+              f"train loss {history['train_loss']}, val loss "
+              f"{history['val_loss']}, fused-loss (calls, launches) {loss}, "
+              f"photometric {photo}")
+        if loss != want or photo != want_photo or not np.isfinite(
+                losses).all():
+            raise AssertionError(f"{name}: counts {loss} {photo}, expected "
+                                 f"{want} {want_photo}; losses {losses}")
+        state = torch.load(os.path.join(ckpt, "last_state.pth"),
+                           map_location="cpu", weights_only=True)
+        if not keep:
+            shutil.rmtree(ckpt)
+        return {"loss": loss, "photometric": photo, "wall": wall,
+                "epochs": ran, "state": state}
+
+    runs = {}
+    for name, (flags, _) in SIAMESE_KNOBS.items():
+        runs[name] = run(name, flags, 2)
+        runs[name].pop("state")
+    flags = ALL_KNOB_FLAGS + ["--augment", "--stream", "host"]
+    runs["all"] = run("all", flags, 2, augment=True, keep=True)
+    runs["resume"] = run("all", flags + ["--resume"], 3, augment=True)
+    for name, epoch, count, mini in (("all", 2, 1, 2), ("resume", 3, 2, 1)):
+        state = runs[name].pop("state")
+        opt = state["optimizer"]
+        got = (state["epoch"], opt["count"], opt["mini_step"], opt["layout"])
+        layout = {"mu_dtype": "bfloat16", "flat": True, "multi_steps": True,
+                  "grad_accum": 4}
+        print(f"{name}: last_state.pth at epoch {got[0]}, Adam count "
+              f"{got[1]}, mini_step {got[2]} of 4, layout {got[3]}")
+        if got != (epoch, count, mini, layout):
+            raise AssertionError(f"{name}: resume state {got}, expected "
+                                 f"{(epoch, count, mini, layout)}")
+    if runs["resume"]["epochs"] != 1:
+        raise AssertionError("the resume ran more than one epoch")
+    return runs
+
+
+def knob_train_card_vs_cpu(torch, ds, devices=("cuda", "cpu")):
+    """For each Siamese knob, one fp32 train step (TF32 off) from one
+    seeded init on the card and on the CPU, the loss within phase 6's
+    1e-5 relative."""
+    from gan_aug_pfa_torch.config import SiameseTrainConfig
+    from gan_aug_pfa_torch.pipelines import DeviceCache
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+
+    out = {}
+    for name, (_, knobs) in SIAMESE_KNOBS.items():
+        losses = []
+        for device in devices:
+            trainer = SiameseTrainer(SiameseTrainConfig(
+                compute_dtype="float32", **knobs), device)
+            cache = DeviceCache.from_dataset(ds, device)
+            losses.append(float(trainer.train_step(
+                cache, torch.arange(4, device=device))))
+            del trainer, cache
+        out[name] = abs(losses[0] - losses[1]) / abs(losses[1])
+        print(f"knob {name}: fp32 train step card vs CPU, loss "
+              f"{losses[0]!r} vs {losses[1]!r}, relative difference "
+              f"{out[name]:.3e}")
+        if out[name] > TRAIN_STEP1_RTOL:
+            raise AssertionError(f"{name}: the train step on the card "
+                                 "disagrees with the CPU")
+    return out
+
+
+# The optimizer knobs, as make_optimizer's arguments.
+OPTIMIZER_KNOBS = {
+    "momentum_bf16": dict(mu_dtype="bfloat16"),
+    "flat_opt_state": dict(flat_state=True),
+    "grad_accum": dict(grad_accum=2),
+    "all": dict(mu_dtype="bfloat16", flat_state=True, grad_accum=2),
+}
+OPTIMIZER_RTOL = 1e-6  # after 3 mini-steps, card vs CPU, of each tensor's max
+
+
+def knob_optimizer_card_vs_cpu(torch, devices=("cuda", "cpu"), steps=3):
+    """Each optimizer knob, Adam and AdamW, over the full-width
+    discriminator's parameters on the card and on the CPU from the same
+    seeded values and gradients: the parameters, first moments and
+    accumulator after ``steps`` mini-steps within 1e-6 of each tensor's
+    largest value, the counters equal, and bf16 first moments equal bit
+    for bit (their sums are formed in float64 and rounded once, the same
+    on both)."""
+    from gan_aug_pfa_torch.models import NLayerDiscriminator
+    from gan_aug_pfa_torch.train.optim import make_optimizer
+
+    gen = torch.Generator().manual_seed(SEED)
+    shapes = [p.shape for p in NLayerDiscriminator().parameters()]
+    start = [torch.randn(s, generator=gen) * 0.05 for s in shapes]
+    grads = [[torch.randn(s, generator=gen) * 10.0 ** float(
+        torch.empty(1).uniform_(-4, 0, generator=gen)) for s in shapes]
+        for _ in range(steps)]
+    worst = {}
+    for name, knobs in OPTIMIZER_KNOBS.items():
+        for opt_name in ("adamw", "adam"):
+            runs = []
+            for device in devices:
+                params = [torch.nn.Parameter(p.to(device, copy=True))
+                          for p in start]
+                opt = make_optimizer(opt_name, params, 1e-3, 1e-2, **knobs)
+                for g in grads:
+                    for p, gi in zip(params, g):
+                        p.grad = gi.to(device)
+                    opt.step()
+                sd = opt.state_dict()
+                runs.append(([p.detach().cpu() for p in params],
+                             [t.cpu() for t in sd["exp_avg"]],
+                             [t.cpu() for t in sd["acc"] or []],
+                             (sd["count"], sd["mini_step"])))
+            (pa, ma, aa, ca), (pb, mb, ab, cb) = runs
+            # Each tensor's largest difference over its largest value: a
+            # parameter an update moves through 0 has no relative error of
+            # its own.
+            rel = max(float((a.float() - b.float()).abs().max()
+                            / b.float().abs().max())
+                      for a, b in zip(pa + ma + aa, pb + mb + ab))
+            worst[name, opt_name] = rel
+            bf16 = knobs.get("mu_dtype") == "bfloat16"
+            equal = ca == cb and (not bf16 or all(
+                torch.equal(a, b) for a, b in zip(ma, mb)))
+            print(f"optimizer {opt_name} {name}: {steps} mini-steps card vs "
+                  f"CPU, parameters, first moments and accumulator within "
+                  f"{rel:.3e} relative, counters {ca} and {cb}"
+                  + (", bf16 moments equal" if bf16 and equal else ""))
+            if rel > OPTIMIZER_RTOL or not equal:
+                raise AssertionError(f"{opt_name} {name}: the card's "
+                                     "optimizer disagrees with the CPU's")
+    return worst
+
+
+def timed_epochs(torch, trainer, cache, device, passes=KNOB_PASSES):
+    """One warm-up epoch, then ``passes`` timed ones: the walls (s) and the
+    device memory the timed epochs held at their peak above what was
+    allocated before them (None on the CPU)."""
+    rng = np.random.RandomState(SEED)
+    trainer.train_epoch(cache, rng)
+    sync_device(torch, device)
+    cuda = device == "cuda"
+    if cuda:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        trainer.train_epoch(cache, rng)
+        sync_device(torch, device)
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base if cuda else None
+    return walls, peak
+
+
+def knob_train_throughput(torch, ds, device="cuda", reps=KNOB_REPS):
+    """Train steps/s (bf16, full width) of the plain trainer and of each
+    knob at batch 4 and 16 over ``reps`` copies of the train pairs, in
+    this process; the device memory each timed epoch held above the model,
+    the optimizer and the cache; then kernel launches a step of one plain
+    train epoch for the plain trainer, ``--batched-encoder``,
+    ``--concat-free`` and ``--flat-opt-state`` (profiled last: a profiler
+    session slows a process's later launch-bound steps)."""
+    from gan_aug_pfa_torch.config import SiameseTrainConfig
+    from gan_aug_pfa_torch.pipelines import DeviceCache
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+
+    cache = DeviceCache.from_dataset(ds, device)
+    big = DeviceCache(cache.img1.repeat(reps, 1, 1, 1),
+                      cache.img2.repeat(reps, 1, 1, 1),
+                      cache.labels.repeat(reps, 1, 1))
+    configs = {"plain": {}, **{k: v[1] for k, v in SIAMESE_KNOBS.items()}}
+    profiled = ("plain", "batched_encoder", "concat_free", "flat_opt_state")
+    rates, memory, keep = {}, {}, {}
+    for bs in (4, 16):
+        for name, knobs in configs.items():
+            trainer = SiameseTrainer(SiameseTrainConfig(batch_size=bs,
+                                                        **knobs), device)
+            walls, peak = timed_epochs(torch, trainer, big, device)
+            steps = -(-len(big) // bs)
+            rates[name, bs] = [steps / w for w in walls]
+            memory[name, bs] = peak
+            print(f"train {name} (bf16, 128x128, bs {bs}, {len(big)} "
+                  f"pairs): median {float(np.median(rates[name, bs])):.2f} "
+                  f"steps/s over {len(walls)} epochs "
+                  f"{[round(r, 2) for r in rates[name, bs]]}, device memory "
+                  f"above the model, optimizer and cache "
+                  f"{peak if peak is None else round(peak / 2**20, 1)} MiB")
+            if bs == 4 and name in profiled:
+                keep[name] = trainer
+            del trainer
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    launches = {}
+    if device == "cuda":
+        for name in profiled:
+            rng = np.random.RandomState(SEED)
+            trainer = keep.pop(name)
+            _, kernels = device_breakdown(
+                torch, lambda: trainer.train_epoch(cache, rng),
+                f"one bs-4 train epoch, {name} ({len(cache)} pairs, 3 "
+                f"steps, bf16)", ("focal_dice",), top=3)
+            launches[name] = sum(e.count for e in kernels) / 3
+            print(f"train {name}: {launches[name]:.1f} kernel launches a "
+                  "step")
+    return {"steps_s": rates, "memory": memory, "launches": launches}
+
+
+def knob_gan_cli(torch, root, extra):
+    """``python -m gan_aug_pfa_torch.train_gan`` for one epoch with each GAN
+    knob, in this process: finite losses and the epoch's files."""
+    from gan_aug_pfa_torch import train_gan as gan_cli
+
+    out = {}
+    for name, (flags, _) in GAN_KNOBS.items():
+        ckpt = f"gan_knob_{name}"
+        t0 = time.time()
+        history = gan_cli.main(["--root-dir", root, "--num-epochs", "1",
+                                "--checkpoint-dir", ckpt, "--output-dir",
+                                f"gan_samples_{name}", *flags, *extra])
+        wall = time.time() - t0
+        losses = history["loss_d"] + history["loss_g"]
+        files = sorted(os.listdir(os.path.join(root, ckpt)))
+        print(f"train_gan {' '.join(flags)}: wall {wall:.2f} s, losses "
+              f"{losses}, files {files}")
+        if len(losses) != 2 or not np.isfinite(losses).all() or files != [
+                "discriminator_epoch_1.pth", "generator_epoch_1.pth",
+                "last_discriminator.pth", "last_generator.pth"]:
+            raise AssertionError(f"train_gan {name}: {losses} {files}")
+        shutil.rmtree(os.path.join(root, ckpt))
+        out[name] = {"losses": losses, "wall": wall}
+    return out
+
+
+def knob_gan_card_vs_cpu(torch, ds, devices=("cuda", "cpu"), arch=None):
+    """One fp32 D+G step (TF32 off) from one seeded init on the card and
+    on the CPU for each GAN knob: phase 9's tolerances (1e-5) on both
+    losses.  loss_G reads D's update, the optimizers' knobs included."""
+    from gan_aug_pfa_torch.config import GANTrainConfig
+    from gan_aug_pfa_torch.train.gan import GANTrainer
+
+    out = {}
+    for name, (_, knobs) in GAN_KNOBS.items():
+        losses = []
+        for device in devices:
+            trainer = GANTrainer(GANTrainConfig(compute_dtype="float32",
+                                                **(arch or {}), **knobs),
+                                 device)
+            a, b = (torch.from_numpy(x[:1]).permute(0, 3, 1, 2).contiguous()
+                    .to(device) for x in (ds.img1, ds.img2))
+            losses.append([float(v) for v in trainer.train_batch(a, b)])
+            del trainer
+        rel = [abs(c - p) / abs(p) for c, p in zip(*losses)]
+        out[name] = rel
+        print(f"GAN knob {name}: fp32 D+G step card vs CPU, (loss_D, "
+              f"loss_G) {losses[0]} vs {losses[1]}, relative differences "
+              f"{rel}")
+        if rel[0] > GAN_LOSS_D_RTOL or rel[1] > GAN_LOSS_G_RTOL:
+            raise AssertionError(f"GAN {name}: the card disagrees with the "
+                                 "CPU")
+    return out
+
+
+def knob_gan_throughput(torch, ds, device="cuda", arch=None):
+    """GAN steps/s (bf16, batch 1) of the plain step and each GAN knob over
+    the 14 pairs, in this process; then kernel launches a step and the
+    device's busy share of one profiled epoch each."""
+    from gan_aug_pfa_torch.config import GANTrainConfig
+    from gan_aug_pfa_torch.pipelines import DeviceCache
+    from gan_aug_pfa_torch.train.gan import GANTrainer
+
+    cache = DeviceCache.from_dataset(ds, device)
+    configs = {"plain": {}, **{k: v[1] for k, v in GAN_KNOBS.items()}}
+    trainers, rates = {}, {}
+    for name, knobs in configs.items():
+        trainer = GANTrainer(GANTrainConfig(**(arch or {}), **knobs), device)
+        walls, _ = timed_epochs(torch, trainer, cache, device)
+        rates[name] = [len(cache) / w for w in walls]
+        print(f"GAN {name} (bf16, batch 1, {len(cache)} steps an epoch): "
+              f"median {float(np.median(rates[name])):.2f} steps/s "
+              f"{[round(r, 2) for r in rates[name]]}")
+        trainers[name] = trainer
+    profiles = {}
+    if device == "cuda":
+        for name, trainer in trainers.items():
+            rng = np.random.RandomState(SEED)
+            busy_us, kernels = device_breakdown(
+                torch, lambda: trainer.train_epoch(cache, rng),
+                f"one GAN epoch, {name} ({len(cache)} steps)", (), top=3)
+            profiles[name] = {
+                "launches": sum(e.count for e in kernels) / len(cache),
+                "busy_us": busy_us}
+            print(f"GAN {name}: {profiles[name]['launches']:.1f} kernel "
+                  "launches a step")
+    return {"steps_s": rates, "profiles": profiles}
+
+
+def phase_knobs(torch, root):
+    """Phase 17: the JAX package's training knobs at full width on the
+    phase-6 tree.  Returns the kernels' counts of the CLI runs."""
+    from gan_aug_pfa_torch.data.loader import build_cached_dataset
+    from gan_aug_pfa_torch.data.scanner import create_sample_lists
+
+    t0 = last = time.time()
+
+    def lap(label):
+        nonlocal last
+        now = time.time()
+        print(f"phase 17: {label} {now - last:.1f} s")
+        last = now
+
+    write_oscd_tree(root)
+    runs = knob_cli_training(torch, root, [])
+    lap("train CLI runs")
+    train_ds = build_cached_dataset(create_sample_lists(
+        root, SUBDIR, mode="train", verbose=False), (128, 128),
+        verbose=False)
+    knob_train_card_vs_cpu(torch, train_ds)
+    knob_optimizer_card_vs_cpu(torch)
+    lap("card vs CPU (train steps, optimizers)")
+    throughput = knob_train_throughput(torch, train_ds)
+    torch.cuda.empty_cache()
+    lap("train throughput")
+    gan = knob_gan_cli(torch, root, [])
+    gan_ds = build_cached_dataset(create_sample_lists(
+        root, SUBDIR, mode="all", verbose=False), (256, 256), verbose=False)
+    knob_gan_card_vs_cpu(torch, gan_ds)
+    lap("GAN CLI runs, card vs CPU")
+    gan_rates = knob_gan_throughput(torch, gan_ds)
+    lap("GAN throughput")
+    print(f"phase 17 (knobs) took {time.time() - t0:.1f} s")
+    return {"runs": runs, "throughput": throughput, "gan": gan,
+            "gan_throughput": gan_rates}
+
+
 def main():
     import torch
 
@@ -3617,6 +4033,9 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         stream = phase_stream(torch, root)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        knobs = phase_knobs(torch, root)
 
     # The main numbers are each path's shape: the evaluation's bs 2 for the
     # confusion counts (bs 16 and 16x1024x1024 beside them), the train
@@ -3671,6 +4090,8 @@ def main():
             "tuning": list(tuning["loss"][name]),
             "tuning_max_abs_err": tuning_errs[name == "bwd"],
             "stream": list(stream["loss"][name]),
+            "knobs": {run: list(r["loss"][name])
+                      for run, r in knobs["runs"].items()},
             "shape": list(TRAIN_SHAPE),
             "logits": "bfloat16",
             "plan": t["plan"],
@@ -3709,6 +4130,8 @@ def main():
             "tuning": list(tuning["counts"][kind]),
             **({"tuning_max_abs_err": tuning_errs[2]}
                if kind == "native" else {"stream": list(stream["flip"])}),
+            "knobs": {run: list(knobs["runs"][run]["photometric"][kind])
+                      for run in ("all", "resume")},
             "shape": list(shape),
             "plan": t["plan"],
         })

@@ -25,10 +25,16 @@ optax's Adam moments and count, the injected learning rate, the plateau
 and early-stop state, the epoch and the best validation loss) and
 ``restore_gan_state_from_jax`` reads ``last_generator.msgpack`` and
 ``last_discriminator.msgpack`` (the model, the Adam state, the
-generator's ``ema_params`` and the epoch).  Optax layouts of the JAX
-package's speed knobs (``--flat-opt-state``, ``--momentum-dtype
-bfloat16``, ``--grad-accum`` > 1) raise ``ResumeNotPortedError`` naming
-the layout; a file that is not a train state raises ``ResumeStateError``.
+generator's ``ema_params`` and the epoch), in each optax layout of the
+JAX package's optimizer knobs: ``optax.MultiSteps`` (``--grad-accum`` >
+1: the counters and the accumulator too), flattened
+(``--flat-opt-state``) and bfloat16 first moments (``--momentum-dtype
+bfloat16``).  The port's own resume files hold its optimizer's state in
+whichever layout (``train.optim.OptaxAdam.state_dict``).  A state, the
+JAX package's or the port's, whose layout is not the one the run's flags
+give raises ``ResumeLayoutError`` naming both, as the JAX package fails
+on it (at the restore or the first step); a file that is not a train
+state raises ``ResumeStateError``.
 """
 
 from __future__ import annotations
@@ -43,16 +49,25 @@ import torch
 from torch import nn
 
 from . import interop
-
-
-class ResumeNotPortedError(NotImplementedError):
-    """``--resume`` found a JAX train state whose optimizer layout is not
-    ported yet."""
+from .train import optim
 
 
 class ResumeStateError(ValueError):
     """``--resume`` found a file that is not a train state it can read
     (truncated, or another kind of checkpoint)."""
+
+
+class ResumeLayoutError(ResumeStateError):
+    """``--resume`` found a train state whose optimizer layout is not the
+    one this run's flags give."""
+
+
+def _check_layout(path: str, optimizer: torch.optim.Optimizer,
+                  saved: Mapping[str, Any]) -> None:
+    try:
+        optim.check_layout(optimizer, saved)
+    except optim.LayoutMismatchError as e:
+        raise ResumeLayoutError(f"{path}: {e}") from e
 
 
 def checkpoint_name(base: str) -> str:
@@ -195,6 +210,7 @@ def restore_train_state(path: str, model: nn.Module,
         return restore_train_state_from_jax(path, model, optimizer,
                                             scheduler, stopper)
     state = torch.load(path, map_location="cpu", weights_only=True)
+    _check_layout(path, optimizer, optim.saved_layout(state["optimizer"]))
     model.load_state_dict(state["model"], strict=True)
     optimizer.load_state_dict(state["optimizer"])
     scheduler.load_state_dict(state["scheduler"])
@@ -226,6 +242,7 @@ def restore_gan_state(path: str, model: nn.Module,
     if path.endswith(".msgpack"):
         return restore_gan_state_from_jax(path, model, optimizer, ema)
     state = torch.load(path, map_location="cpu", weights_only=True)
+    _check_layout(path, optimizer, optim.saved_layout(state["optimizer"]))
     model.load_state_dict(state["model"], strict=True)
     optimizer.load_state_dict(state["optimizer"])
     if ema is not None:
@@ -265,41 +282,44 @@ def _has_bfloat16(tree) -> bool:
     return isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16
 
 
+def _optimizer_name(optimizer: torch.optim.Optimizer) -> str:
+    if isinstance(optimizer, optim.OptaxAdam):
+        return "adamw" if optimizer.decoupled else "adam"
+    return "adamw" if isinstance(optimizer, torch.optim.AdamW) else "adam"
+
+
 def _adam_state(path: str, opt_state: Mapping[str, Any],
                 optimizer: torch.optim.Optimizer):
-    """(ScaleByAdamState, injected hyperparams) of a JAX optimizer state
-    for ``optimizer``.  Raises ``ResumeNotPortedError`` on the layouts of
-    the JAX speed knobs, ``ResumeStateError`` on another optimizer's."""
-    if "inner_opt_state" in opt_state:
-        raise ResumeNotPortedError(
-            f"{path}: the optimizer state is optax.MultiSteps "
-            "(--grad-accum > 1): resuming from it is not ported yet")
-    name = "adamw" if isinstance(optimizer, torch.optim.AdamW) else "adam"
-    inner = opt_state.get("inner_state", {})
-    adam = inner.get(_ADAM_INDEX[name]) if isinstance(inner, dict) else None
+    """(ScaleByAdamState, injected hyperparams, MultiSteps state or None)
+    of a JAX optimizer state for ``optimizer``.  Raises
+    ``ResumeLayoutError`` when its layout is not ``optimizer``'s,
+    ``ResumeStateError`` on another optimizer's state."""
+    multi = opt_state if "inner_opt_state" in opt_state else None
+    inner = multi["inner_opt_state"] if multi else opt_state
+    name = _optimizer_name(optimizer)
+    chain = inner.get("inner_state", {})
+    adam = chain.get(_ADAM_INDEX[name]) if isinstance(chain, dict) else None
     if not isinstance(adam, dict) or not {"count", "mu", "nu"} <= set(adam):
         raise ResumeStateError(
             f"{path}: no {name} state where the JAX package's {name} keeps "
             f"it (inner_state[{_ADAM_INDEX[name]}])")
-    if not isinstance(adam["mu"], dict):
-        raise ResumeNotPortedError(
-            f"{path}: the optimizer state is flattened (--flat-opt-state, "
-            "optax.flatten): resuming from it is not ported yet")
-    if _has_bfloat16(adam["mu"]):
-        raise ResumeNotPortedError(
-            f"{path}: the first moments are bfloat16 (--momentum-dtype "
-            "bfloat16): resuming from them is not ported yet")
-    return adam, opt_state["hyperparams"]
+    _check_layout(path, optimizer, {
+        "mu_dtype": "bfloat16" if _has_bfloat16(adam["mu"]) else "float32",
+        "flat": not isinstance(adam["mu"], dict),
+        "multi_steps": multi is not None})
+    return adam, inner["hyperparams"], multi
 
 
 def _load_jax_model_and_optimizer(path: str, state: Dict[str, Any],
                                   model: nn.Module,
                                   optimizer: torch.optim.Optimizer) -> None:
-    adam, hyperparams = _adam_state(path, state["opt_state"], optimizer)
+    adam, hyperparams, multi = _adam_state(path, state["opt_state"],
+                                           optimizer)
     model.load_state_dict(interop.state_dict_from_jax(model, state),
                           strict=True)
     optimizer.load_state_dict(interop.optimizer_state_dict_from_jax(
-        model, optimizer, adam, hyperparams, state["batch_stats"]))
+        model, optimizer, adam, hyperparams, state["batch_stats"],
+        state["params"], multi))
 
 
 def restore_train_state_from_jax(path: str, model: nn.Module,

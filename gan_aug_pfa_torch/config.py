@@ -1,8 +1,9 @@
 """Configuration (own copy of the JAX package's ``config.py``: the OSCD
 city list and split, directory names, and the fields that evaluation,
 Siamese training, GAN training and synthesis read, with the same
-defaults).  The JAX package's TPU-only knobs (mesh, remat, flat optimizer
-state and so on) are not ported."""
+defaults, the training knobs included).  Fields of the JAX package's
+mesh, compilation cache and Pallas switches have no counterpart: the port
+trains on one device and always runs its kernels."""
 
 from __future__ import annotations
 
@@ -94,6 +95,28 @@ class SiameseTrainConfig:
     # Machine-readable run log: one JSON object per event, appended per
     # line (utils/runlog.py).  --resume appends to the same file.
     log_jsonl: Optional[str] = None
+    # The JAX package's training knobs (its config.py:104-144):
+    # Both images through the shared encoder as one 2B-batch pass; the
+    # train-mode BatchNorm statistics become joint over both images.
+    batched_encoder: bool = False
+    # Decoder skip concatenations kept as tuples of slices, which the
+    # attention gates and the decoder's first convs take by slicing their
+    # weights (models/blocks.sliced_conv2d).  The same function.
+    concat_free: bool = False
+    # Recompute each DoubleConv's activations in the backward
+    # (torch.utils.checkpoint): less activation memory for about a third
+    # more convolution work.  The same function and running statistics.
+    remat: bool = False
+    # Adam's first moment in this dtype ("bfloat16" stores it rounded
+    # after each update; None or "float32": the parameters' dtype).
+    opt_momentum_dtype: Optional[str] = None
+    # The optimizer update over one flat buffer (optax.flatten's layout of
+    # the moments; train/optim.py).  The same arithmetic.
+    opt_flat_state: bool = False
+    # Average the gradients of k mini-steps and apply one optimizer update
+    # (optax.MultiSteps); BatchNorm statistics still update every
+    # mini-step.
+    grad_accum: int = 1
 
 
 @dataclasses.dataclass
@@ -163,6 +186,20 @@ class GANTrainConfig:
     # After every G update: ema <- ema * decay + params * (1 - decay);
     # saved as generator_ema_epoch_N.pth.  None = off.
     ema_decay: Optional[float] = None
+    # The JAX package's GAN knobs (its config.py:183-212):
+    # One discriminator pass over [real | fake] at 2B; D's BatchNorm
+    # statistics then mix real and fake activations.
+    batched_disc: bool = False
+    # The discriminator takes the pair (A, B): its first conv sums two
+    # convolutions with the halves of its weight, no 6-channel concat.
+    concat_free_disc: bool = False
+    # One generator forward a step, shared by the D step (detached) and
+    # the G step; G's second running-statistics update is rebuilt from
+    # the first (train/gan.py).
+    shared_gen_fwd: bool = False
+    # See SiameseTrainConfig.opt_momentum_dtype and opt_flat_state.
+    opt_momentum_dtype: Optional[str] = None
+    opt_flat_state: bool = False
     # See SiameseTrainConfig.async_ckpt, profile_dir, debug_nans and
     # log_jsonl.
     async_ckpt: bool = False

@@ -12,9 +12,11 @@
   * ``load_torch_state_dict``: a ``.pth`` file (a bare reference
     ``state_dict``) as a dict of CPU tensors;
   * ``optimizer_state_dict_from_jax``: optax's Adam state (the
-    ``ScaleByAdamState`` of the JAX package's ``make_optimizer``) and its
-    injected hyperparameters as a ``torch.optim`` ``state_dict`` for a
-    model's optimizer.
+    ``ScaleByAdamState`` of the JAX package's ``make_optimizer``), its
+    injected hyperparameters and, under ``--grad-accum``, the
+    ``optax.MultiSteps`` counters and accumulator, as a ``state_dict`` for
+    a model's optimizer (``torch.optim``'s Adam(W), or
+    ``train.optim.OptaxAdam`` with bfloat16 or flat moments).
 
 Layout: Flax conv kernels are (kh, kw, in, out), torch's are
 (out, in, kh, kw).  A Flax ``ConvTranspose`` kernel is (kh, kw, in, out)
@@ -195,38 +197,64 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
 
 
+def unravel_like(flat, params: Mapping[str, Any]) -> Dict[str, Any]:
+    """A 1-D vector of ``jax.flatten_util.ravel_pytree``'s layout (the
+    moments of ``optax.flatten``) as a tree like ``params``: the leaves
+    in flax's sorted-key order, each row-major in its JAX shape."""
+    off = 0
+
+    def walk(tree):
+        nonlocal off
+        if isinstance(tree, Mapping):
+            return {k: walk(tree[k]) for k in sorted(tree)}
+        shape = np.shape(tree)
+        n = int(np.prod(shape))
+        piece = flat[off:off + n].reshape(shape)
+        off += n
+        return piece
+
+    out = walk(params)
+    if off != len(flat):
+        raise ValueError(f"a flat vector of {len(flat)} for {off} "
+                         "parameters")
+    return out
+
+
 def optimizer_state_dict_from_jax(model: nn.Module,
                                   optimizer: torch.optim.Optimizer,
                                   adam_state: Mapping[str, Any],
                                   hyperparams: Mapping[str, Any],
-                                  batch_stats: Dict[str, Any]
+                                  batch_stats: Dict[str, Any],
+                                  params: Mapping[str, Any],
+                                  multi_steps: Mapping[str, Any] = None
                                   ) -> Dict[str, Any]:
-    """A ``state_dict`` for ``optimizer`` (an Adam or AdamW over
-    ``model``'s parameters) from optax's Adam state {"count", "mu", "nu"}
-    and the ``inject_hyperparams`` dict beside it.
+    """A ``state_dict`` for ``optimizer`` (over ``model``'s parameters)
+    from optax's Adam state {"count", "mu", "nu"}, the
+    ``inject_hyperparams`` dict beside it and, for an ``optax.MultiSteps``
+    state, its {"mini_step", "gradient_step", "acc_grads"}.  ``params`` is
+    the JAX parameter tree: it gives flattened moments their split.
 
-    ``mu`` and ``nu`` have the params tree's structure, so each goes
-    through the model's weight converter (``state_dict_from_jax``, with
-    the checkpoint's ``batch_stats`` to complete the tree): the HWIO to
-    OIHW transposes and the conv-transpose flip apply to the moments as to
-    the weights.  torch keys its state by the index of a parameter in
-    ``param_groups``; each index is matched to its parameter's name.
-    ``count`` becomes every parameter's ``step``; the learning rate, the
-    weight decay and, where they were injected (adamw), the betas and eps
-    become each group's."""
-    moments = {key: state_dict_from_jax(
-        model, {"params": adam_state[key], "batch_stats": batch_stats})
-        for key in ("mu", "nu")}
+    ``mu``, ``nu`` and ``acc_grads`` have the params tree's structure (a
+    flattened moment is split back into it), so each goes through the
+    model's weight converter (``state_dict_from_jax``, with the
+    checkpoint's ``batch_stats`` to complete the tree): the HWIO to OIHW
+    transposes and the conv-transpose flip apply to them as to the
+    weights; bfloat16 moments come back bfloat16, exactly.  Each
+    parameter's tensors are matched to it by name.  ``count`` becomes
+    every parameter's ``step`` (torch.optim) or the ``count``; the
+    learning rate, the weight decay and, where they were injected
+    (adamw), the betas and eps become the group's."""
+    def by_name(tree):
+        if not isinstance(tree, Mapping):
+            tree = unravel_like(tree, params)
+        return state_dict_from_jax(
+            model, {"params": tree, "batch_stats": batch_stats})
+
+    moments = {key: by_name(adam_state[key]) for key in ("mu", "nu")}
     names = {id(p): name for name, p in model.named_parameters()}
-    step = float(_np(adam_state["count"]))
+    ps = [p for group in optimizer.param_groups for p in group["params"]]
+    count = int(_np(adam_state["count"]))
     out = optimizer.state_dict()
-    state: Dict[int, Dict[str, torch.Tensor]] = {}
-    params = [p for group in optimizer.param_groups for p in group["params"]]
-    for index, p in enumerate(params):
-        name = names[id(p)]
-        state[index] = {"step": torch.tensor(step),
-                        "exp_avg": moments["mu"][name],
-                        "exp_avg_sq": moments["nu"][name]}
     hp = {k: float(_np(v)) for k, v in hyperparams.items()}
     for group in out["param_groups"]:
         group["lr"] = hp["learning_rate"]
@@ -234,5 +262,25 @@ def optimizer_state_dict_from_jax(model: nn.Module,
         if "b1" in hp:
             group["betas"] = (hp["b1"], hp["b2"])
             group["eps"] = hp["eps"]
-    out["state"] = state
+    if "layout" not in out:  # torch.optim's Adam(W)
+        out["state"] = {i: {"step": torch.tensor(float(count)),
+                            "exp_avg": moments["mu"][names[id(p)]],
+                            "exp_avg_sq": moments["nu"][names[id(p)]]}
+                        for i, p in enumerate(ps)}
+        return out
+
+    def tensors(per_name, dtype=None):
+        per = [per_name[names[id(p)]].to(dtype or p.dtype) for p in ps]
+        if out["layout"]["flat"]:
+            return [torch.cat([t.reshape(-1) for t in per])]
+        return per
+
+    mu_dtype = (torch.bfloat16 if out["layout"]["mu_dtype"] == "bfloat16"
+                else None)
+    out.update(count=count, exp_avg=tensors(moments["mu"], mu_dtype),
+               exp_avg_sq=tensors(moments["nu"]))
+    if multi_steps is not None:
+        out.update(mini_step=int(_np(multi_steps["mini_step"])),
+                   gradient_step=int(_np(multi_steps["gradient_step"])),
+                   acc=tensors(by_name(multi_steps["acc_grads"])))
     return out

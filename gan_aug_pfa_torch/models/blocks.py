@@ -3,16 +3,74 @@
 Submodule names and order follow the reference ``state_dict`` keys
 (``dconv_down1.0.weight``, ``att3.W_g.0.weight``, ``att3.psi.1.running_var``)
 so that reference ``.pth`` files load with ``strict=True``.
+
+The knobs of the JAX package's ``models/blocks.py``:
+
+  * an input may arrive as a tuple of channel slices (``--concat-free``):
+    the first convolution then runs as ``sliced_conv2d``, the sum of the
+    per-slice convolutions with the matching slices of the unchanged
+    weight, and the channel concatenation is never built;
+  * ``DoubleConv.remat`` (``--remat``) recomputes the block's activations
+    in the backward (``torch.utils.checkpoint``) instead of keeping them.
 """
 
 from __future__ import annotations
 
+from typing import Sequence, Union
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+Slices = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def sliced_conv2d(xs: Slices, conv: nn.Conv2d) -> torch.Tensor:
+    """``conv(cat(xs, dim=1))`` as ``sum_i conv(x_i, W[:, off_i:off_i +
+    c_i])``, the bias added after the sum (the JAX package's
+    ``SlicedConv``, blocks.py:77-133): the same function up to the order
+    of the sums, with ``conv``'s parameters as they are."""
+    if isinstance(xs, torch.Tensor):
+        return conv(xs)
+    out, off = None, 0
+    for x in xs:
+        c = x.shape[1]
+        y = F.conv2d(x, conv.weight[:, off:off + c], None, conv.stride,
+                     conv.padding)
+        out = y if out is None else out + y
+        off += c
+    if off != conv.in_channels:
+        raise ValueError(f"slices hold {off} channels, the conv takes "
+                         f"{conv.in_channels}")
+    if conv.bias is not None:
+        out = out + conv.bias.to(out.dtype).view(1, -1, 1, 1)
+    return out
+
+
+def _stateless_bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """``bn(x)`` in train mode, the module's running statistics untouched:
+    a train-mode pass normalizes with the batch's own statistics, so the
+    output is the module's.  The update goes to scratch buffers (written,
+    never read into the output; no kernel fills them), so that the pass
+    saves the same tensors for the backward as ``bn(x)`` does, as
+    ``torch.utils.checkpoint`` checks."""
+    return F.batch_norm(x, torch.empty_like(bn.running_mean),
+                        torch.empty_like(bn.running_var), bn.weight,
+                        bn.bias, True, bn.momentum, bn.eps)
 
 
 class DoubleConv(nn.Sequential):
-    """(Conv3x3 no-bias -> BN -> ReLU) x2 (reference models.py:7-15)."""
+    """(Conv3x3 no-bias -> BN -> ReLU) x2 (reference models.py:7-15).
+
+    ``x`` may be a tuple of channel slices (``sliced_conv2d``).  With
+    ``remat`` a train-mode forward under autograd keeps only its input:
+    the backward runs the block again.  The running statistics update
+    once, in the first forward; the recomputation normalizes with the
+    batch statistics only (the same output), as JAX's ``nn.remat`` leaves
+    them."""
+
+    remat = False
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(
@@ -24,10 +82,33 @@ class DoubleConv(nn.Sequential):
             nn.ReLU(inplace=True),
         )
 
+    def forward(self, x: Slices) -> torch.Tensor:
+        xs = (x,) if isinstance(x, torch.Tensor) else tuple(x)
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return self._run(xs, update_stats=True)
+        first = [True]
+
+        def run(*xs):
+            update, first[0] = first[0], False
+            return self._run(xs, update_stats=update)
+
+        return checkpoint(run, *xs, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    def _run(self, xs, update_stats: bool) -> torch.Tensor:
+        conv0, bn0, relu0, conv1, bn1, relu1 = self
+        bn = (lambda m, t: m(t)) if update_stats else _stateless_bn
+        x = sliced_conv2d(xs[0] if len(xs) == 1 else xs, conv0)
+        return relu1(bn(bn1, conv1(relu0(bn(bn0, x)))))
+
 
 class AttentionGate(nn.Module):
     """Additive attention gate (reference models.py:18-44):
     psi = sigmoid(BN(Conv1x1(relu(BN(W_g g) + BN(W_x x))))); returns x * psi.
+
+    ``g`` and ``x`` may be tuples of channel slices: W_g and W_x then run
+    as ``sliced_conv2d`` and the gate returns the tuple ``x_i * psi``
+    (JAX blocks.py:136-194).
     """
 
     def __init__(self, f_g: int, f_l: int, f_int: int):
@@ -42,6 +123,10 @@ class AttentionGate(nn.Module):
             nn.Conv2d(f_int, 1, 1, bias=True), nn.BatchNorm2d(1), nn.Sigmoid()
         )
 
-    def forward(self, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        psi = torch.relu(self.W_g(g) + self.W_x(x))
-        return x * self.psi(psi)
+    def forward(self, g: Slices, x: Slices):
+        g1 = self.W_g[1](sliced_conv2d(g, self.W_g[0]))
+        x1 = self.W_x[1](sliced_conv2d(x, self.W_x[0]))
+        psi = self.psi(torch.relu(g1 + x1))
+        if isinstance(x, torch.Tensor):
+            return x * psi
+        return tuple(xi * psi for xi in x)

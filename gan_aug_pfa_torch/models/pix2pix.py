@@ -27,6 +27,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .blocks import Slices, sliced_conv2d
+
 
 class UnetSkipBlock(nn.Module):
     """One recursive skip block (JAX ``UnetSkipBlock``, pix2pix.py:59-105)."""
@@ -91,7 +93,10 @@ class UNetGenerator(nn.Module):
 class NLayerDiscriminator(nn.Module):
     """70x70 PatchGAN (JAX ``NLayerDiscriminator``, pix2pix.py:147-198):
     4x4 convs with strides 2, ..., 2, 1, 1; input cat([A, B]) on channels,
-    A first; 256x256 gives (B, 1, 30, 30) patch logits."""
+    A first; 256x256 gives (B, 1, 30, 30) patch logits.  The input may be
+    the pair (A, B) instead (``--concat-free-disc``): the first conv then
+    sums the two convolutions with the halves of its 6-channel weight
+    (``blocks.sliced_conv2d``), and the concatenation is never built."""
 
     def __init__(self, input_nc: int = 6, ndf: int = 64, n_layers: int = 3):
         super().__init__()
@@ -110,5 +115,7 @@ class NLayerDiscriminator(nn.Module):
                    nn.Conv2d(ndf * nf, 1, 4, stride=1, padding=1)]
         self.model = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x)
+    def forward(self, x: Slices) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return self.model(x)
+        return self.model[1:](sliced_conv2d(tuple(x), self.model[0]))

@@ -23,15 +23,29 @@ from .blocks import AttentionGate, DoubleConv
 
 
 class SiameseUNet(nn.Module):
-    """``batched_encoder=True`` runs both images through the shared encoder
-    as one 2B-batch pass.  In eval mode (running-stat BN) it computes the
-    same function as the two-pass form; in train mode BN statistics would
-    be joint over both images."""
+    """The JAX package's knobs (models/siamese_unet.py:40-145):
+
+    * ``batched_encoder``: both images through the shared encoder as one
+      2B-batch pass.  In eval mode (running-stat BN) it computes the same
+      function as the two-pass form; in train mode the BatchNorm
+      statistics are taken jointly over both images, and the running
+      statistics update once a step, not twice.
+    * ``concat_free``: the decoder's channel concatenations stay tuples of
+      slices, in the order of the concatenation, which the attention
+      gates and each decoder block's first conv take as they are
+      (``blocks.sliced_conv2d``).  The same function.
+    * ``remat``: every DoubleConv recomputes its activations in the
+      backward (``blocks.DoubleConv``).  The same function and running
+      statistics.
+
+    None of them changes the parameters or the ``state_dict``."""
 
     def __init__(self, n_channels: int = 3, n_classes: int = 1,
-                 batched_encoder: bool = False):
+                 batched_encoder: bool = False, concat_free: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.batched_encoder = batched_encoder
+        self.concat_free = concat_free
         self.dconv_down1 = DoubleConv(n_channels, 64)
         self.dconv_down2 = DoubleConv(64, 128)
         self.dconv_down3 = DoubleConv(128, 256)
@@ -50,6 +64,9 @@ class SiameseUNet(nn.Module):
         self.dconv_up1 = DoubleConv(256 + ch_s2, 128)
         self.dconv_last = DoubleConv(128 + ch_s1, 64)
         self.conv_last = nn.Conv2d(64, n_classes, 1)
+        for m in self.modules():
+            if isinstance(m, DoubleConv):
+                m.remat = remat
 
     def encode(self, x: torch.Tensor):
         c1 = self.dconv_down1(x)
@@ -71,6 +88,17 @@ class SiameseUNet(nn.Module):
         else:
             c1a, c2a, c3a, c4a, ba = self.encode(x1)
             c1b, c2b, c3b, c4b, bb = self.encode(x2)
+
+        if self.concat_free:
+            up = (upsample2x_align_corners(ba), upsample2x_align_corners(bb))
+            x = self.dconv_up3(up + self.att3(up, (c4a, c4b)))
+            up = (upsample2x_align_corners(x),)
+            x = self.dconv_up2(up + self.att2(up, (c3a, c3b)))
+            up = (upsample2x_align_corners(x),)
+            x = self.dconv_up1(up + self.att1(up, (c2a, c2b)))
+            up = (upsample2x_align_corners(x),)
+            x = self.dconv_last(up + self.att_last(up, (c1a, c1b)))
+            return self.conv_last(x)
 
         up = upsample2x_align_corners(torch.cat([ba, bb], dim=1))
         s4 = torch.cat([c4a, c4b], dim=1)

@@ -26,8 +26,9 @@ training, synthesis and evaluation take their samples from a
 stays resident.  Every cache, source and single pair decodes its PNGs
 through ``data/native_loader.py`` (the C unfilter).
 
-Not ported yet: the GAN's ``--batched-disc``, ``--concat-free-disc`` and
-``--shared-gen-fwd``.
+Both trainers take the JAX package's training knobs from their configs
+(``SiameseTrainer`` and ``GANTrainer`` build their models, steps and
+optimizers from them), on the resident and the streamed paths alike.
 """
 
 from __future__ import annotations
@@ -182,8 +183,8 @@ def run_siamese_training(
     say).  Returns the history {"train_loss", "val_loss", "best_val_loss",
     "trainer"}, or None when the train split is empty.  ``resume``
     continues from ``last_state.pth``, else from the JAX package's
-    ``last_state.msgpack`` (``checkpoint.ResumeNotPortedError`` on an
-    optax layout not ported yet)."""
+    ``last_state.msgpack`` (``checkpoint.ResumeLayoutError`` when its
+    optimizer layout is not the one ``train_cfg``'s knobs give)."""
     dev = resolve_device(device)
     checkpoint_dir = os.path.join(data_cfg.root_dir, train_cfg.checkpoint_dir)
     os.makedirs(checkpoint_dir, exist_ok=True)
@@ -419,8 +420,8 @@ def run_gan_training(
     {"loss_d", "loss_g", "trainer"}, or None when there is no sample.
     ``resume`` continues when both resume files are there, each a
     ``.pth`` or the JAX package's ``.msgpack``
-    (``checkpoint.ResumeNotPortedError`` on an optax layout not ported
-    yet)."""
+    (``checkpoint.ResumeLayoutError`` when an optimizer layout is not the
+    one ``gan_cfg``'s knobs give)."""
     dev = resolve_device(device)
     checkpoint_dir = os.path.join(data_cfg.root_dir, gan_cfg.checkpoint_dir)
     output_dir = os.path.join(data_cfg.root_dir, gan_cfg.output_dir)

@@ -18,9 +18,11 @@ instead (``tune.run_tuning``; the study file ``optuna_study.db`` lands in
 the working directory).  ``--stream host|decode`` keeps the train split
 off the device (``data/stream.py``; validation stays resident; with
 ``--augment`` it streams the fixed-size chain, and tuning ignores it with
-the JAX package's note).  Flags of paths not ported yet (below), and
-``--resume`` from a JAX train state in an optax layout not ported yet,
-exit 2 with "not ported yet".
+the JAX package's note).  The JAX package's training knobs:
+``--batched-encoder``, ``--concat-free`` and ``--remat`` (the model),
+``--momentum-dtype``, ``--flat-opt-state`` and ``--grad-accum`` (the
+optimizer; ``train/optim.py``).  ``--resume`` from a state whose optimizer
+layout is not the one these flags give exits 2 naming both.
 """
 
 from __future__ import annotations
@@ -35,16 +37,9 @@ from ..config import (
     SiameseTrainConfig,
     parse_target_size,
 )
-from ..checkpoint import ResumeNotPortedError, ResumeStateError
+from ..checkpoint import ResumeStateError
+from .optim import MOMENTUM_DTYPES
 from .siamese import COMPUTE_DTYPES
-
-# The root train.py's flags whose paths are not ported yet, with the value
-# that leaves them off.
-_NOT_PORTED = {
-    "batched_encoder": False, "concat_free": False,
-    "momentum_dtype": None, "flat_opt_state": False, "remat": False,
-    "grad_accum": 1,
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -150,22 +145,42 @@ def build_parser() -> argparse.ArgumentParser:
                         "prefetched (corpora larger than the card); "
                         "'decode' re-decodes batches on demand (larger than "
                         "host memory)")
-    not_ported = p.add_argument_group(
-        "not ported yet (using one exits non-zero)")
-    for flag in ("--batched-encoder", "--concat-free", "--flat-opt-state",
-                 "--remat"):
-        not_ported.add_argument(flag, action="store_true")
-    not_ported.add_argument("--momentum-dtype", type=str, default=None)
-    not_ported.add_argument("--grad-accum", type=int, default=1)
+    p.add_argument("--batched-encoder", action="store_true",
+                   help="[extension] run the shared Siamese encoder as one "
+                        "2B-batch pass (train-mode BN stats become joint "
+                        "over both images)")
+    p.add_argument("--concat-free", action="store_true",
+                   help="[extension] decoder fast path: skip-concats stay "
+                        "as slice tuples consumed by kernel-sliced convs "
+                        "(no concatenates in device memory; numerically "
+                        "equivalent)")
+    p.add_argument("--momentum-dtype", type=str, default=None,
+                   choices=list(MOMENTUM_DTYPES),
+                   help="[extension] dtype for Adam's first-moment state "
+                        "(default: param dtype, torch-exact; bfloat16 "
+                        "halves one optimizer state tensor's memory "
+                        "traffic)")
+    p.add_argument("--flat-opt-state", action="store_true",
+                   help="[extension] run the optimizer update on one "
+                        "concatenated vector (optax.flatten): 2 large "
+                        "moment buffers instead of ~200 small ones; same "
+                        "arithmetic, different opt-state checkpoint layout")
+    p.add_argument("--remat", action="store_true",
+                   help="[extension] rematerialize U-Net block activations "
+                        "in the backward pass (torch.utils.checkpoint): "
+                        "fits larger batches/resolutions in device memory "
+                        "for ~1/3 more conv FLOPs; identical math")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="[extension] average gradients over K steps and "
+                        "apply one optimizer update (emulates "
+                        "batch-size*K beyond device memory; BN stats stay "
+                        "per-mini-batch)")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for name, off in _NOT_PORTED.items():
-        if getattr(args, name) != off:
-            parser.error(f"--{name.replace('_', '-')} is not ported yet")
     try:
         target_size = parse_target_size(args.target_size)
     except ValueError:
@@ -208,13 +223,19 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
         profile_dir=args.profile_dir,
         debug_nans=args.debug_nans,
         log_jsonl=args.log_jsonl,
+        batched_encoder=args.batched_encoder,
+        concat_free=args.concat_free,
+        remat=args.remat,
+        opt_momentum_dtype=args.momentum_dtype,
+        opt_flat_state=args.flat_opt_state,
+        grad_accum=args.grad_accum,
     )
     from .. import pipelines
 
     try:
         return pipelines.run_siamese_training(data_cfg, train_cfg,
                                               device=args.device)
-    except (ResumeNotPortedError, ResumeStateError) as e:
+    except ResumeStateError as e:
         parser.error(str(e))
 
 

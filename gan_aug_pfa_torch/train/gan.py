@@ -21,6 +21,25 @@ hooks, ``step_timer`` and ``nan_checks``, are ``SiameseTrainer``'s; the
 NaN check runs before each of the two optimizer steps.
 ``train_epoch_streaming`` runs the same ``train_batch`` on batches from a
 ``data.stream.StreamingSource`` (``--stream host|decode``).
+
+The JAX package's knobs (its gan.py:118-273), each off by default:
+
+  * ``batched_disc``: the D step runs one D pass over
+    ``(cat([A, A]), cat([B, fake]))``, so D's BatchNorm statistics mix
+    real and fake and its running statistics update once, not twice;
+  * ``concat_free_disc``: D takes the pair (A, x) at all three calls
+    instead of ``torch.cat`` (``models/pix2pix.py``);
+  * ``shared_gen_fwd``: one G forward with autograd on.  The D step takes
+    it detached; the G step backpropagates through the same graph against
+    the D just updated.  The reference's second train-mode G forward
+    would update G's running statistics once more with the same batch
+    moments; with s0 before and s1 after the one forward that update is
+    s2 = (1 + m) s1 - m s0 (m = 1 - momentum, flax's 0.9), which is
+    applied, and ``num_batches_tracked`` advances by 2, as two forwards
+    leave it;
+
+and the optimizers take ``opt_momentum_dtype`` and ``opt_flat_state``
+(``train.optim.OptaxAdam``).
 """
 
 from __future__ import annotations
@@ -66,10 +85,12 @@ class GANTrainer:
         g, d = self.init_models(config.seed)
         self.generator = g.to(self.device)
         self.discriminator = d.to(self.device)
+        knobs = dict(b1=config.beta1, mu_dtype=config.opt_momentum_dtype,
+                     flat_state=config.opt_flat_state)
         self.opt_g = make_optimizer("adam", self.generator.parameters(),
-                                    config.learning_rate_g, b1=config.beta1)
+                                    config.learning_rate_g, **knobs)
         self.opt_d = make_optimizer("adam", self.discriminator.parameters(),
-                                    config.learning_rate_d, b1=config.beta1)
+                                    config.learning_rate_d, **knobs)
         self.ema: Optional[Dict[str, torch.Tensor]] = None
         self.reset_ema()
         # Observability hooks (utils/profiling.py), off by default.
@@ -131,14 +152,32 @@ class GANTrainer:
         def precision():
             return compute_precision(cfg.compute_dtype, self.device.type)
 
+        def disc(a, b):
+            return d((a, b) if cfg.concat_free_disc
+                     else torch.cat([a, b], dim=1))
+
         # At float32 the backward passes run without TF32 too.
         with (tf32_off() if cfg.compute_dtype == "float32"
               else contextlib.nullcontext()):
-            with torch.no_grad(), precision():
-                fake = g(real_a)
+            if cfg.shared_gen_fwd:
+                stats, counters, keep = _bn_stats(g)
+                # Copies of s0 in one multi-tensor launch.
+                before = torch._foreach_mul(stats, 1.0)
+                with precision():
+                    fake_live = g(real_a)
+                fake = fake_live.detach()
+            else:
+                with torch.no_grad(), precision():
+                    fake = g(real_a)
             with precision():
-                pred_real = d(torch.cat([real_a, real_b], dim=1))
-                pred_fake = d(torch.cat([real_a, fake], dim=1))
+                if cfg.batched_disc:
+                    nb = real_a.shape[0]
+                    pred = disc(torch.cat([real_a, real_a]),
+                                torch.cat([real_b, fake]))
+                    pred_real, pred_fake = pred[:nb], pred[nb:]
+                else:
+                    pred_real = disc(real_a, real_b)
+                    pred_fake = disc(real_a, fake)
             loss_d = 0.5 * (gan_bce_loss(pred_real, True)
                             + gan_bce_loss(pred_fake, False))
             self.opt_d.zero_grad(set_to_none=True)
@@ -150,14 +189,16 @@ class GANTrainer:
             d.requires_grad_(False)
             try:
                 with precision():
-                    fake = g(real_a)
-                    pred_fake = d(torch.cat([real_a, fake], dim=1))
+                    fake = fake_live if cfg.shared_gen_fwd else g(real_a)
+                    pred_fake = disc(real_a, fake)
                 loss_g = (gan_bce_loss(pred_fake, True)
                           + l1_loss(fake, real_b) * cfg.lambda_l1)
                 self.opt_g.zero_grad(set_to_none=True)
                 loss_g.backward()
             finally:
                 d.requires_grad_(True)
+        if cfg.shared_gen_fwd:
+            _second_bn_update(stats, counters, keep, before)
         if self.nan_checks:
             step_guard(loss_g, g, f"{where} (G step)")
         self.opt_g.step()
@@ -236,3 +277,25 @@ class GANTrainer:
     def generate(self, img01: torch.Tensor) -> torch.Tensor:
         """``generate`` with this trainer's generator and precision."""
         return generate(self.generator, img01, self.config.compute_dtype)
+
+
+def _bn_stats(model: torch.nn.Module):
+    """The running means and variances of ``model``'s BatchNorms (live
+    tensors), their ``num_batches_tracked`` counters, and m = 1 -
+    momentum, which they share."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    (momentum,) = {m.momentum for m in bns}
+    stats = [t for m in bns for t in (m.running_mean, m.running_var)]
+    return stats, [m.num_batches_tracked for m in bns], 1.0 - momentum
+
+
+@torch.no_grad()
+def _second_bn_update(stats, counters, keep: float, before) -> None:
+    """What a second train-mode forward on the same batch would leave in
+    the running statistics ``stats`` after one did: with s0 ``before``
+    and s1 now, s2 = m s1 + (1 - m) b = (1 + m) s1 - m s0 (m ``keep``; b
+    the batch moment, the same in both forwards), as the JAX package
+    computes it (gan.py:260-270); and one more tracked batch."""
+    torch._foreach_mul_(stats, 1.0 + keep)
+    torch._foreach_add_(stats, before, alpha=-keep)
+    torch._foreach_add_(counters, 1)

@@ -14,8 +14,15 @@ Augmentation draws its parameters on the device from the trainer's
 native-size cache with ``native_out_size``, else on the target-size cache.
 Validation never augments.
 
-Training runs the two-pass encoder (``batched_encoder=False``): each image
-gets its own train-mode BatchNorm statistics, as in the reference.
+The model and the optimizer take the JAX package's knobs from the config
+(its train/siamese.py:88-98): ``batched_encoder``, ``concat_free`` and
+``remat`` shape the model (``models/siamese_unet.py``); the optimizer's
+``opt_momentum_dtype``, ``opt_flat_state`` and ``grad_accum`` pick
+``train.optim.OptaxAdam`` over torch's Adam(W).  Under ``grad_accum`` a
+step still runs one forward and one backward on its batch, and the
+optimizer applies the mean of the last k gradients on every k-th.  By
+default training runs the two-pass encoder: each image gets its own
+train-mode BatchNorm statistics, as in the reference.
 
 Two observability hooks, both off by default, are set by the pipeline
 (``--profile-dir``, ``--debug-nans``): ``step_timer`` (a
@@ -128,7 +135,8 @@ class SiameseTrainer:
         self.model = self.init_model(config.seed).to(self.device)
         self.optimizer = make_optimizer(
             config.optimizer, self.model.parameters(), config.learning_rate,
-            config.weight_decay)
+            config.weight_decay, mu_dtype=config.opt_momentum_dtype,
+            flat_state=config.opt_flat_state, grad_accum=config.grad_accum)
         self.loss_kwargs = dict(
             beta=config.loss_beta, focal_gamma=config.focal_gamma,
             focal_alpha=config.focal_alpha, dice_smooth=config.dice_smooth)
@@ -138,11 +146,14 @@ class SiameseTrainer:
 
     def init_model(self, seed: int) -> SiameseUNet:
         """A freshly initialized SiameseUNet (on the CPU) from ``seed``,
+        with the config's model knobs (which leave the init as it is),
         without touching the global generator's state."""
+        cfg = self.config
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            return SiameseUNet(self.config.n_channels, self.config.n_classes,
-                               batched_encoder=False)
+            return SiameseUNet(cfg.n_channels, cfg.n_classes,
+                               batched_encoder=cfg.batched_encoder,
+                               concat_free=cfg.concat_free, remat=cfg.remat)
 
     def loss(self, logits: torch.Tensor, labels: torch.Tensor
              ) -> torch.Tensor:
@@ -200,7 +211,8 @@ class SiameseTrainer:
         if the trainer augments, at the native ``sizes`` on the native
         chain, else normalized.  Returns the batch loss as a detached 0-dim
         device tensor (no host sync unless ``nan_checks``, whose error
-        names ``where``)."""
+        names ``where``).  Under ``grad_accum`` the optimizer step applies
+        an update only on every k-th call."""
         img1, img2, labels = self._prepare(img1, img2, labels, sizes, params)
         self.model.train()
         # At float32 the backward's convolutions run without TF32 too.

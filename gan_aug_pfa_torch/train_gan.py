@@ -14,9 +14,11 @@ package's ``last_generator.msgpack`` and ``last_discriminator.msgpack``.
 ``--no-data-parallel`` and ``--no-compile-cache`` are accepted so that the
 JAX package's command lines run unchanged (the port trains on one device
 and has no compilation cache).  ``--stream host|decode`` keeps the corpus
-off the device (``data/stream.py``).  Flags of paths not ported yet, and
-``--resume`` from a JAX pair in an optax layout not ported yet, exit 2
-with "not ported yet".
+off the device (``data/stream.py``).  The JAX package's GAN knobs:
+``--batched-disc``, ``--concat-free-disc`` and ``--shared-gen-fwd`` (the
+step; ``train/gan.py``), ``--momentum-dtype`` and ``--flat-opt-state``
+(both optimizers).  ``--resume`` from a pair whose optimizer layout is not
+the one these flags give exits 2 naming both.
 """
 
 from __future__ import annotations
@@ -30,15 +32,9 @@ from .config import (
     GANTrainConfig,
     parse_target_size,
 )
-from .checkpoint import ResumeNotPortedError, ResumeStateError
+from .checkpoint import ResumeStateError
+from .train.optim import MOMENTUM_DTYPES
 from .train.siamese import COMPUTE_DTYPES
-
-# The root train_gan.py's flags whose paths are not ported yet, with the
-# value that leaves them off.
-_NOT_PORTED = {
-    "batched_disc": False, "concat_free_disc": False,
-    "shared_gen_fwd": False, "momentum_dtype": None, "flat_opt_state": False,
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -108,21 +104,31 @@ def build_parser() -> argparse.ArgumentParser:
                         "keeps it in host memory, copying batches to the "
                         "device per step; 'decode' re-decodes batches on "
                         "demand")
-    not_ported = p.add_argument_group(
-        "not ported yet (using one exits non-zero)")
-    for flag in ("--batched-disc", "--concat-free-disc", "--shared-gen-fwd",
-                 "--flat-opt-state"):
-        not_ported.add_argument(flag, action="store_true")
-    not_ported.add_argument("--momentum-dtype", type=str, default=None)
+    p.add_argument("--batched-disc", action="store_true",
+                   help="one 2B discriminator pass over [real|fake] (D's "
+                        "BN batch stats mix real and fake)")
+    p.add_argument("--concat-free-disc", action="store_true",
+                   help="[extension] feed D the (A,B) pair; first conv "
+                        "runs as a split-kernel sum, skipping the "
+                        "6-channel concat (numerically equivalent)")
+    p.add_argument("--shared-gen-fwd", action="store_true",
+                   help="[extension] compute the generator forward once "
+                        "per step instead of the reference's twice; same "
+                        "losses/gradients, BN running stats reconstructed "
+                        "to ~1e-7")
+    p.add_argument("--momentum-dtype", type=str, default=None,
+                   choices=list(MOMENTUM_DTYPES),
+                   help="[extension] dtype for Adam's first-moment state "
+                        "(default: param dtype, torch-exact)")
+    p.add_argument("--flat-opt-state", action="store_true",
+                   help="[extension] optimizer update on one concatenated "
+                        "vector (optax.flatten; see train --help)")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for name, off in _NOT_PORTED.items():
-        if getattr(args, name) != off:
-            parser.error(f"--{name.replace('_', '-')} is not ported yet")
     target_size = parse_target_size(args.target_size)
     data_cfg = DataConfig(root_dir=args.root_dir,
                           dataset_subdir=args.dataset_subdir,
@@ -147,6 +153,11 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
         compute_dtype=args.compute_dtype,
         resume=args.resume,
         ema_decay=args.ema_decay,
+        batched_disc=args.batched_disc,
+        concat_free_disc=args.concat_free_disc,
+        shared_gen_fwd=args.shared_gen_fwd,
+        opt_momentum_dtype=args.momentum_dtype,
+        opt_flat_state=args.flat_opt_state,
         async_ckpt=args.async_ckpt,
         profile_dir=args.profile_dir,
         debug_nans=args.debug_nans,
@@ -157,7 +168,7 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
     try:
         return pipelines.run_gan_training(data_cfg, gan_cfg,
                                           device=args.device)
-    except (ResumeNotPortedError, ResumeStateError) as e:
+    except ResumeStateError as e:
         parser.error(str(e))
 
 

@@ -43,6 +43,7 @@ from gan_aug_pfa_torch.models import (
     SiameseUNet,
     UNetGenerator,
 )
+from gan_aug_pfa_torch.train import optim as topt
 from gan_aug_pfa_torch.utils import msgpack as tm
 from gan_aug_pfa_tpu import checkpoint as jck
 from gan_aug_pfa_tpu import interop as ji
@@ -380,8 +381,10 @@ def test_find_checkpoint_prefers_pth_then_msgpack(tmp_path, jax_files):
     tck.save_model(str(tmp_path / "best_model.pth"), torch.nn.Linear(1, 1))
     assert tck.find_checkpoint(str(tmp_path), "best_model") == str(
         tmp_path / "best_model.pth")
-    # A resume finds the JAX state; an empty map is no train state, and
-    # the bf16 moments of these files are a layout not ported yet.
+    # A resume finds the JAX state; an empty map is no train state.  The
+    # bf16 moments of these files restore into an optimizer with bf16
+    # moments (--momentum-dtype bfloat16); into one without, they raise
+    # naming both layouts (the CLIs exit 2).
     (tmp_path / "only_jax.msgpack").write_bytes(b"\x80")
     path = tck.find_checkpoint(str(tmp_path), "only_jax")
     assert path.endswith(".msgpack")
@@ -390,15 +393,21 @@ def test_find_checkpoint_prefers_pth_then_msgpack(tmp_path, jax_files):
     sched = torch.optim.lr_scheduler.ReduceLROnPlateau(opt)
     with pytest.raises(tck.ResumeStateError, match="not a JAX train state"):
         tck.restore_train_state_from_jax(path, model, opt, sched, None)
-    with pytest.raises(tck.ResumeNotPortedError,
-                       match="--momentum-dtype bfloat16.*not ported yet"):
+    bf16 = "bfloat16 first moments .--momentum-dtype bfloat16."
+    with pytest.raises(tck.ResumeLayoutError,
+                       match=f"state is {bf16}; this run's flags give "
+                             "per-parameter float32 moments"):
         tck.restore_train_state_from_jax(jax_files["last_state"][0], model,
                                          opt, sched, None)
     gen = UNetGenerator(num_downs=ARCH["num_downs"], ngf=ARCH["ngf"])
-    with pytest.raises(tck.ResumeNotPortedError,
-                       match="--momentum-dtype bfloat16.*not ported yet"):
+    with pytest.raises(tck.ResumeLayoutError, match=bf16):
         tck.restore_gan_state_from_jax(jax_files["last_generator"][0], gen,
                                        torch.optim.Adam(gen.parameters()))
+    opt = topt.make_optimizer("adam", gen.parameters(), 1e-3,
+                              mu_dtype="bfloat16")
+    assert tck.restore_gan_state_from_jax(
+        jax_files["last_generator"][0], gen, opt) == 1
+    assert any(float(m.float().abs().max()) > 0 for m in opt.exp_avg)
     assert tck.find_checkpoint(str(tmp_path), "absent") is None
 
 

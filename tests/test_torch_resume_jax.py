@@ -22,8 +22,9 @@ package on the CPU.
     validation loss with the ROADMAP C1 running-variance factor taken out,
     as that file does).  ``train_gan --resume`` from the JAX GAN fixture is
     held against the JAX package in tests/test_torch_gan_runcontrol.py;
-  * states in the optax layouts of the JAX speed knobs exit 2 naming the
-    layout.
+  * states in the optax layouts of the JAX package's optimizer knobs
+    (flattened, bfloat16 first moments, MultiSteps) resume through the CLI
+    with the knob's flag; an adam state under the adamw default exits 2.
 
 The Siamese states are about 494 MB each (41.2M parameters and two
 moments); they live in one temporary directory, removed with the module.
@@ -358,7 +359,12 @@ def test_cli_resume_matches_jax_resuming_the_same_file(siamese_states,
                for s in state["optimizer"]["state"].values())
 
 
-# -- layouts not ported ---------------------------------------------------
+# -- the optax layouts of the JAX package's optimizer knobs ------------------
+
+# The knobs' flags on the port's CLI, by the case's layout name.
+LAYOUT_FLAGS = {"--flat-opt-state": ["--flat-opt-state"],
+                "--momentum-dtype bfloat16": ["--momentum-dtype", "bfloat16"],
+                "--grad-accum > 1": ["--grad-accum", "2"]}
 
 
 @pytest.mark.parametrize("layout,knobs,message", [
@@ -368,22 +374,51 @@ def test_cli_resume_matches_jax_resuming_the_same_file(siamese_states,
     ("adam", dict(), "no adamw state"),
 ])
 def test_cli_resume_unported_layout_exits_2(layout, knobs, message,
-                                            oscd_tree, tmp_path, capsys):
-    """A small state in each layout (the layout check comes before the
-    weights are read): ``train --resume`` exits 2 and names it."""
+                                            siamese_states, oscd_tree,
+                                            tmp_path, capsys):
+    """The layouts of the knobs, once not ported, now resume: a full-width
+    state written after one optax step (MultiSteps: one mini-step of two,
+    the accumulation half full) and ``train --resume`` with the knob's
+    flag continue for one epoch (2 steps), the resume file of that epoch
+    in the knob's layout.  An adam state under the adamw default still
+    exits 2 naming it (a small state: the check comes before the weights
+    are read)."""
     name = "adam" if layout == "adam" else "adamw"
-    params = {"w": np.ones((2, 3), np.float32)}
-    tx = jopt.make_optimizer(name, LR, WD, **knobs)
     ckpt = tmp_path / "ckpt"
-    jck.save_checkpoint(str(ckpt / "last_state.msgpack"), SimpleNamespace(
-        params=params, batch_stats={}, opt_state=tx.init(params), step=0),
-        extra={"epoch": 1})
-    with pytest.raises(SystemExit) as exc:
-        train_cli.main(["--root-dir", str(oscd_tree), "--device", "cpu",
-                        "--resume", "--target-size", "32x32",
-                        "--checkpoint-dir", str(ckpt)])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert message in err
-    if layout != "adam":
-        assert "not ported yet" in err
+    path = str(ckpt / "last_state.msgpack")
+    if layout == "adam":
+        params = {"w": np.ones((2, 3), np.float32)}
+        tx = jopt.make_optimizer(name, LR, WD, **knobs)
+        jck.save_checkpoint(path, SimpleNamespace(
+            params=params, batch_stats={}, opt_state=tx.init(params),
+            step=0), extra={"epoch": 1})
+    else:
+        _write_state(path, jopt.make_optimizer(name, LR, WD, **knobs),
+                     siamese_states["init"], siamese_states["extra"], 12)
+    argv = ["--root-dir", str(oscd_tree), "--device", "cpu", "--resume",
+            "--target-size", "32x32", "--checkpoint-dir", str(ckpt),
+            "--batch-size", str(BS), "--compute-dtype", "float32",
+            "--num-epochs", str(EPOCH + 1), "--save-every", "100"]
+    if layout == "adam":
+        with pytest.raises(SystemExit) as exc:
+            train_cli.main(argv)
+        assert exc.value.code == 2
+        assert message in capsys.readouterr().err
+        return
+    history = train_cli.main(argv + LAYOUT_FLAGS[message])
+    assert "Resumed from" in capsys.readouterr().out
+    assert len(history["train_loss"]) == 1
+    assert np.isfinite(history["train_loss"] + history["val_loss"]).all()
+    os.remove(path)
+    state = torch.load(str(ckpt / "last_state.pth"), weights_only=True)
+    assert state["epoch"] == EPOCH + 1
+    opt = state["optimizer"]
+    assert opt["layout"] == {"mu_dtype": knobs.get("mu_dtype", "float32"),
+                             "flat": layout == "flat",
+                             "multi_steps": layout == "accum",
+                             "grad_accum": knobs.get("grad_accum", 1)}
+    # 1 JAX step, then 2: 3 Adam steps; MultiSteps at k 2 from 1 held
+    # gradient: one update, one gradient held again.
+    assert (opt["count"], opt["mini_step"]) == (
+        (1, 1) if layout == "accum" else (3, 0))
+    shutil.rmtree(ckpt)  # about 0.7 GB of full-width files
