@@ -191,6 +191,29 @@ Phases, each of which fails the run if it fails:
    launches a step and the device's busy share of each against the
    plain step.
 
+18. data parallel (``parallel/mesh.py``), on the one card: (a) one NCCL
+   rank (a group of one in this process) runs a collective, the trainer
+   takes its mesh as none, and a fp32 step on it gives the step without a
+   group's loss bit for bit (its parameters as in (b)); (b) two
+   ranks sharing the card over gloo (child processes with torchrun's
+   variables) run one fp32 step of batch 4, 2 rows a rank: the loss
+   within 1e-5 of one process, the summed gradients no farther from a
+   float64 step's than twice the one-process fp32 step's, the parameters
+   within 2 lr (1e-6 on 98% of them: Adam's first step moves each by lr
+   times its gradient's sign), both ranks equal; (c) two ranks
+   through ``python -m gan_aug_pfa_torch.train`` on the phase-6 tree at
+   the defaults (batch 4, bf16) for 2 epochs, then one ``--augment``
+   epoch, each rank's FocalDice and photometric (calls, launches) set to
+   0 just before and read just after (a forward a train and a val step,
+   a backward a train step, the native kernel twice a step), the epoch
+   losses within 1e-3 of phases 6 and 7, only rank 0 writing checkpoints,
+   which load strictly; (d) ``python -m gan_aug_pfa_torch.train_gan`` at
+   batch 2 (one image a rank) for one epoch.  The loss kernel phase (3)
+   also holds the kernels in a rank's form: a focal mean over n_total =
+   2n and the backward given outside global sums, at the train shape and
+   16M elements.  Two ranks on one card check correctness; they time
+   nothing.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero.
@@ -576,7 +599,8 @@ def loss_inputs(torch, shape, gen, misaligned=False, dtype="float32"):
     return x.view(shape), t.view(b, h, w)
 
 
-def loss_errors(torch, fl, xf, tf, gamma, loss, dx, g, kw=LOSS_KW):
+def loss_errors(torch, fl, xf, tf, gamma, loss, dx, g, kw=LOSS_KW,
+                n_total=None, sums=None):
     """Kernel results against the plain version on the same values, at the
     tolerances of tests/test_pallas.py: the loss within 1e-6 relative, dx
     within 1e-5 of max|dx| (1e-3 from 2^20 elements on, where dx is
@@ -584,17 +608,21 @@ def loss_errors(torch, fl, xf, tf, gamma, loss, dx, g, kw=LOSS_KW):
     each value where dx is bf16 (both sides round their float32 dx to
     nearest even).  Returns |dloss|, max|ddx|, the part of |ddx| above the
     rounding step, the dx tolerance, the plain loss and whether all
-    hold.  ``kw``: beta, focal_alpha and dice_smooth of the loss."""
+    hold.  ``kw``: beta, focal_alpha and dice_smooth of the loss;
+    ``n_total``: the focal mean's divisor (n when None); ``sums``: the
+    global sums the backward was given (the shard's own when None)."""
     beta, alpha, smooth = kw["beta"], kw["focal_alpha"], kw["dice_smooth"]
-    n = xf.numel()
+    n = xf.numel() if n_total is None else n_total
     ref_sums = fl.focal_dice_sums_reference(xf, tf, gamma, alpha)
     ref_loss = float(fl._finalize(ref_sums, n, beta, smooth))
-    want = fl.focal_dice_grad_reference(xf, tf, ref_sums, g, beta, gamma,
-                                        alpha, smooth).float()
+    want = fl.focal_dice_grad_reference(
+        xf, tf, ref_sums if sums is None else sums, g, beta, gamma, alpha,
+        smooth, n).float()
     diff = (dx.float() - want).abs()
     step = 2 ** -7 * want.abs() if xf.dtype == torch.bfloat16 else 0.0
     excess = float((diff - step).max())
-    tol = (1e-3 if n >= 1 << 20 else 1e-5) * float(want.abs().max())
+    tol = (1e-3 if xf.numel() >= 1 << 20 else 1e-5) * float(
+        want.abs().max())
     dloss = abs(float(loss) - ref_loss)
     ok = (np.isfinite(float(loss)) and bool(dx.isfinite().all())
           and dx.dtype == xf.dtype and dloss < 1e-6 * max(1.0, abs(ref_loss))
@@ -646,6 +674,8 @@ def phase_loss_kernel(torch, fl):
                         f"fused loss kernels != plain version at {shape}, "
                         f"{dtype}, gamma={gamma}")
 
+    check_global_form(torch, fl, gen, g)
+
     # Forward and backward captured in one CUDA graph: each replay gives
     # the eager bits.
     for dtype in LOSS_DTYPES:
@@ -685,6 +715,40 @@ def phase_loss_kernel(torch, fl):
                for shape in (TRAIN_SHAPE, BIG_LOSS_SHAPE)
                for dtype in LOSS_DTYPES}
     return errs, timings
+
+
+def check_global_form(torch, fl, gen, g):
+    """The kernels as a data-parallel rank runs them (phase 18): a shard
+    of a batch of two, the focal mean over n_total = 2n, the backward
+    given the global sums (this shard's and another's, supplied from
+    outside), at the train shape and at 16M elements, float32 and bf16
+    logits: against the plain version at ``loss_errors``' tolerances."""
+    beta, alpha, smooth = (LOSS_KW["beta"], LOSS_KW["focal_alpha"],
+                           LOSS_KW["dice_smooth"])
+    hyper = (beta, GAMMAS[0], alpha, smooth)
+    for shape in (TRAIN_SHAPE, BIG_LOSS_SHAPE):
+        for dtype in LOSS_DTYPES:
+            x, t = loss_inputs(torch, shape, gen, dtype=dtype)
+            other, t2 = loss_inputs(torch, shape, gen, dtype=dtype)
+            xf, tf = x.reshape(-1), t.reshape(-1)
+            n_total = 2 * xf.numel()
+            sums = (fl.focal_dice_sums_reference(xf, tf, GAMMAS[0], alpha)
+                    + fl.focal_dice_sums_reference(
+                        other.reshape(-1), t2.reshape(-1), GAMMAS[0], alpha))
+            loss, local = fl.launch_forward(xf, tf, *hyper, n_total)
+            dx = fl.launch_backward(xf, tf, sums, g, *hyper, n_total)
+            torch.cuda.synchronize()
+            dloss, ddx, excess, tol, ref_loss, ok = loss_errors(
+                torch, fl, xf, tf, GAMMAS[0], loss, dx, g, n_total=n_total,
+                sums=sums)
+            print(f"loss kernel global form {shape} {dtype} n_total "
+                  f"{n_total}: loss {float(loss):.7f} vs {ref_loss:.7f} "
+                  f"(|d| {dloss:.2e}), max|ddx| {ddx:.2e}, beyond a bf16 "
+                  f"step {excess:.2e} (tol {tol:.2e}) "
+                  f"{'OK' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"global-form loss kernels != plain "
+                                     f"version at {shape}, {dtype}")
 
 
 def check_no_cast(torch, fl, gen):
@@ -748,11 +812,11 @@ def loss_calls(torch, fl, xf, tf, kernels=None, plan=None):
     g = torch.full((), 0.73, device="cuda")
 
     def fwd_on(stream):
-        return fwd(*args, n, *plan, *hyper, out.data_ptr(), ws.data_ptr(),
-                   stream)
+        return fwd(*args, n, n, *plan, *hyper, out.data_ptr(),
+                   ws.data_ptr(), stream)
 
     def bwd_on(stream):
-        return bwd(*args, out.data_ptr() + 4, g.data_ptr(), n, *plan,
+        return bwd(*args, out.data_ptr() + 4, g.data_ptr(), n, n, *plan,
                    *hyper, dx.data_ptr(), stream)
 
     return fwd_on, bwd_on, out, dx, g
@@ -1165,6 +1229,7 @@ def phase_training(torch, root):
     losses = history["train_loss"] + history["val_loss"]
     if len(losses) != 8 or not all(np.isfinite(v) for v in losses):
         raise AssertionError(f"losses {losses}")
+    train_history = {k: history[k] for k in ("train_loss", "val_loss")}
     ckpt_dir = os.path.join(root, "siamese_checkpoints")
     for name in ("best_model", "model_epoch_2", "model_epoch_4",
                  "last_state"):
@@ -1183,7 +1248,7 @@ def phase_training(torch, root):
     report_path = os.path.join(root, "trained_report.json")
     check_report(evaluate.main(["--root-dir", root, "--json-out",
                                 report_path]), report_path)
-    return counts
+    return dict(counts, history=train_history)
 
 
 def phase_train_card_vs_cpu(torch, ds):
@@ -1318,7 +1383,9 @@ def phase_aug_training(torch, root):
         losses = history["train_loss"] + history["val_loss"]
         if len(losses) != 2 * epochs or not all(np.isfinite(losses)):
             raise AssertionError(f"{name}: losses {losses}")
-        runs[name] = {"counts": counts, "loss_launches": loss, "wall": wall}
+        runs[name] = {"counts": counts, "loss_launches": loss, "wall": wall,
+                      "history": {k: history[k]
+                                  for k in ("train_loss", "val_loss")}}
     for name in ("best_model", "model_epoch_2", "model_epoch_4",
                  "last_state"):
         if not os.path.exists(os.path.join(root, "siamese_checkpoints",
@@ -3941,6 +4008,368 @@ def phase_knobs(torch, root):
             "gan_throughput": gan_rates}
 
 
+# -- phase 18: data-parallel training -------------------------------------
+
+DP_WORLD = 2  # ranks sharing the one card over gloo
+# (b) one fp32 step on two ranks against one process: the loss within
+# 1e-5; the gradients (but the conv biases that feed a BatchNorm, whose
+# gradient is rounding noise) no farther from the float64 step's than
+# DP_GRAD_FACTOR times the one-process fp32 step's (this model's fp32
+# gradients lie about 1e-3 of their maximum from float64 ones, ROADMAP
+# §C2, so two fp32 orders of sums differ by that much); the parameters
+# within 2 lr everywhere (Adam's first step moves an element by lr times
+# the sign of its gradient, and a gradient within rounding of 0 may flip)
+# and within 1e-6 on DP_PARAM_SHARE of the elements (measured 99.11%).
+DP_STEP_RTOL = 1e-5
+DP_GRAD_FACTOR = 2.0
+DP_PARAM_ATOL, DP_PARAM_SHARE = 1e-6, 0.98
+# (c) bf16 epoch losses on two ranks against one process (ROADMAP §C7).
+DP_LOSS_RTOL = 1e-3
+DP_CHILD = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.{fn}(*sys.argv[1:]))")
+
+
+def dp_step_setup(torch, mesh, device="cuda"):
+    """A fp32 Siamese trainer at the defaults (on ``mesh`` when given)
+    and a device cache of 4 seeded 128x128 pairs: one step's input."""
+    from gan_aug_pfa_torch.config import SiameseTrainConfig
+    from gan_aug_pfa_torch.pipelines import DeviceCache
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+
+    rng = np.random.RandomState(SEED)
+    img = [torch.from_numpy(rng.rand(4, 3, 128, 128).astype(np.float32))
+           for _ in range(2)]
+    labels = torch.from_numpy((rng.rand(4, 128, 128) > 0.8).astype(
+        np.float32))
+    trainer = SiameseTrainer(SiameseTrainConfig(compute_dtype="float32"),
+                             device, mesh=mesh)
+    dev = trainer.device
+    return trainer, DeviceCache(img[0].to(dev), img[1].to(dev),
+                                labels.to(dev))
+
+
+def dp_step_rank(out_dir):
+    """(b) in a child: one rank of DP_WORLD on the one card (gloo), one fp32
+    step of batch 4 (2 rows a rank); rank 0 saves the loss, parameters and
+    summed gradients, rank 1 how far its parameters lie from rank 0's."""
+    import torch
+    import torch.distributed as dist
+
+    from gan_aug_pfa_torch.parallel.mesh import (
+        make_mesh,
+        maybe_distributed_init,
+    )
+
+    if not maybe_distributed_init("cuda"):
+        raise AssertionError("no process group from the environment")
+    try:
+        mesh = make_mesh(device="cuda")
+        print(f"rank {mesh.rank} of {mesh.world_size} on {mesh.device}, "
+              f"backend {mesh.backend}")
+        if (mesh.world_size, mesh.backend) != (DP_WORLD, "gloo"):
+            raise AssertionError(f"mesh {mesh}")
+        trainer, cache = dp_step_setup(torch, mesh)
+        loss = trainer.train_step(cache, torch.arange(4, device=mesh.device))
+        params = dict(trainer.model.named_parameters())
+        spread = max(float((mesh.broadcast(p.detach().clone())
+                            - p.detach()).abs().max())
+                     for p in params.values())
+        if mesh.rank == 0:
+            torch.save({"loss": float(loss),
+                        "params": {k: p.detach().cpu()
+                                   for k, p in params.items()},
+                        "grads": {k: p.grad.cpu()
+                                  for k, p in params.items()}},
+                       os.path.join(out_dir, "step.pt"))
+        else:
+            with open(os.path.join(out_dir, "spread.json"), "w") as f:
+                json.dump(spread, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_cli_rank(out_dir, module, *argv):
+    """(c), (d) in a child: ``module.main(argv)`` as one rank (the torchrun
+    variables in the environment), with the FocalDice and photometric
+    (calls, launches) set to 0 just before and read just after, and the
+    checkpoint files this rank wrote; into ``out_dir/rank<R>.json``."""
+    import importlib
+
+    from gan_aug_pfa_torch import checkpoint as ckpt
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
+    from gan_aug_pfa_torch.ops.kernels.fused_loss import FocalDiceLossFn
+
+    writes, save = [], ckpt.save
+
+    def counted(path, payload):
+        writes.append(os.path.basename(path))
+        save(path, payload)
+
+    ckpt.save = counted
+    cli = importlib.import_module(module)
+    reset_loss_counts(FocalDiceLossFn)
+    reset_photometric_counts(ph)
+    history = cli.main(list(argv))
+    out = {"loss": loss_counts(FocalDiceLossFn),
+           "photometric": photometric_counts(ph), "writes": writes,
+           "history": {k: v for k, v in history.items()
+                       if k in ("train_loss", "val_loss", "loss_d",
+                                "loss_g")}}
+    with open(os.path.join(out_dir, f"rank{os.environ['RANK']}.json"),
+              "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_ranks(fn, args, timeout=300.0):
+    """``chip_smoke.fn(*args)`` as ranks 0..DP_WORLD-1 of one group, each
+    in a child process with torchrun's variables (a free port on
+    localhost), their output in files and echoed after; raises unless
+    every rank exits 0.  Kills what still runs."""
+    from gan_aug_pfa_torch.parallel.mesh import free_port
+
+    port = str(free_port())
+    logs = [tempfile.TemporaryFile("w+") for _ in range(DP_WORLD)]
+    procs = []
+    try:
+        for rank, log in enumerate(logs):
+            env = dict(os.environ, WORLD_SIZE=str(DP_WORLD), RANK=str(rank),
+                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(DP_WORLD),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-u", "-c", DP_CHILD.format(fn=fn),
+                 *map(str, args)], cwd=REPO, env=env, stdout=log,
+                stderr=subprocess.STDOUT, text=True))
+        deadline = time.time() + timeout
+        rcs = [p.wait(timeout=max(1.0, deadline - time.time()))
+               for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, log in enumerate(logs):
+        log.seek(0)
+        lines = log.read().splitlines()
+        log.close()
+        for line in lines[-40:]:
+            print(f"  rank {rank} | {line}")
+    if rcs != [0] * DP_WORLD:
+        raise AssertionError(f"{fn}: ranks exited {rcs}")
+
+
+def dp_nccl_one_rank(torch):
+    """(a) one NCCL rank (a group of one, in this process): a collective
+    runs on the card, the trainer takes the one-rank mesh as no mesh (no
+    global BatchNorm), and its fp32 step (TF32 off, cuDNN deterministic)
+    gives the step without a group's loss bit for bit and its parameters
+    within the (b) rule (the upsample's backward adds with atomics, so two
+    steps without a group differ too)."""
+    import torch.distributed as dist
+
+    from gan_aug_pfa_torch.config import SiameseTrainConfig
+    from gan_aug_pfa_torch.parallel.batchnorm import GlobalBatchNorm2d
+    from gan_aug_pfa_torch.parallel.mesh import default_mesh, free_port, \
+        make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        mesh = make_mesh(device="cuda")
+        t = mesh.all_reduce_sum(torch.arange(4.0, device="cuda"))
+        if (mesh.world_size, mesh.backend) != (1, "nccl") or t.tolist() != [
+                0.0, 1.0, 2.0, 3.0] or mesh.agree(False):
+            raise AssertionError(f"one-rank NCCL mesh {mesh}: {t}")
+        if default_mesh(True, "cuda") is not None:
+            raise AssertionError("a one-rank group gave the trainers a mesh")
+        runs = []
+        for m in (mesh, None):
+            trainer, cache = dp_step_setup(torch, m)
+            if trainer.mesh is not None or any(
+                    isinstance(b, GlobalBatchNorm2d)
+                    for b in trainer.model.modules()):
+                raise AssertionError("a one-rank mesh changed the trainer")
+            loss = trainer.train_step(cache, torch.arange(4, device="cuda"))
+            runs.append((loss, [p.detach().clone()
+                                for p in trainer.model.parameters()]))
+        diffs = torch.cat([(a - b).abs().flatten()
+                           for a, b in zip(runs[0][1], runs[1][1])])
+        share = float((diffs <= DP_PARAM_ATOL).double().mean())
+        equal = torch.equal(runs[0][0], runs[1][0])
+        print(f"phase 18 (a): one NCCL rank, fp32 step loss "
+              f"{float(runs[0][0]):.8f}, equal bits to no group: {equal}; "
+              f"parameters max|d| {float(diffs.max()):.2e}, {share:.4%} "
+              f"within {DP_PARAM_ATOL}")
+        if not (equal and float(diffs.max())
+                <= 2 * SiameseTrainConfig().learning_rate
+                and share >= DP_PARAM_SHARE):
+            raise AssertionError("a one-rank NCCL step differs from the "
+                                 "step without a group")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+        dist.destroy_process_group()
+
+
+def biases_before_batchnorm(model):
+    """Names of the conv biases that feed a train-mode BatchNorm (the
+    attention gates' ``W_g.0``, ``W_x.0`` and ``psi.0``): their gradient
+    is 0 in exact arithmetic, and what a step computes is rounding noise,
+    which differs with the order of the BatchNorm's sums."""
+    from torch import nn
+
+    return {f"{name}.0.bias" for name, m in model.named_modules()
+            if isinstance(m, nn.Sequential) and len(m) > 1
+            and isinstance(m[0], nn.Conv2d) and m[0].bias is not None
+            and isinstance(m[1], nn.BatchNorm2d)}
+
+
+def dp_two_ranks_step(torch, tmp):
+    """(b) one fp32 step on two gloo ranks sharing the card against the
+    same step in this process, and both against the step at float64."""
+    from gan_aug_pfa_torch.config import SiameseTrainConfig
+
+    run_ranks("dp_step_rank", [tmp])
+    got = torch.load(os.path.join(tmp, "step.pt"), weights_only=True)
+    with open(os.path.join(tmp, "spread.json")) as f:
+        spread = json.load(f)
+    os.remove(os.path.join(tmp, "step.pt"))
+    steps = {}
+    for dtype in (torch.float32, torch.float64):
+        trainer, cache = dp_step_setup(torch, None)
+        if dtype == torch.float64:
+            trainer.model.double()
+            cache = type(cache)(cache.img1.double(), cache.img2.double(),
+                                cache.labels)
+        loss = float(trainer.train_step(cache, torch.arange(4,
+                                                            device="cuda")))
+        steps[dtype] = (loss, {k: p.grad.float().cpu() for k, p in
+                               trainer.model.named_parameters()},
+                        {k: p.detach().cpu() for k, p in
+                         trainer.model.named_parameters()})
+    loss, grads, params = steps[torch.float32]
+    exact = steps[torch.float64][1]
+    zero = biases_before_batchnorm(trainer.model)
+    big = max(float(g.abs().max()) for g in exact.values())
+
+    def off(gs):  # largest distance from the float64 gradients, of max|g|
+        return max(float((gs[k] - g).abs().max()) for k, g in exact.items()
+                   if k not in zero) / big
+
+    two, one = off(got["grads"]), off(grads)
+    diffs = torch.cat([(got["params"][k] - p).abs().flatten()
+                       for k, p in params.items()])
+    share = float((diffs <= DP_PARAM_ATOL).double().mean())
+    lr = SiameseTrainConfig().learning_rate
+    rel = abs(got["loss"] - loss) / abs(loss)
+    print(f"phase 18 (b): two gloo ranks on one card, fp32 step loss "
+          f"{got['loss']:.8f} vs one process {loss:.8f} (rel {rel:.2e}); "
+          f"gradients from the float64 step's, of its max|g| {big:.2e}: "
+          f"two ranks {two:.2e}, one process {one:.2e} (biases before a "
+          f"BatchNorm left out: {len(zero)}); parameters max|d| "
+          f"{float(diffs.max()):.2e}, {share:.4%} within {DP_PARAM_ATOL}; "
+          f"rank 1 vs rank 0 {spread}")
+    if not (rel <= DP_STEP_RTOL and two <= DP_GRAD_FACTOR * one + 1e-6
+            and float(diffs.max()) <= 2 * lr and share >= DP_PARAM_SHARE
+            and spread == 0.0):
+        raise AssertionError("two-rank step differs from one process")
+    return {"loss_rel": rel, "grad_off_two_ranks": two,
+            "grad_off_one_process": one, "param_share": share}
+
+
+def dp_cli(torch, root, tmp, module, argv, name):
+    """(c), (d): the CLI ``module`` on DP_WORLD ranks; returns both ranks'
+    reports (``dp_cli_rank``)."""
+    out = os.path.join(tmp, name)
+    os.makedirs(out)
+    t0 = time.time()
+    run_ranks("dp_cli_rank", [out, module, "--root-dir", root, *argv])
+    wall = time.time() - t0
+    reports = []
+    for rank in range(DP_WORLD):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            reports.append(json.load(f))
+    print(f"phase 18 {name}: {DP_WORLD} ranks, {wall:.1f} s; "
+          + "; ".join(f"rank {r}: {rep}" for r, rep in enumerate(reports)))
+    if reports[1]["writes"] or not reports[0]["writes"]:
+        raise AssertionError(f"{name}: files written {reports[0]['writes']}"
+                             f" by rank 0, {reports[1]['writes']} by rank 1")
+    if reports[0]["history"] != reports[1]["history"]:
+        raise AssertionError(f"{name}: the ranks' losses differ")
+    return reports
+
+
+def phase_data_parallel(torch, root, reference):
+    """Phase 18: data-parallel training on one card.  ``reference``: the
+    single-process histories of phases 6 and 7 on the same tree.  Returns
+    each CLI run's (calls, launches) by rank."""
+    from gan_aug_pfa_torch.models import SiameseUNet, UNetGenerator
+
+    t0 = time.time()
+    write_oscd_tree(root)
+    dp_nccl_one_rank(torch)
+    tmp = os.path.join(root, "dp")
+    os.makedirs(tmp)
+    step = dp_two_ranks_step(torch, tmp)
+    result = {"step": step, "cli": {}}
+    # (c): 11 train pairs at batch 4: steps of 4 and 4 (2 rows a rank) and
+    # a replicated 3; 3 val pairs, replicated.
+    for name, flags, epochs, ref in (
+            ("train", [], 2, reference["train"]),
+            ("augment", ["--augment"], 1, reference["augment"])):
+        ckpt_dir = f"dp_{name}_checkpoints"
+        reports = dp_cli(torch, root, tmp, "gan_aug_pfa_torch.train.__main__",
+                         ["--num-epochs", str(epochs), "--save-every", "2",
+                          "--checkpoint-dir", ckpt_dir, *flags], name)
+        steps = 3 * epochs
+        want_loss = {"fwd": [steps + epochs] * 2, "bwd": [steps] * 2}
+        want_photo = {"native": [2 * steps] * 2 if flags else [0, 0],
+                      "flip": [0, 0]}
+        history = reports[0]["history"]
+        rel = [abs(a - b) / abs(b) for k in ("train_loss", "val_loss")
+               for a, b in zip(history[k], ref[k][:epochs])]
+        print(f"phase 18 (c) {name}: epoch losses {history} vs one process "
+              f"{ {k: v[:epochs] for k, v in ref.items()} } (rel {rel})")
+        for rank, rep in enumerate(reports):
+            if rep["loss"] != want_loss or rep["photometric"] != want_photo:
+                raise AssertionError(f"{name} rank {rank}: counts "
+                                     f"{rep['loss']} {rep['photometric']}, "
+                                     f"expected {want_loss} {want_photo}")
+        if not all(r <= DP_LOSS_RTOL for r in rel) or len(rel) != 2 * epochs:
+            raise AssertionError(f"{name}: two-rank losses differ from one "
+                                 "process")
+        model = SiameseUNet()
+        for f in set(reports[0]["writes"]):
+            if f != "last_state.pth":
+                model.load_state_dict(torch.load(
+                    os.path.join(root, ckpt_dir, f), weights_only=True),
+                    strict=True)
+        result["cli"][name] = [{"loss": r["loss"],
+                                "photometric": r["photometric"]}
+                               for r in reports]
+    # (d): 14 pairs at batch 2, one a rank: 7 sharded D+G steps.
+    reports = dp_cli(torch, root, tmp, "gan_aug_pfa_torch.train_gan",
+                     ["--num-epochs", "1", "--batch-size", "2"], "gan")
+    history = reports[0]["history"]
+    if not np.isfinite(history["loss_d"] + history["loss_g"]).all():
+        raise AssertionError(f"GAN losses {history}")
+    UNetGenerator().load_state_dict(torch.load(
+        os.path.join(root, "gan_checkpoints", "generator_epoch_1.pth"),
+        weights_only=True), strict=True)
+    strips = os.listdir(os.path.join(root, "gan_samples"))
+    if len(strips) != 1:
+        raise AssertionError(f"GAN strips {strips}")
+    print(f"phase 18 (d): GAN epoch at batch 2 on {DP_WORLD} ranks, losses "
+          f"{history}; generator_epoch_1.pth loads strictly; strips "
+          f"{strips}")
+    print(f"phase 18 (data parallel) took {time.time() - t0:.1f} s")
+    return result
+
+
 def main():
     import torch
 
@@ -4036,6 +4465,11 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         knobs = phase_knobs(torch, root)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        data_parallel = phase_data_parallel(torch, root, {
+            "train": train_counts["history"],
+            "augment": aug_runs["native"]["history"]})
 
     # The main numbers are each path's shape: the evaluation's bs 2 for the
     # confusion counts (bs 16 and 16x1024x1024 beside them), the train
@@ -4092,6 +4526,9 @@ def main():
             "stream": list(stream["loss"][name]),
             "knobs": {run: list(r["loss"][name])
                       for run, r in knobs["runs"].items()},
+            "data_parallel": {run: [list(r["loss"][name]) for r in ranks]
+                              for run, ranks in
+                              data_parallel["cli"].items()},
             "shape": list(TRAIN_SHAPE),
             "logits": "bfloat16",
             "plan": t["plan"],
@@ -4128,7 +4565,9 @@ def main():
             "library_graph_ms": t["library_graph_ms"],
             "library_call": "torch.mul (a yardstick of the same bytes)",
             "tuning": list(tuning["counts"][kind]),
-            **({"tuning_max_abs_err": tuning_errs[2]}
+            **({"tuning_max_abs_err": tuning_errs[2],
+                "data_parallel": [list(r["photometric"]["native"]) for r in
+                                  data_parallel["cli"]["augment"]]}
                if kind == "native" else {"stream": list(stream["flip"])}),
             "knobs": {run: list(knobs["runs"][run]["photometric"][kind])
                       for run in ("all", "resume")},

@@ -21,5 +21,6 @@ checks, deferred and background checkpoint writes), reading the JAX
 package's ``.msgpack`` checkpoints and resuming both trainers from its
 train states, and hyperparameter tuning (``python -m
 gan_aug_pfa_torch.train --tune``, ``python -m
-gan_aug_pfa_torch.show_optuna_results``).
+gan_aug_pfa_torch.show_optuna_results``), and data-parallel training of
+both models over every visible card (``parallel/``).
 """

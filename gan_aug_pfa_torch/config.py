@@ -78,6 +78,9 @@ class SiameseTrainConfig:
     # "bfloat16" runs the model under bf16 autocast with fp32 params;
     # "float32" runs it in full float32 with TF32 off.
     compute_dtype: str = "bfloat16"
+    # Train data-parallel over every rank of the process group
+    # (parallel/mesh.py; the CLIs start one rank a card); False: one device.
+    data_parallel: bool = True
     # Continue from <checkpoint_dir>/last_state.pth when it exists.
     resume: bool = False
     # Keep the best model as a device copy of its state_dict and write
@@ -181,6 +184,9 @@ class GANTrainConfig:
     seed: int = 0
     # "bfloat16": bf16 autocast with fp32 params; "float32": TF32 off.
     compute_dtype: str = "bfloat16"
+    # Data-parallel over every rank of the process group, as
+    # SiameseTrainConfig's.
+    data_parallel: bool = True
     # Continue from <checkpoint_dir>/last_{generator,discriminator}.pth.
     resume: bool = False
     # After every G update: ema <- ema * decay + params * (1 - decay);

@@ -9,13 +9,17 @@
 // the forward reduces four sums
 //   S = [sum alpha_t * u^gamma * bce,  I = sum p*t,  P = sum p,  T = sum t]
 // and the loss
-//   L = beta * S[0]/n + (1-beta) * (1 - (2I + s) / (P + T + s)).
-// The backward writes, for each element, in the logits' dtype,
-//   dx = g * (beta * dfocal / n + (1-beta) * ddice),
+//   L = beta * S[0]/N + (1-beta) * (1 - (2I + s) / (P + T + s)),
+// where N (n_total) is the divisor of the focal mean: n for a whole batch,
+// the global batch's element count for a data-parallel shard.  The
+// backward writes, for each element, in the logits' dtype,
+//   dx = g * (beta * dfocal / N + (1-beta) * ddice),
 //   dfocal = alpha_t * (p - t) * (gamma * u^(gamma-1) * pt * bce + u^gamma),
 //   ddice  = (2I + s - 2t(P + T + s)) / (P + T + s)^2 * p * (1-p),
 // from the saved sums and the upstream gradient g, both read from device
-// memory, so a train step never waits on the host.
+// memory, so a train step never waits on the host.  Under a data mesh the
+// wrapper sums the shards' [S0, I, P, T] over the ranks and hands the
+// global sums to the backward (ops/kernels/fused_loss.py).
 //
 // Bound: bytes at large n.  The forward reads 8 bytes an element (6 with
 // bf16 logits), the backward reads 8 and writes 4 (reads 6, writes 2):
@@ -45,7 +49,7 @@
 //   * shared element math: e = exp(-|x|) once, for sigmoid (one reciprocal
 //     of 1 + e, both p and 1 - p from it) and softplus (log2(1 + e));
 //     u^gamma and u^(gamma-1) from one log2(u); the approximate hardware
-//     exp2, log2 and reciprocal; 1/n, 1/(P+T+s)^2 and the dice constants
+//     exp2, log2 and reciprocal; 1/N, 1/(P+T+s)^2 and the dice constants
 //     once a thread.  u^k = exp2(k * max(log2(u), -FLT_MAX)) keeps powf's
 //     edges without a branch: 0^k = 0 for k > 0, u^0 = 1 also at u = 0;
 //   * dx stored in the logits' dtype (bf16 rounded to nearest even), 16
@@ -232,7 +236,8 @@ template <typename X>
 __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSM)
     focal_dice_fwd_kernel(const X* __restrict__ x,
                           const float* __restrict__ t, long long n,
-                          long long head, long long groups, Hyper h,
+                          long long n_total, long long head,
+                          long long groups, Hyper h,
                           float* __restrict__ workspace,
                           float* __restrict__ out) {
   const FwdConsts c{h.gamma, 1.0f - h.alpha, 2.0f * h.alpha - 1.0f};
@@ -277,7 +282,7 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSM)
   }
   block_sum4(d);
   if (threadIdx.x == 0) {
-    const double focal_mean = d[0] / static_cast<double>(n);
+    const double focal_mean = d[0] / static_cast<double>(n_total);
     const double dice =
         1.0 - (2.0 * d[1] + h.smooth) / (d[2] + d[3] + h.smooth);
     out[0] = static_cast<float>(h.beta * focal_mean + (1.0 - h.beta) * dice);
@@ -311,7 +316,8 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSM)
                           const float* __restrict__ t,
                           const float* __restrict__ sums,
                           const float* __restrict__ grad, long long n,
-                          long long head, long long groups, Hyper h,
+                          long long n_total, long long head,
+                          long long groups, Hyper h,
                           X* __restrict__ dx) {
   const float g = __ldg(grad);
   const float denom = __ldg(sums + 2) + __ldg(sums + 3) + h.smooth;
@@ -323,7 +329,7 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSM)
   c.c1 = 2.0f * h.alpha - 1.0f;
   c.a = (2.0f * __ldg(sums + 1) + h.smooth) * inv_d2;
   c.b = 2.0f * denom * inv_d2;
-  c.cf = g * h.beta / static_cast<float>(n);
+  c.cf = g * h.beta / static_cast<float>(n_total);
   c.cd = g * (1.0f - h.beta);
 
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -353,13 +359,15 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSM)
     store1(dx, i, bwd_elem(load1(x, i), __ldg(t + i), c));
 }
 
-// The plan (ops/kernels/fused_loss.py plan_launch) the kernels take:
-// cudaSuccess, or cudaErrorInvalidValue for a plan they do not take.
+// The plan (ops/kernels/fused_loss.py plan_launch) and the focal mean's
+// divisor n_total (at least the n elements of this call) the kernels take:
+// cudaSuccess, or cudaErrorInvalidValue for what they do not take.
 cudaError_t check_plan(const void* x, int x_bytes, const float* t,
-                       long long n, int threads, int blocks, long long head,
-                       long long groups) {
+                       long long n, long long n_total, int threads,
+                       int blocks, long long head, long long groups) {
   const bool ok =
-      n > 0 && threads >= 32 && threads <= kMaxThreads && threads % 32 == 0 &&
+      n > 0 && n_total >= n && threads >= 32 && threads <= kMaxThreads &&
+      threads % 32 == 0 &&
       blocks >= 1 && blocks <= kMaxBlocks && head >= 0 && groups >= 0 &&
       head + groups * kVec <= n &&
       (groups == 0 ||
@@ -377,50 +385,55 @@ extern "C" {
 int focal_dice_workspace_floats() { return kWorkspaceFloats; }
 
 // x: n logits, float32 (bf16 == 0) or bfloat16 (bf16 == 1); t: n float32
-// targets; the plan (threads, blocks, head, groups); out: 5 float32, written
-// with [L, S0, I, P, T]; workspace: focal_dice_workspace_floats() float32.
-// All on the device.  Launches on `stream` and returns a CUDA error code (0
-// on success).
+// targets; n_total >= n: the focal mean's divisor; the plan (threads,
+// blocks, head, groups); out: 5 float32, written with [L, S0, I, P, T] (the
+// sums over these n elements); workspace: focal_dice_workspace_floats()
+// float32.  All on the device.  Launches on `stream` and returns a CUDA
+// error code (0 on success).
 int focal_dice_fwd(const void* x, int bf16, const float* t, long long n,
-                   int threads, int blocks, long long head, long long groups,
-                   float beta, float gamma, float alpha, float smooth,
-                   float* out, float* workspace, void* stream) {
-  cudaError_t err =
-      check_plan(x, bf16 ? 2 : 4, t, n, threads, blocks, head, groups);
+                   long long n_total, int threads, int blocks,
+                   long long head, long long groups, float beta, float gamma,
+                   float alpha, float smooth, float* out, float* workspace,
+                   void* stream) {
+  cudaError_t err = check_plan(x, bf16 ? 2 : 4, t, n, n_total, threads,
+                               blocks, head, groups);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Hyper h{beta, gamma, alpha, smooth};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     focal_dice_fwd_kernel<<<blocks, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), t, n, head, groups, h,
+        static_cast<const __nv_bfloat16*>(x), t, n, n_total, head, groups, h,
         workspace, out);
   } else {
     focal_dice_fwd_kernel<<<blocks, threads, 0, s>>>(
-        static_cast<const float*>(x), t, n, head, groups, h, workspace, out);
+        static_cast<const float*>(x), t, n, n_total, head, groups, h,
+        workspace, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, t and the plan as for focal_dice_fwd; sums: the forward's [S0, I, P,
-// T]; grad: the upstream gradient, one float32; dx: n elements of the
-// logits' dtype.  All on the device.
+// x, t, n_total and the plan as for focal_dice_fwd; sums: [S0, I, P, T]
+// of the loss (the forward's, or the global batch's under a data mesh);
+// grad: the upstream gradient, one float32; dx: n elements of the logits'
+// dtype.  All on the device.
 int focal_dice_bwd(const void* x, int bf16, const float* t, const float* sums,
-                   const float* grad, long long n, int threads, int blocks,
-                   long long head, long long groups, float beta, float gamma,
-                   float alpha, float smooth, void* dx, void* stream) {
-  cudaError_t err =
-      check_plan(x, bf16 ? 2 : 4, t, n, threads, blocks, head, groups);
+                   const float* grad, long long n, long long n_total,
+                   int threads, int blocks, long long head, long long groups,
+                   float beta, float gamma, float alpha, float smooth,
+                   void* dx, void* stream) {
+  cudaError_t err = check_plan(x, bf16 ? 2 : 4, t, n, n_total, threads,
+                               blocks, head, groups);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Hyper h{beta, gamma, alpha, smooth};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     focal_dice_bwd_kernel<<<blocks, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), t, sums, grad, n, head, groups,
-        h, static_cast<__nv_bfloat16*>(dx));
+        static_cast<const __nv_bfloat16*>(x), t, sums, grad, n, n_total, head,
+        groups, h, static_cast<__nv_bfloat16*>(dx));
   } else {
     focal_dice_bwd_kernel<<<blocks, threads, 0, s>>>(
-        static_cast<const float*>(x), t, sums, grad, n, head, groups, h,
-        static_cast<float*>(dx));
+        static_cast<const float*>(x), t, sums, grad, n, n_total, head, groups,
+        h, static_cast<float*>(dx));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,8 @@ reference's train.py:34-128), with the same formulas:
   gan_bce    = BCEWithLogits against an all-ones / all-zeros patch map
   l1         = mean |x - y|
 
+(the GAN losses of a data-parallel shard: its part of the global mean).
+
 Everything upcasts to float32.  ``focal_dice_loss`` here is the composite
 the reference computes; training calls the fused kernel's wrapper
 (``ops/kernels/fused_loss.py``), which computes the same function.
@@ -90,14 +92,23 @@ def focal_dice_loss(logits: torch.Tensor, targets: torch.Tensor,
         1.0 - beta) * dice_loss(logits, t, dice_smooth)
 
 
-def gan_bce_loss(pred_logits: torch.Tensor, is_real: bool) -> torch.Tensor:
+def gan_bce_loss(pred_logits: torch.Tensor, is_real: bool,
+                 total: Optional[int] = None) -> torch.Tensor:
     """BCEWithLogits against an all-ones (``is_real``) or all-zeros patch
-    map (reference train_gan.py:42, 58-67)."""
+    map (reference train_gan.py:42, 58-67).  With ``total``, this rank's
+    part of the global batch's mean: the local sum over the global
+    element count ``total`` (the ranks' parts add up to the mean)."""
     x = pred_logits.to(torch.float32)
     target = torch.ones_like(x) if is_real else torch.zeros_like(x)
-    return bce_with_logits(x, target)
+    if total is None:
+        return bce_with_logits(x, target)
+    return bce_with_logits(x, target, reduction="sum") / total
 
 
-def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Mean absolute error in float32 (reference train_gan.py:43, 68)."""
-    return torch.mean(torch.abs(x.to(torch.float32) - y.to(torch.float32)))
+def l1_loss(x: torch.Tensor, y: torch.Tensor,
+            total: Optional[int] = None) -> torch.Tensor:
+    """Mean absolute error in float32 (reference train_gan.py:43, 68);
+    with ``total``, the local sum over the global element count, as
+    ``gan_bce_loss``."""
+    err = torch.abs(x.to(torch.float32) - y.to(torch.float32))
+    return torch.mean(err) if total is None else torch.sum(err) / total

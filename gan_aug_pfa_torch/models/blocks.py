@@ -23,6 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.batchnorm import GlobalBatchNorm2d, reducing
+
 Slices = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
@@ -54,7 +56,11 @@ def _stateless_bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     output is the module's.  The update goes to scratch buffers (written,
     never read into the output; no kernel fills them), so that the pass
     saves the same tensors for the backward as ``bn(x)`` does, as
-    ``torch.utils.checkpoint`` checks."""
+    ``torch.utils.checkpoint`` checks.  A ``GlobalBatchNorm2d`` under a
+    data mesh normalizes with the global batch's statistics, again
+    without an update (``parallel/batchnorm.py``)."""
+    if isinstance(bn, GlobalBatchNorm2d) and reducing():
+        return bn.normalize(x, update_stats=False)
     return F.batch_norm(x, torch.empty_like(bn.running_mean),
                         torch.empty_like(bn.running_var), bn.weight,
                         bn.bias, True, bn.momentum, bn.eps)

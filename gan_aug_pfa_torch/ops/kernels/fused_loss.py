@@ -8,11 +8,22 @@ p = sigmoid(x), bce = softplus(x) - x*t, pt = exp(-bce) and
 alpha_t = t*alpha + (1-t)*(1-alpha):
 
   S     = [sum alpha_t (1-pt)^gamma bce,  I = sum p t,  P = sum p,  T = sum t]
-  loss  = beta * S0/n + (1-beta) * (1 - (2I + s)/(P + T + s))
-  dx    = g * (beta * dfocal/n + (1-beta) * ddice)
+  loss  = beta * S0/N + (1-beta) * (1 - (2I + s)/(P + T + s))
+  dx    = g * (beta * dfocal/N + (1-beta) * ddice)
 
-(``csrc/focal_dice_loss.cu`` spells out dfocal and ddice).  It is the
-function ``losses.focal_dice_loss`` computes.
+(``csrc/focal_dice_loss.cu`` spells out dfocal and ddice), with N = n, the
+element count.  It is the function ``losses.focal_dice_loss`` computes.
+
+Under a data mesh (``parallel/mesh.py``) each rank holds a shard of the
+global batch, and the loss is the global batch's: the Dice term is not a
+mean of the shards' Dice terms.  ``focal_dice_loss_fused(..., group=,
+n_total=)`` then launches the forward on the shard, sums its four sums
+over the ranks on the device (one all-reduce, no host sync), forms the
+loss from the global sums with N = ``n_total`` (the global element count,
+``_finalize``), and hands the global sums and ``n_total`` to the
+backward, whose dx is then the global loss's gradient on the shard.  Both
+C entry points take ``n_total`` beside ``n`` and refuse n_total < n; with
+n_total = n they give the bits they gave without it.
 
 ``focal_dice_loss_fused`` flattens its inputs and hands float32 or bfloat16
 logits to the ``autograd.Function`` as they are (other dtypes are cast to
@@ -21,9 +32,11 @@ so under bf16 autocast no cast runs around the loss.  It dispatches on the
 tensors' device: CUDA tensors always go to the kernels (``FocalDiceLossFn``;
 a failed build, a refused plan or a failed launch raises), CPU tensors to
 the plain version (``FocalDiceLossReferenceFn``, which widens bfloat16
-logits to float32 inside).  ``FocalDiceLossFn.fwd_calls`` /
-``.fwd_launches`` and ``.bwd_calls`` / ``.bwd_launches`` count the kernels'
-calls and launches: one launch a call each way.
+logits to float32 inside; float64 logits stay float64 there, with float64
+targets, the precision of the parity tests).
+``FocalDiceLossFn.fwd_calls`` / ``.fwd_launches`` and ``.bwd_calls`` /
+``.bwd_launches`` count the kernels' calls and launches: one launch a call
+each way.
 
 ``plan_launch`` makes both kernels' launch (grid, and where the 16-byte
 aligned groups start) from the element count and the two pointers'
@@ -70,11 +83,13 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(x: torch.Tensor, t: torch.Tensor) -> None:
-    if (x.dtype not in KERNEL_DTYPES or t.dtype != torch.float32
-            or x.dim() != 1 or t.dim() != 1 or not x.is_contiguous()
-            or not t.is_contiguous()):
+    plain64 = x.dtype == t.dtype == torch.float64 and x.device.type == "cpu"
+    kernel = x.dtype in KERNEL_DTYPES and t.dtype == torch.float32
+    if (not (kernel or plain64) or x.dim() != 1 or t.dim() != 1
+            or not x.is_contiguous() or not t.is_contiguous()):
         raise ValueError(f"logits must be flat contiguous float32 or "
-                         f"bfloat16, targets flat contiguous float32; got "
+                         f"bfloat16, targets flat contiguous float32 (both "
+                         f"float64 on the CPU); got "
                          f"{x.dtype} {tuple(x.shape)} and {t.dtype} "
                          f"{tuple(t.shape)}")
     n = x.numel()
@@ -90,6 +105,12 @@ def _check(x: torch.Tensor, t: torch.Tensor) -> None:
 # -- the plain version -----------------------------------------------------
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """The logits at the plain version's precision: float64 as they are,
+    others in float32."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _terms(x: torch.Tensor, t: torch.Tensor, alpha: float):
     p = torch.sigmoid(x)
     bce = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs())) - x * t
@@ -99,6 +120,7 @@ def _terms(x: torch.Tensor, t: torch.Tensor, alpha: float):
 
 
 def _finalize(sums: torch.Tensor, n: int, beta: float, smooth: float):
+    """The loss from the four sums, with ``n`` the focal mean's divisor."""
     dice = 1.0 - (2.0 * sums[1] + smooth) / (sums[2] + sums[3] + smooth)
     return beta * (sums[0] / n) + (1.0 - beta) * dice
 
@@ -106,43 +128,63 @@ def _finalize(sums: torch.Tensor, n: int, beta: float, smooth: float):
 def focal_dice_sums_reference(x: torch.Tensor, t: torch.Tensor,
                               gamma: float, alpha: float) -> torch.Tensor:
     """The forward's four sums (4,) float32, in plain PyTorch (bfloat16
-    logits widened to float32 first)."""
-    p, bce, pt, alpha_t = _terms(x.float(), t, alpha)
+    logits widened to float32 first; float64 at float64)."""
+    p, bce, pt, alpha_t = _terms(_wide(x), t, alpha)
     return torch.stack([torch.sum(alpha_t * (1.0 - pt) ** gamma * bce),
                         torch.sum(p * t), torch.sum(p), torch.sum(t)])
 
 
-def focal_dice_grad_reference(x, t, sums, g, beta, gamma, alpha, smooth):
+def focal_dice_grad_reference(x, t, sums, g, beta, gamma, alpha, smooth,
+                              n_total=None):
     """The backward's dx in plain PyTorch (fused_loss.py:97-115), computed
-    in float32 and returned in the logits' dtype."""
-    p, bce, pt, alpha_t = _terms(x.float(), t, alpha)
+    in float32 (float64 for float64 logits) and returned in the logits'
+    dtype; ``sums`` are the loss's
+    (the global batch's under a mesh) and ``n_total`` the focal mean's
+    divisor (``x.numel()`` when None)."""
+    p, bce, pt, alpha_t = _terms(_wide(x), t, alpha)
     u = 1.0 - pt
     dfocal = alpha_t * (p - t) * (
         gamma * u ** (gamma - 1.0) * pt * bce + u ** gamma)
     denom = sums[2] + sums[3] + smooth
     ddice = (2.0 * sums[1] + smooth - 2.0 * t * denom) / (
         denom * denom) * p * (1.0 - p)
-    dx = g * (beta * dfocal / x.numel() + (1.0 - beta) * ddice)
+    n = x.numel() if n_total is None else n_total
+    dx = g * (beta * dfocal / n + (1.0 - beta) * ddice)
     return dx.to(x.dtype)
+
+
+def _global_sums(sums: torch.Tensor, group) -> torch.Tensor:
+    """The four sums over the ranks of ``group`` (on the device, in
+    place)."""
+    import torch.distributed as dist
+
+    dist.all_reduce(sums, group=group)
+    return sums
 
 
 class FocalDiceLossReferenceFn(torch.autograd.Function):
     """Plain version: the four sums and the analytic backward in torch
-    ops.  Inputs as ``_check`` takes them."""
+    ops.  Inputs as ``_check`` takes them; with ``mesh`` = (group,
+    n_total), the shard's sums are summed over the ranks and the loss is
+    the global batch's (module docstring)."""
 
     @staticmethod
-    def forward(ctx, x, t, beta, gamma, alpha, smooth):
+    def forward(ctx, x, t, beta, gamma, alpha, smooth, mesh=None):
         _check(x, t)
         sums = focal_dice_sums_reference(x, t, gamma, alpha)
+        n_total = x.numel()
+        if mesh is not None:
+            group, n_total = mesh
+            sums = _global_sums(sums, group)
         ctx.save_for_backward(x, t, sums)
-        ctx.hyper = (beta, gamma, alpha, smooth)
-        return _finalize(sums, x.numel(), beta, smooth)
+        ctx.hyper = (beta, gamma, alpha, smooth, n_total)
+        return _finalize(sums, n_total, beta, smooth)
 
     @staticmethod
     def backward(ctx, g):
         x, t, sums = ctx.saved_tensors
         dx = focal_dice_grad_reference(x, t, sums, g, *ctx.hyper)
-        return dx, None, None, None, None, None
+        return dx, None, None, None, None, None, None
 
 
 # -- the launch plan -------------------------------------------------------
@@ -211,14 +253,13 @@ def bind(lib: ctypes.CDLL):
     from csrc/focal_dice_loss.cu, with their argument types."""
     plan = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
     hyper = [ctypes.c_float] * 4
+    counts = [ctypes.c_longlong] * 2  # n, n_total
     fwd = lib.focal_dice_fwd
-    fwd.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                     ctypes.c_longlong] + plan + hyper
-                    + [ctypes.c_void_p] * 3)
+    fwd.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                    + counts + plan + hyper + [ctypes.c_void_p] * 3)
     bwd = lib.focal_dice_bwd
     bwd.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                    + [ctypes.c_longlong] + plan + hyper
-                    + [ctypes.c_void_p] * 2)
+                    + counts + plan + hyper + [ctypes.c_void_p] * 2)
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -246,10 +287,13 @@ def workspace(device: torch.device, stream: int) -> torch.Tensor:
 
 
 def launch_forward(x: torch.Tensor, t: torch.Tensor, beta: float,
-                   gamma: float, alpha: float, smooth: float):
+                   gamma: float, alpha: float, smooth: float,
+                   n_total=None):
     """The forward kernel, one launch, on flat checked CUDA tensors:
-    returns the 0-dim float32 loss and the (4,) float32 sums [S0, I, P,
-    T], views of one 5-float output on the device, without a host sync.
+    returns the 0-dim float32 loss (its focal mean divided by ``n_total``,
+    ``x.numel()`` when None) and the (4,) float32 sums [S0, I, P, T] of
+    these elements, views of one 5-float output on the device, without a
+    host sync.
 
     Inside a CUDA-graph capture the call takes its own zeroed workspace
     with its output (the graph zeroes it before each replay; the outputs
@@ -260,24 +304,30 @@ def launch_forward(x: torch.Tensor, t: torch.Tensor, beta: float,
         stream = torch.cuda.current_stream(device).cuda_stream
         out, ws = _workspaces.call_buffers(device, stream, (5,),
                                            torch.float32, WORKSPACE_FLOATS)
+        n = x.numel()
         err = fwd(x.data_ptr(), int(x.dtype == torch.bfloat16), t.data_ptr(),
-                  x.numel(), *plan_for(x, t).c_args(), beta, gamma, alpha,
-                  smooth, out.data_ptr(), ws.data_ptr(), stream)
+                  n, n if n_total is None else n_total,
+                  *plan_for(x, t).c_args(), beta, gamma, alpha, smooth,
+                  out.data_ptr(), ws.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{NAME} forward launch failed: CUDA error {err}")
     return out[0], out[1:]
 
 
-def launch_backward(x, t, sums, g, beta, gamma, alpha, smooth):
+def launch_backward(x, t, sums, g, beta, gamma, alpha, smooth,
+                    n_total=None):
     """The backward kernel, one launch: dx (n,) in the logits' dtype from
-    the forward's ``sums`` and the upstream gradient ``g`` (one float32 on
-    the device)."""
+    the loss's ``sums`` (the forward's, or the global batch's under a
+    mesh), the focal mean's divisor ``n_total`` (``x.numel()`` when None)
+    and the upstream gradient ``g`` (one float32 on the device)."""
     _, bwd = _kernels()
     dx = torch.empty_like(x)
     device = x.device
+    n = x.numel()
     with on(device):
         err = bwd(x.data_ptr(), int(x.dtype == torch.bfloat16), t.data_ptr(),
-                  sums.data_ptr(), g.data_ptr(), x.numel(),
+                  sums.data_ptr(), g.data_ptr(), n,
+                  n if n_total is None else n_total,
                   *plan_for(x, t).c_args(), beta, gamma, alpha, smooth,
                   dx.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -287,21 +337,26 @@ def launch_backward(x, t, sums, g, beta, gamma, alpha, smooth):
 
 class FocalDiceLossFn(torch.autograd.Function):
     """The kernels under autograd.  Inputs as ``_check`` takes them, on a
-    CUDA card."""
+    CUDA card; ``mesh`` as for ``FocalDiceLossReferenceFn``."""
 
     fwd_calls = fwd_launches = 0
     bwd_calls = bwd_launches = 0
 
     @staticmethod
-    def forward(ctx, x, t, beta, gamma, alpha, smooth):
+    def forward(ctx, x, t, beta, gamma, alpha, smooth, mesh=None):
         _check(x, t)
         if x.device.type != "cuda":
             raise ValueError(f"the kernels take CUDA tensors, got {x.device}")
-        loss, sums = launch_forward(x, t, beta, gamma, alpha, smooth)
+        group, n_total = mesh if mesh is not None else (None, x.numel())
+        loss, sums = launch_forward(x, t, beta, gamma, alpha, smooth,
+                                    n_total)
         FocalDiceLossFn.fwd_calls += 1
         FocalDiceLossFn.fwd_launches += _LAUNCHES_PER_CALL
+        if mesh is not None:
+            sums = _global_sums(sums, group)
+            loss = _finalize(sums, n_total, beta, smooth)
         ctx.save_for_backward(x, t, sums)
-        ctx.hyper = (beta, gamma, alpha, smooth)
+        ctx.hyper = (beta, gamma, alpha, smooth, n_total)
         return loss
 
     @staticmethod
@@ -312,29 +367,38 @@ class FocalDiceLossFn(torch.autograd.Function):
         dx = launch_backward(x, t, sums, g, *ctx.hyper)
         FocalDiceLossFn.bwd_calls += 1
         FocalDiceLossFn.bwd_launches += _LAUNCHES_PER_CALL
-        return dx, None, None, None, None, None
+        return dx, None, None, None, None, None, None
 
 
 def focal_dice_loss_fused(logits: torch.Tensor, targets: torch.Tensor,
                           beta: float = 0.5, focal_gamma: float = 2.0,
                           focal_alpha: float = 0.75,
-                          dice_smooth: float = 1.0) -> torch.Tensor:
+                          dice_smooth: float = 1.0, group=None,
+                          n_total=None) -> torch.Tensor:
     """beta * Focal + (1-beta) * Dice over all elements, as a 0-dim float32
     tensor.  Logits and targets of any shape with the same element count,
     flattened in their own order: a (B, 1, H, W) logit map and (B, H, W)
     labels line up element for element.  Float32 and bfloat16 logits reach
-    the Function as they are."""
+    the Function as they are.
+
+    With ``n_total`` (the global batch's element count) the inputs are this
+    rank's shard of a batch split over the ranks of ``group`` (None: the
+    default group), and the loss and its gradient are the global
+    batch's."""
     x = logits.reshape(-1)
-    if x.dtype not in KERNEL_DTYPES:
+    plain64 = x.dtype == torch.float64 and x.device.type == "cpu"
+    if x.dtype not in KERNEL_DTYPES and not plain64:
         x = x.to(torch.float32)
     t = targets.reshape(-1)
-    if t.dtype != torch.float32:
-        t = t.to(torch.float32)
+    t_dtype = torch.float64 if plain64 else torch.float32
+    if t.dtype != t_dtype:
+        t = t.to(t_dtype)
     x, t = x.contiguous(), t.contiguous()
     hyper = (float(beta), float(focal_gamma), float(focal_alpha),
              float(dice_smooth))
+    mesh = None if n_total is None else (group, int(n_total))
     if x.device.type == "cpu":
-        return FocalDiceLossReferenceFn.apply(x, t, *hyper)
+        return FocalDiceLossReferenceFn.apply(x, t, *hyper, mesh)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return FocalDiceLossFn.apply(x, t, *hyper)
+    return FocalDiceLossFn.apply(x, t, *hyper, mesh)

@@ -1,0 +1,302 @@
+"""The data mesh: data-parallel training over every visible card (the JAX
+package's ``parallel/mesh.py``, its 'data' axis).
+
+JAX runs one program over a device mesh and lets XLA insert the
+reductions.  Here each card runs its own process, and a
+``torch.distributed`` group joins them:
+
+  * a global batch whose size divides by the world size is split into
+    contiguous row blocks, one a rank in rank order; any other batch is
+    replicated, every rank running all of it (``shard_rows``; JAX
+    ``train/siamese.py:333-340``, ``train/gan.py:393-398``);
+  * parameters, optimizer state and the dataset are whole on every rank;
+  * a sharded step's BatchNorm statistics (``batchnorm.py``) and losses
+    are those of the global batch, and its gradients are summed over the
+    ranks (``reduce_gradients``); a replicated step takes rank 0's
+    gradients, so that no rank counts the batch twice and the ranks stay
+    equal;
+  * only ``all_reduce`` and ``broadcast`` are used (and the
+    differentiable all-reduce of ``torch.distributed.nn``), which gloo
+    also runs on CUDA tensors: one code path serves gloo on the CPU, NCCL
+    with one rank a card and gloo with several ranks sharing one card.
+
+The backend is not a flag: NCCL where every rank has a card of its own,
+gloo otherwise (CPU runs too).  A rank's card is
+``cuda:{LOCAL_RANK % device_count}``.
+
+Two ways to start ranks, both ending in ``maybe_distributed_init``:
+``torchrun`` (or any launcher that sets ``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``, the counterpart of
+JAX's coordinator variables), or ``launch``, which the training CLIs call:
+on a host with several cards it starts one worker a card with
+``torch.multiprocessing`` and a rendezvous on ``localhost``.  A failed
+worker or group ends the run with its error; nothing falls back to one
+card.
+
+Not ported (reached only through the JAX API, no CLI default): the
+tensor-parallel 'model' axis (``param_shardings``), the 'spatial' axis
+and tuning over sub-meshes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import socket
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+TORCHRUN_VARS = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+class LaunchError(ValueError):
+    """A launch that cannot train as asked (the CLIs exit 2 with it)."""
+
+
+def shard_rows(n: int, world_size: int, rank: int) -> Optional[slice]:
+    """The rows of a global batch of ``n`` that ``rank`` runs: the
+    rank's contiguous block of n / world_size rows when the world size
+    divides n, else None (the batch is replicated: every rank runs all
+    n rows)."""
+    if world_size < 1 or not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} of a world of {world_size}")
+    if n % world_size:
+        return None
+    per = n // world_size
+    return slice(rank * per, (rank + 1) * per)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataMesh:
+    """The data axis over the ranks of a process group: this process's
+    ``rank`` of ``world_size``, its ``device`` and the group's
+    ``backend``; ``group`` None is the default group."""
+
+    world_size: int
+    rank: int
+    device: torch.device
+    backend: Optional[str] = None
+    group: Any = None
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0, the one that prints and writes files."""
+        return self.rank == 0
+
+    def rows(self, n: int) -> Optional[slice]:
+        """``shard_rows`` of this rank: its block of a batch of ``n``, or
+        None when the batch is replicated."""
+        return shard_rows(n, self.world_size, self.rank)
+
+    def all_reduce_sum(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Sum ``tensor`` over the ranks, in place; returns it."""
+        dist.all_reduce(tensor, group=self.group)
+        return tensor
+
+    def broadcast(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``tensor`` on every rank, in place; returns it."""
+        dist.broadcast(tensor, src, group=self.group)
+        return tensor
+
+    def agree(self, flag: bool) -> bool:
+        """True on every rank when ``flag`` is true on any (one host sync):
+        a shutdown one rank saw stops them all after the same epoch."""
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32,
+                         device=self.device)
+        return bool(self.all_reduce_sum(t).item())
+
+    def broadcast_values(self, *values: float) -> list:
+        """Rank 0's ``values`` (floats) on every rank: the one value a
+        decision acts on (one host sync)."""
+        t = torch.tensor(values, dtype=torch.float64, device=self.device)
+        return self.broadcast(t).tolist()
+
+    def reduce_gradients(self, params, sharded: bool) -> None:
+        """Make the gradients of ``params`` (those that have one) the
+        update's on every rank, in one collective over one flat buffer:
+        the sum over the ranks after a sharded step (each rank's
+        backward gives its rows' part of the global loss's gradient),
+        rank 0's after a replicated one (every rank holds the whole
+        gradient)."""
+        grads = [p.grad for p in params if p.grad is not None]
+        if not grads:
+            return
+        flat = _flatten_dense_tensors(grads)
+        if sharded:
+            self.all_reduce_sum(flat)
+        else:
+            self.broadcast(flat)
+        torch._foreach_copy_(grads, _unflatten_dense_tensors(flat, grads))
+
+
+def torchrun_env() -> bool:
+    """Whether this process was started as a rank of a group
+    (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` set)."""
+    return all(os.environ.get(v) for v in TORCHRUN_VARS)
+
+
+def local_rank() -> int:
+    return int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
+
+
+def rank_device(device="cuda") -> torch.device:
+    """This rank's device: ``cuda:{LOCAL_RANK % device_count}`` for a CUDA
+    run (whatever index ``device`` names), ``device`` otherwise."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but "
+                           "torch.cuda.is_available() is False; pass "
+                           "device='cpu' to run on the CPU")
+    return torch.device("cuda", local_rank() % torch.cuda.device_count())
+
+
+def backend_for(device, local_world_size: int) -> str:
+    """NCCL when every rank of the host has a card of its own, gloo
+    otherwise (a CPU run, or ranks sharing a card: NCCL refuses two ranks
+    on one device)."""
+    if (torch.device(device).type == "cuda"
+            and local_world_size <= torch.cuda.device_count()):
+        return "nccl"
+    return "gloo"
+
+
+def maybe_distributed_init(device="cuda") -> bool:
+    """Join the process group that the environment describes (``torchrun``'s
+    variables; ``env://`` rendezvous) on this rank's device and backend.
+    A no-op that returns False without those variables, or when the group
+    exists already.  A failed init raises."""
+    if not torchrun_env() or dist.is_initialized():
+        return False
+    world = int(os.environ["WORLD_SIZE"])
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    dev = rank_device(device)
+    backend = backend_for(dev, local_world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        # CPU ranks share the host's cores.
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // local_world))
+    dist.init_process_group(backend, init_method="env://", world_size=world,
+                            rank=int(os.environ["RANK"]))
+    return True
+
+
+def make_mesh(n_devices: Optional[int] = None, device="cuda") -> DataMesh:
+    """The data mesh over every rank of the process group (JAX
+    ``make_mesh``, mesh.py:28-67), on ``device``'s kind.  Without a group
+    it is one rank on ``device``.  Raises ValueError, with what to do,
+    when ``n_devices`` is not what the group holds."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_devices is not None:
+        if n_devices < 1:
+            raise ValueError(f"make_mesh wanted {n_devices} devices")
+        if n_devices > world:
+            raise ValueError(
+                f"make_mesh wanted {n_devices} devices but this process "
+                f"group has {world} rank(s). Hint: start one process a card "
+                f"(torchrun --nproc-per-node {n_devices} -m "
+                "gan_aug_pfa_torch.train ..., or the bare CLI on a host "
+                f"with {n_devices} cards); on the CPU, start "
+                f"{n_devices} gloo ranks with --device cpu.")
+        if n_devices < world:
+            raise ValueError(
+                f"make_mesh wanted {n_devices} of the group's {world} "
+                "ranks: the data axis spans every rank (sub-meshes are "
+                "not ported). Start as many ranks as the mesh needs.")
+    if world == 1:
+        dev = torch.device(device)
+        return DataMesh(1, 0, dev, dist.get_backend() if
+                        dist.is_initialized() else None)
+    return DataMesh(world, dist.get_rank(), rank_device(device),
+                    dist.get_backend())
+
+
+def default_mesh(enabled: bool, device="cuda") -> Optional[DataMesh]:
+    """The trainers' mesh (JAX pipelines.py:55-58 ``_default_mesh``):
+    every rank of the process group when ``enabled`` (``data_parallel``)
+    and the group holds more than one rank, else None (one device)."""
+    if (enabled and dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return make_mesh(device=device)
+    return None
+
+
+def free_port() -> int:
+    """A TCP port on ``localhost`` that nothing listens on now."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _worker(rank: int, fn: Callable, args: Sequence, nprocs: int,
+            port: int, device, results) -> None:
+    """One spawned rank: ``torchrun``'s variables, the group, ``fn``; rank
+    0 reports whether ``fn`` returned a result."""
+    os.environ.update(WORLD_SIZE=str(nprocs), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(nprocs),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    maybe_distributed_init(device)
+    try:
+        result = fn(*args)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        results.put(result is not None)
+
+
+def spawn(fn: Callable, args: Sequence, nprocs: int, device="cuda"
+          ) -> Optional[dict]:
+    """Run ``fn(*args)`` on ``nprocs`` ranks of one group, one process
+    each (``torch.multiprocessing.spawn``; ``fn`` and ``args`` must
+    pickle).  Returns ``{"world_size": nprocs}`` when rank 0's ``fn``
+    returned a result, None when it returned None.  A worker that raises
+    raises here; one that exits with a code (an argument error, say)
+    exits this process with it."""
+    import torch.multiprocessing as mp
+
+    results = mp.get_context("spawn").SimpleQueue()
+    try:
+        mp.spawn(_worker, args=(fn, tuple(args), nprocs, free_port(), device,
+                                results), nprocs=nprocs, join=True)
+    except mp.ProcessExitedException as e:
+        if e.exit_code and e.exit_code > 0:
+            raise SystemExit(e.exit_code) from e
+        raise
+    return {"world_size": nprocs} if results.get() else None
+
+
+def launch(fn: Callable, args: Sequence, data_parallel: bool = True,
+           device="cuda"):
+    """Run a training entry point ``fn(*args)`` as the JAX CLIs do, data
+    parallel over every visible card by default:
+
+    * under ``torchrun``'s variables: this process is one rank; the group
+      is joined, ``fn`` runs, the group is left;
+    * with ``data_parallel``, ``device`` "cuda" (no index) and more than
+      one card: one worker a card (``spawn``);
+    * otherwise ``fn(*args)`` in this process, on one device.
+
+    ``data_parallel`` False under ``torchrun`` with more than one rank is
+    an error: each rank would train the whole model alone and write the
+    same files (``LaunchError``)."""
+    if torchrun_env() and int(os.environ["WORLD_SIZE"]) > 1:
+        if not data_parallel:
+            raise LaunchError(
+                "--no-data-parallel trains on one device: start one "
+                f"process, not {os.environ['WORLD_SIZE']} ranks")
+        joined = maybe_distributed_init(device)
+        try:
+            return fn(*args)
+        finally:
+            if joined:
+                dist.destroy_process_group()
+    if (data_parallel and str(device) == "cuda"
+            and torch.cuda.is_available()
+            and torch.cuda.device_count() > 1):
+        return spawn(fn, args, torch.cuda.device_count(), device)
+    return fn(*args)

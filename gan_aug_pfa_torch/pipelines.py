@@ -29,6 +29,16 @@ through ``data/native_loader.py`` (the C unfilter).
 Both trainers take the JAX package's training knobs from their configs
 (``SiameseTrainer`` and ``GANTrainer`` build their models, steps and
 optimizers from them), on the resident and the streamed paths alike.
+
+Both trainers run data-parallel when this process is one rank of a
+process group of several (``parallel/mesh.py``; the CLIs start one rank
+a card) and ``data_parallel`` is on (JAX ``_default_mesh``,
+pipelines.py:55-58).  Every rank builds its own cache, restores the same
+resume file and agrees on one value per epoch: rank 0's train and
+validation losses feed the plateau schedule, early stopping and the best
+model on every rank, and a shutdown that any rank saw stops all of them
+after the same epoch.  Only rank 0 prints, writes checkpoints, the run
+log, the profiler trace and the GAN strips.
 """
 
 from __future__ import annotations
@@ -77,6 +87,7 @@ from .metrics import (
 from .models.pix2pix import UNetGenerator
 from .models.siamese_unet import SiameseUNet
 from .ops.morphology import postprocess_prediction
+from .parallel.mesh import default_mesh
 from .train.gan import GANTrainer, generate
 from .train.optim import get_learning_rate
 from .train.plateau import EarlyStopping, make_plateau_scheduler
@@ -147,9 +158,11 @@ def _closing(ds):
     return contextlib.nullcontext(ds)
 
 
-def _setup_observability(trainer, cfg, items_per_step: int, verbose: bool):
+def _setup_observability(trainer, cfg, items_per_step: int, verbose: bool,
+                         main: bool = True):
     """Attach the step timer (``profile_dir``) and the NaN checks
-    (``debug_nans``) to ``trainer``; returns the profiler's context."""
+    (``debug_nans``) to ``trainer``; returns the profiler's context, which
+    traces on the ``main`` rank only."""
     if cfg.debug_nans:
         enable_nan_checks(trainer)
         if verbose:
@@ -160,7 +173,17 @@ def _setup_observability(trainer, cfg, items_per_step: int, verbose: bool):
         # full and the partial batch, first kernel loads): excluded.
         trainer.step_timer = StepTimer(items_per_step=items_per_step,
                                        skip_first=2)
-    return trace(cfg.profile_dir)
+    return trace(cfg.profile_dir if main else None)
+
+
+def _discard(path, payload) -> None:
+    """The checkpoint writer of a rank other than 0: writes nothing."""
+
+
+def _is_main(mesh) -> bool:
+    """Whether this process prints and writes: rank 0 of ``mesh``, or the
+    only process."""
+    return mesh is None or mesh.is_main
 
 
 def _report_observability(trainer, cfg, verbose: bool) -> None:
@@ -185,7 +208,10 @@ def run_siamese_training(
     continues from ``last_state.pth``, else from the JAX package's
     ``last_state.msgpack`` (``checkpoint.ResumeLayoutError`` when its
     optimizer layout is not the one ``train_cfg``'s knobs give)."""
-    dev = resolve_device(device)
+    mesh = default_mesh(train_cfg.data_parallel, device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    main = _is_main(mesh)
+    verbose = verbose and main
     checkpoint_dir = os.path.join(data_cfg.root_dir, train_cfg.checkpoint_dir)
     os.makedirs(checkpoint_dir, exist_ok=True)
     resume_path = (ckpt.find_checkpoint(checkpoint_dir, "last_state")
@@ -227,7 +253,8 @@ def run_siamese_training(
 
         trainer = SiameseTrainer(
             train_cfg, dev, augment=data_cfg.augment,
-            native_out_size=data_cfg.target_size if native else None)
+            native_out_size=data_cfg.target_size if native else None,
+            mesh=mesh)
         if initial_state_dict is not None:
             trainer.model.load_state_dict(initial_state_dict, strict=True)
         scheduler = make_plateau_scheduler(
@@ -259,8 +286,10 @@ def run_siamese_training(
         trainer.generator.manual_seed(train_cfg.seed)
         history = {"train_loss": [], "val_loss": []}
         profiler_ctx = _setup_observability(trainer, train_cfg,
-                                            train_cfg.batch_size, verbose)
-        runlog = open_run_log(train_cfg.log_jsonl, append=train_cfg.resume)
+                                            train_cfg.batch_size, verbose,
+                                            main)
+        runlog = open_run_log(train_cfg.log_jsonl if main else None,
+                              append=train_cfg.resume)
         if runlog:
             runlog.log(
                 "run_start", kind="siamese_train", start_epoch=start_epoch,
@@ -273,7 +302,7 @@ def run_siamese_training(
                 history["best_val_loss"] = _run_siamese_epochs(
                     trainer, train_cfg, scheduler, stopper, start_epoch,
                     best_val_loss, dev_train, dev_val, epoch_rng,
-                    checkpoint_dir, history, verbose, stop, runlog)
+                    checkpoint_dir, history, verbose, stop, runlog, mesh)
             if runlog:
                 runlog.log("run_end",
                            best_val_loss=history["best_val_loss"])
@@ -290,11 +319,13 @@ def run_siamese_training(
 def _run_siamese_epochs(trainer, train_cfg, scheduler, stopper, start_epoch,
                         best_val_loss, dev_train, dev_val, epoch_rng,
                         checkpoint_dir, history, verbose, stop=None,
-                        runlog=None) -> float:
+                        runlog=None, mesh=None) -> float:
     """The epoch loop, its writes and its events in the JAX package's
     order (pipelines.py:221-392).  ``dev_train`` is the train split's
-    device cache, or its ``StreamingSource`` under ``--stream``.  Returns
-    the best validation loss."""
+    device cache, or its ``StreamingSource`` under ``--stream``.  Under a
+    ``mesh`` every rank acts on rank 0's losses and on a shutdown any
+    rank saw, and only rank 0 writes.  Returns the best validation
+    loss."""
     def path(stem):
         return os.path.join(checkpoint_dir, ckpt.checkpoint_name(stem))
 
@@ -303,9 +334,10 @@ def _run_siamese_epochs(trainer, train_cfg, scheduler, stopper, start_epoch,
             runlog.log(event, **fields)
 
     cfg = train_cfg
+    main = _is_main(mesh)
     best_snapshot = None  # the best model's state_dict, on the device
-    writer = ckpt.AsyncCheckpointWriter() if cfg.async_ckpt else None
-    save = writer.save if writer else ckpt.save
+    writer = ckpt.AsyncCheckpointWriter() if cfg.async_ckpt and main else None
+    save = writer.save if writer else ckpt.save if main else _discard
     try:
         for epoch in range(start_epoch, cfg.num_epochs + 1):
             lr_now = get_learning_rate(trainer.optimizer)
@@ -322,6 +354,9 @@ def _run_siamese_epochs(trainer, train_cfg, scheduler, stopper, start_epoch,
             with annotate("validate"):
                 val_loss = (trainer.validate(dev_val) if dev_val is not None
                             else 0.0)
+            if mesh is not None:
+                train_loss, val_loss = mesh.broadcast_values(train_loss,
+                                                             val_loss)
             dt = time.perf_counter() - t0
             history["train_loss"].append(train_loss)
             history["val_loss"].append(val_loss)
@@ -339,7 +374,8 @@ def _run_siamese_epochs(trainer, train_cfg, scheduler, stopper, start_epoch,
                     # the next epoch's steps update the live tensors in
                     # place.
                     best_snapshot = {k: v.detach().clone() for k, v in
-                                     trainer.model.state_dict().items()}
+                                     trainer.model.state_dict().items()
+                                     if main}
                     if verbose:
                         print(f"Best model snapshotted on device (Val "
                               f"Loss: {best_val_loss:.4f})")
@@ -352,7 +388,7 @@ def _run_siamese_epochs(trainer, train_cfg, scheduler, stopper, start_epoch,
                               f"{best_val_loss:.4f})")
                     log("checkpoint", kind="best_model", path=p,
                         epoch=epoch, val_loss=val_loss)
-            preempted = stop is not None and stop.requested
+            preempted = stop is not None and stop.agreed(mesh)
             cadence = epoch % cfg.save_every == 0
             if best_snapshot is not None and (
                     cadence or epoch == cfg.num_epochs or preempted
@@ -422,7 +458,9 @@ def run_gan_training(
     ``.pth`` or the JAX package's ``.msgpack``
     (``checkpoint.ResumeLayoutError`` when an optimizer layout is not the
     one ``gan_cfg``'s knobs give)."""
-    dev = resolve_device(device)
+    mesh = default_mesh(gan_cfg.data_parallel, device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    verbose = verbose and _is_main(mesh)
     checkpoint_dir = os.path.join(data_cfg.root_dir, gan_cfg.checkpoint_dir)
     output_dir = os.path.join(data_cfg.root_dir, gan_cfg.output_dir)
     os.makedirs(checkpoint_dir, exist_ok=True)
@@ -443,17 +481,19 @@ def run_gan_training(
     with _closing(ds):
         return _train_gan(ds, data_cfg, gan_cfg, dev, checkpoint_dir,
                           output_dir, resume_paths, initial_state_dicts,
-                          verbose)
+                          verbose, mesh)
 
 
 def _train_gan(ds, data_cfg, gan_cfg, dev, checkpoint_dir, output_dir,
-               resume_paths, initial_state_dicts, verbose) -> Dict:
+               resume_paths, initial_state_dicts, verbose, mesh=None
+               ) -> Dict:
     """``run_gan_training`` from its dataset on: the host cache, or the
-    ``StreamingSource`` under ``--stream``."""
+    ``StreamingSource`` under ``--stream``; one rank of ``mesh``."""
+    main = _is_main(mesh)
     if verbose:
         print(f"GAN Dataset loaded: {len(ds)} train samples.")
 
-    trainer = GANTrainer(gan_cfg, dev)
+    trainer = GANTrainer(gan_cfg, dev, mesh=mesh)
     if initial_state_dicts is not None:
         trainer.load_state_dicts(*initial_state_dicts)
     start_epoch = 1
@@ -478,12 +518,14 @@ def _train_gan(ds, data_cfg, gan_cfg, dev, checkpoint_dir, output_dir,
     # writer (its last write waited for), the profiler.
     run = contextlib.ExitStack()
     run.enter_context(_setup_observability(trainer, gan_cfg,
-                                           gan_cfg.batch_size, verbose))
-    writer = ckpt.AsyncCheckpointWriter() if gan_cfg.async_ckpt else None
+                                           gan_cfg.batch_size, verbose, main))
+    writer = (ckpt.AsyncCheckpointWriter() if gan_cfg.async_ckpt and main
+              else None)
     if writer:
         run.callback(writer.close)
-    save = writer.save if writer else ckpt.save
-    runlog = open_run_log(gan_cfg.log_jsonl, append=gan_cfg.resume)
+    save = writer.save if writer else ckpt.save if main else _discard
+    runlog = open_run_log(gan_cfg.log_jsonl if main else None,
+                          append=gan_cfg.resume)
 
     def log(event, **fields):
         if runlog:
@@ -507,6 +549,8 @@ def _train_gan(ds, data_cfg, gan_cfg, dev, checkpoint_dir, output_dir,
                 else:
                     loss_d, loss_g = trainer.train_epoch(cache, epoch_rng,
                                                          epoch=epoch)
+            if mesh is not None:
+                loss_d, loss_g = mesh.broadcast_values(loss_d, loss_g)
             dt = time.perf_counter() - t0
             history["loss_d"].append(loss_d)
             history["loss_g"].append(loss_g)
@@ -516,7 +560,7 @@ def _train_gan(ds, data_cfg, gan_cfg, dev, checkpoint_dir, output_dir,
             log("epoch", epoch=epoch, loss_d=loss_d, loss_g=loss_g,
                 wall_s=round(dt, 3))
             last = epoch == gan_cfg.num_epochs
-            if epoch % gan_cfg.sample_every == 0 or last:
+            if (epoch % gan_cfg.sample_every == 0 or last) and main:
                 i = preview_i
                 if stream:
                     h1, h2, _ = ds.batch(np.array([i]))
@@ -532,7 +576,7 @@ def _train_gan(ds, data_cfg, gan_cfg, dev, checkpoint_dir, output_dir,
                 if verbose:
                     print(f"Saved sample image to {p}")
                 log("sample", epoch=epoch, path=p)
-            preempted = stop.requested
+            preempted = stop.agreed(mesh)
             if epoch % gan_cfg.save_every == 0 or last or preempted:
                 paths = _save_gan_checkpoints(trainer, checkpoint_dir,
                                               epoch, save)

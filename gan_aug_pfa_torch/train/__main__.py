@@ -23,11 +23,19 @@ the JAX package's note).  The JAX package's training knobs:
 ``--momentum-dtype``, ``--flat-opt-state`` and ``--grad-accum`` (the
 optimizer; ``train/optim.py``).  ``--resume`` from a state whose optimizer
 layout is not the one these flags give exits 2 naming both.
+
+Training is data-parallel over every visible card, as the JAX CLI's
+(``parallel/mesh.py``): on a host with several cards the CLI starts one
+worker a card; under ``torchrun`` (``torchrun --nproc-per-node N -m
+gan_aug_pfa_torch.train ...``, also with ``--device cpu``) each process is
+one rank.  Rank 0 prints and writes.  ``--no-data-parallel`` trains on
+one device.  Tuning runs on one device a trial.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 from typing import Dict, List, Optional
 
 from ..config import (
@@ -111,8 +119,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for the JAX package's command lines, as "
                         "--pallas-augment")
     p.add_argument("--no-data-parallel", action="store_true",
-                   help="accepted for the JAX package's command lines; "
-                        "the port trains on one device")
+                   help="train on one device (default: data-parallel over "
+                        "every visible card, one process a card; under "
+                        "torchrun, over its ranks)")
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted for the JAX package's command lines; "
                         "the port has no compilation cache")
@@ -229,14 +238,30 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
         opt_momentum_dtype=args.momentum_dtype,
         opt_flat_state=args.flat_opt_state,
         grad_accum=args.grad_accum,
+        data_parallel=not args.no_data_parallel,
     )
+    from ..parallel.mesh import LaunchError, launch
+
+    # By its importable name, so that a spawned worker can unpickle it.
+    train = importlib.import_module(__spec__.name).train
+    try:
+        return launch(train, (data_cfg, train_cfg, args.device),
+                      data_parallel=train_cfg.data_parallel,
+                      device=args.device)
+    except LaunchError as e:
+        parser.error(str(e))
+
+
+def train(data_cfg: DataConfig, train_cfg: SiameseTrainConfig, device):
+    """``pipelines.run_siamese_training`` on one rank (or alone); a resume
+    state of another optimizer layout exits 2 naming both."""
     from .. import pipelines
 
     try:
         return pipelines.run_siamese_training(data_cfg, train_cfg,
-                                              device=args.device)
+                                              device=device)
     except ResumeStateError as e:
-        parser.error(str(e))
+        build_parser().error(str(e))
 
 
 if __name__ == "__main__":

@@ -40,6 +40,16 @@ The JAX package's knobs (its gan.py:118-273), each off by default:
 
 and the optimizers take ``opt_momentum_dtype`` and ``opt_flat_state``
 (``train.optim.OptaxAdam``).
+
+With a ``mesh`` (``parallel/mesh.py``) the trainer is one rank of a
+data-parallel group, as ``SiameseTrainer``: a batch whose size divides by
+the world size is split into the ranks' row blocks, any other (the
+default batch of 1) replicated.  A sharded step takes every BatchNorm's
+statistics over the global batch, each loss as this rank's part of the
+global mean (``losses.gan_bce_loss``, ``losses.l1_loss`` with the global
+count), and sums D's, then G's, gradients over the ranks before each
+optimizer step; a replicated step takes rank 0's.  The returned losses
+are the global batch's on every rank, and the EMA runs on every rank.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from ..data.transforms import normalize
 from ..device import resolve_device
 from ..losses import gan_bce_loss, l1_loss
 from ..models.pix2pix import NLayerDiscriminator, UNetGenerator
+from ..parallel.batchnorm import convert_batchnorm, global_statistics
 from ..utils.profiling import step_guard, sync
 from .optim import make_optimizer
 from .siamese import compute_precision, step_label, tf32_off
@@ -76,13 +87,19 @@ def generate(generator: torch.nn.Module, img01: torch.Tensor,
 
 class GANTrainer:
     """Generator, discriminator, their Adam optimizers (betas (beta1,
-    0.999)) and the optional generator EMA on one device.  The models are
+    0.999)) and the optional generator EMA on one device, or on one rank
+    of a data mesh (``mesh``, as ``SiameseTrainer``'s).  The models are
     ``init_models(config.seed)``, moved to ``device``."""
 
-    def __init__(self, config: GANTrainConfig, device="cuda"):
+    def __init__(self, config: GANTrainConfig, device="cuda", mesh=None):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.world_size > 1 else None
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         g, d = self.init_models(config.seed)
+        if self.mesh is not None:
+            convert_batchnorm(g)
+            convert_batchnorm(d)
         self.generator = g.to(self.device)
         self.discriminator = d.to(self.device)
         knobs = dict(b1=config.beta1, mu_dtype=config.opt_momentum_dtype,
@@ -134,20 +151,35 @@ class GANTrainer:
 
     def train_step(self, cache, idx: torch.Tensor, where: str = ""
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One D+G step on the cache rows ``idx`` (a device index tensor).
-        Returns (loss_D, loss_G), detached 0-dim device tensors."""
+        """One D+G step on the cache rows ``idx`` (a device index tensor;
+        under a mesh the global batch, of which the rank gathers its rows
+        when it is sharded).  Returns (loss_D, loss_G), detached 0-dim
+        device tensors."""
+        rows = self.mesh.rows(len(idx)) if self.mesh is not None else None
+        if rows is not None:
+            idx = idx[rows]
         return self.train_batch(cache.img1.index_select(0, idx),
-                                cache.img2.index_select(0, idx), where)
+                                cache.img2.index_select(0, idx), where,
+                                sharded=rows is not None)
 
     def train_batch(self, a01: torch.Tensor, b01: torch.Tensor,
-                    where: str = "") -> Tuple[torch.Tensor, torch.Tensor]:
-        """One D+G step on NCHW [0,1] images A (input) and B (target).
-        ``where`` names the step in a NaN check's error."""
+                    where: str = "", sharded: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One D+G step on NCHW [0,1] images A (input) and B (target): the
+        whole batch, or under a mesh this rank's shard of it
+        (``sharded``).  ``where`` names the step in a NaN check's
+        error."""
         cfg = self.config
         g, d = self.generator, self.discriminator
         real_a, real_b = normalize(a01), normalize(b01)
         g.train()
         d.train()
+        mesh = self.mesh
+        # A shard's losses: its part of the global batch's means.
+        world = mesh.world_size if sharded else None
+
+        def total(x):
+            return None if world is None else x.numel() * world
 
         def precision():
             return compute_precision(cfg.compute_dtype, self.device.type)
@@ -158,7 +190,9 @@ class GANTrainer:
 
         # At float32 the backward passes run without TF32 too.
         with (tf32_off() if cfg.compute_dtype == "float32"
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), (
+                global_statistics(mesh.group) if sharded
+                else contextlib.nullcontext()):
             if cfg.shared_gen_fwd:
                 stats, counters, keep = _bn_stats(g)
                 # Copies of s0 in one multi-tensor launch.
@@ -178,10 +212,14 @@ class GANTrainer:
                 else:
                     pred_real = disc(real_a, real_b)
                     pred_fake = disc(real_a, fake)
-            loss_d = 0.5 * (gan_bce_loss(pred_real, True)
-                            + gan_bce_loss(pred_fake, False))
+            loss_d = 0.5 * (gan_bce_loss(pred_real, True, total(pred_real))
+                            + gan_bce_loss(pred_fake, False,
+                                           total(pred_fake)))
             self.opt_d.zero_grad(set_to_none=True)
             loss_d.backward()
+            if mesh is not None:
+                loss_d = self._global_loss(loss_d, sharded)
+                mesh.reduce_gradients(d.parameters(), sharded)
             if self.nan_checks:
                 step_guard(loss_d, d, f"{where} (D step)")
             self.opt_d.step()
@@ -191,20 +229,31 @@ class GANTrainer:
                 with precision():
                     fake = fake_live if cfg.shared_gen_fwd else g(real_a)
                     pred_fake = disc(real_a, fake)
-                loss_g = (gan_bce_loss(pred_fake, True)
-                          + l1_loss(fake, real_b) * cfg.lambda_l1)
+                loss_g = (gan_bce_loss(pred_fake, True, total(pred_fake))
+                          + l1_loss(fake, real_b, total(fake))
+                          * cfg.lambda_l1)
                 self.opt_g.zero_grad(set_to_none=True)
                 loss_g.backward()
             finally:
                 d.requires_grad_(True)
         if cfg.shared_gen_fwd:
             _second_bn_update(stats, counters, keep, before)
+        if mesh is not None:
+            loss_g = self._global_loss(loss_g, sharded)
+            mesh.reduce_gradients(g.parameters(), sharded)
         if self.nan_checks:
             step_guard(loss_g, g, f"{where} (G step)")
         self.opt_g.step()
         if self.ema is not None:
             self._update_ema()
         return loss_d.detach(), loss_g.detach()
+
+    def _global_loss(self, loss: torch.Tensor, sharded: bool
+                     ) -> torch.Tensor:
+        """The global batch's loss from a shard's part: the parts summed
+        over the ranks (a replicated step's loss is whole already)."""
+        loss = loss.detach()
+        return self.mesh.all_reduce_sum(loss.clone()) if sharded else loss
 
     @torch.no_grad()
     def _update_ema(self) -> None:
@@ -251,22 +300,27 @@ class GANTrainer:
             return 0.0, 0.0
         perm = epoch_rng.permutation(n)
         batches = [perm[s:s + bs] for s in range(0, n_full, bs)]
+        rows = self.mesh.rows(bs) if self.mesh is not None else None
+        if rows is not None:  # the rank stages only its rows
+            batches = [b[rows] for b in batches]
+        kw = {} if self.mesh is None else {"sharded": rows is not None}
         put = BatchPut(self.device, labels=False)
         losses = []
         for i, (_, staged) in enumerate(
                 prefetch_batches(source, batches, put, depth=depth), 1):
             a, b, _ = staged.get()
             losses.append(torch.stack(self._observed(
-                self.train_batch, a, b, epoch=epoch, step=i)))
+                self.train_batch, a, b, epoch=epoch, step=i, **kw)))
         loss_d, loss_g = torch.stack(losses).mean(dim=0).tolist()
         return loss_d, loss_g
 
-    def _observed(self, fn, *args, epoch, step: int
+    def _observed(self, fn, *args, epoch, step: int, **kw
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``fn(*args)`` (``train_step`` or ``train_batch``), under the step
-        timer when there is one (up to a device sync), naming the step in
-        the NaN check's error when that is on."""
-        kw = {"where": step_label(epoch, step)} if self.nan_checks else {}
+        """``fn(*args, **kw)`` (``train_step`` or ``train_batch``), under
+        the step timer when there is one (up to a device sync), naming the
+        step in the NaN check's error when that is on."""
+        if self.nan_checks:
+            kw["where"] = step_label(epoch, step)
         if self.step_timer is None:
             return fn(*args, **kw)
         with self.step_timer.step():

@@ -33,8 +33,21 @@ step.  With neither, a step makes no host sync.
 ``train_epoch_streaming`` trains from a ``data.stream.StreamingSource``
 (``--stream host|decode``) with the same batch-level step,
 ``train_batch``, as the resident path; there is no native-size variant,
-so an augmented streamed epoch runs the fixed-size chain.  The JAX
-package's mesh path is not ported.
+so an augmented streamed epoch runs the fixed-size chain.
+
+With a ``mesh`` (``parallel/mesh.py``; the JAX package's data axis) the
+trainer is one rank of a data-parallel group.  Each batch of the one
+epoch order is split into the ranks' row blocks when its size divides by
+the world size, else replicated.  The augmentation draws for the whole
+global batch from the one generator, as every rank does, and each rank
+takes its rows' draws (JAX draws, then shards).  A sharded step takes
+its BatchNorm statistics (``parallel/batchnorm.py``) and its FocalDice
+loss over the global batch and sums the gradients over the ranks; a
+replicated one runs the whole batch alone and takes rank 0's gradients.
+Either way one update equals the single-device update on the global
+batch, up to the order of the sums.  A streamed rank stages only its
+rows of a sharded batch.  ``validate`` splits each batch the same way
+and gives every rank the single-device value.
 """
 
 from __future__ import annotations
@@ -56,6 +69,7 @@ from ..data.transforms import (
 from ..device import resolve_device, tf32_off
 from ..models.siamese_unet import SiameseUNet
 from ..ops.kernels.fused_loss import focal_dice_loss_fused
+from ..parallel.batchnorm import convert_batchnorm, global_statistics
 from ..utils.profiling import step_guard, sync
 from .optim import make_optimizer
 
@@ -112,19 +126,24 @@ def predict_normalized(model: nn.Module, x1: torch.Tensor, x2: torch.Tensor,
 
 
 class SiameseTrainer:
-    """Model, optimizer and loss of Siamese training on one device.  The
-    model is ``init_model(config.seed)``, moved to ``device``; the
-    optimizer is built over its parameters, so weights loaded later with
-    ``model.load_state_dict`` stay the ones it updates."""
+    """Model, optimizer and loss of Siamese training on one device, or on
+    one rank of a data mesh.  The model is ``init_model(config.seed)``,
+    moved to ``device``; the optimizer is built over its parameters, so
+    weights loaded later with ``model.load_state_dict`` stay the ones it
+    updates."""
 
     def __init__(self, config: SiameseTrainConfig, device="cuda",
-                 augment: bool = False, native_out_size=None):
+                 augment: bool = False, native_out_size=None, mesh=None):
         """``native_out_size`` = (H, W) switches the augmented train step
         to the native-resolution chain: the train cache must then be a
         ``pipelines.NativeDeviceCache``, and each batch is augmented at
-        its native size and resized to (H, W)."""
+        its native size and resized to (H, W).  ``mesh``: a
+        ``parallel.mesh.DataMesh`` of more than one rank (the trainer then
+        runs on ``mesh.device``, its BatchNorms global), or None."""
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.world_size > 1 else None
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         self.augment = augment
         self.native_out_size = (tuple(native_out_size)
                                 if augment and native_out_size else None)
@@ -132,7 +151,10 @@ class SiameseTrainer:
         # it when a run starts.
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
-        self.model = self.init_model(config.seed).to(self.device)
+        model = self.init_model(config.seed)
+        if self.mesh is not None:
+            convert_batchnorm(model)
+        self.model = model.to(self.device)
         self.optimizer = make_optimizer(
             config.optimizer, self.model.parameters(), config.learning_rate,
             config.weight_decay, mu_dtype=config.opt_momentum_dtype,
@@ -155,10 +177,15 @@ class SiameseTrainer:
                                batched_encoder=cfg.batched_encoder,
                                concat_free=cfg.concat_free, remat=cfg.remat)
 
-    def loss(self, logits: torch.Tensor, labels: torch.Tensor
-             ) -> torch.Tensor:
-        """FocalDice of (B, 1, H, W) logits against (B, H, W) labels."""
-        return focal_dice_loss_fused(logits, labels, **self.loss_kwargs)
+    def loss(self, logits: torch.Tensor, labels: torch.Tensor,
+             sharded: bool = False) -> torch.Tensor:
+        """FocalDice of (B, 1, H, W) logits against (B, H, W) labels; of
+        the global batch when they are this rank's shard (``sharded``)."""
+        if not sharded:
+            return focal_dice_loss_fused(logits, labels, **self.loss_kwargs)
+        return focal_dice_loss_fused(
+            logits, labels, **self.loss_kwargs, group=self.mesh.group,
+            n_total=logits.numel() * self.mesh.world_size)
 
     def _batch(self, cache, idx: torch.Tensor):
         """The gather: the cache rows ``idx`` (a device index tensor) as
@@ -170,6 +197,13 @@ class SiameseTrainer:
                 cache.img2.index_select(0, idx),
                 cache.labels.index_select(0, idx), sizes)
 
+    def _full_sizes(self, b: int, img1: torch.Tensor) -> torch.Tensor:
+        """(b, 2) sizes of ``img1``'s full (H, W), filled on the device: no
+        host-to-device copy in a step."""
+        sizes = torch.full((b, 2), img1.shape[2], device=self.device)
+        sizes[:, 1] = img1.shape[3]
+        return sizes
+
     def _prepare(self, img1, img2, labels, sizes=None, params=None):
         """The train step's input from a batch: augmented with ``params``
         (drawn from ``generator`` when None) or normalized.  Returns NCHW
@@ -177,10 +211,7 @@ class SiameseTrainer:
         if not self.augment:
             return normalize(img1), normalize(img2), labels
         if sizes is None:
-            # Filled on the device: no host-to-device copy in a step.
-            sizes = torch.full((img1.shape[0], 2), img1.shape[2],
-                               device=self.device)
-            sizes[:, 1] = img1.shape[3]
+            sizes = self._full_sizes(img1.shape[0], img1)
         if params is None:
             params = sample_augment_params(self.generator, sizes)
         # The chain takes NHWC views of the NCHW rows and ends in the
@@ -196,13 +227,29 @@ class SiameseTrainer:
     def train_step(self, cache, idx: torch.Tensor, params=None,
                    where: str = "") -> torch.Tensor:
         """One optimization step on the cache rows ``idx`` (a device index
-        tensor): the gather, then ``train_batch``."""
-        img1, img2, labels, sizes = self._batch(cache, idx)
-        return self.train_batch(img1, img2, labels, params, where, sizes)
+        tensor): the gather, then ``train_batch``.  Under a mesh ``idx`` is
+        the global batch and ``params`` its draws: the rank gathers its
+        rows of a sharded batch."""
+        if self.mesh is None:
+            img1, img2, labels, sizes = self._batch(cache, idx)
+            return self.train_batch(img1, img2, labels, params, where, sizes)
+        rows = self.mesh.rows(len(idx))
+        if self.augment and params is None:
+            # Every rank draws for the whole global batch, as the one
+            # generator of a single device does.
+            params = sample_augment_params(
+                self.generator, cache.sizes.index_select(0, idx)
+                if self.native_out_size is not None
+                else self._full_sizes(len(idx), cache.img1))
+        params = _rows_of(params, rows)
+        img1, img2, labels, sizes = self._batch(
+            cache, idx if rows is None else idx[rows])
+        return self.train_batch(img1, img2, labels, params, where, sizes,
+                                sharded=rows is not None)
 
     def train_batch(self, img1: torch.Tensor, img2: torch.Tensor,
                     labels: torch.Tensor, params=None, where: str = "",
-                    sizes=None) -> torch.Tensor:
+                    sizes=None, sharded: bool = False) -> torch.Tensor:
         """One optimization step on a batch of NCHW [0, 1] images and
         (B, H, W) float labels on the device, the body that the resident
         and the streamed paths share (the JAX package's
@@ -212,18 +259,26 @@ class SiameseTrainer:
         chain, else normalized.  Returns the batch loss as a detached 0-dim
         device tensor (no host sync unless ``nan_checks``, whose error
         names ``where``).  Under ``grad_accum`` the optimizer step applies
-        an update only on every k-th call."""
+        an update only on every k-th call.  Under a mesh the batch is this
+        rank's shard of the global batch (``sharded``; ``params`` then its
+        rows' draws) or the whole replicated batch, and the loss is the
+        global batch's."""
         img1, img2, labels = self._prepare(img1, img2, labels, sizes, params)
         self.model.train()
         # At float32 the backward's convolutions run without TF32 too.
         with (tf32_off() if self.config.compute_dtype == "float32"
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), (
+                global_statistics(self.mesh.group) if sharded
+                else contextlib.nullcontext()):
             with compute_precision(self.config.compute_dtype,
                                    self.device.type):
                 logits = self.model(img1, img2)
-            loss = self.loss(logits, labels)
+            loss = (self.loss(logits, labels, sharded=True) if sharded
+                    else self.loss(logits, labels))
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        if self.mesh is not None:
+            self.mesh.reduce_gradients(self.model.parameters(), sharded)
         if self.nan_checks:
             step_guard(loss, self.model, where)
         self.optimizer.step()
@@ -256,19 +311,33 @@ class SiameseTrainer:
         n = len(source)
         perm = epoch_rng.permutation(n)
         batches = [perm[s:s + bs] for s in range(0, n, bs)]
+        rows = [self.mesh.rows(len(b)) if self.mesh is not None else None
+                for b in batches]
+        staged_rows = [b if r is None else b[r] for b, r in zip(batches, rows)]
         losses = []
-        for i, (_, staged) in enumerate(prefetch_batches(
-                source, batches, BatchPut(self.device), depth=depth), 1):
-            losses.append(self._observed(self.train_batch, *staged.get(),
-                                         epoch=epoch, step=i))
+        staged = prefetch_batches(source, staged_rows, BatchPut(self.device),
+                                  depth=depth)
+        for i, ((_, put), batch, r) in enumerate(zip(staged, batches, rows),
+                                                 1):
+            images = put.get()
+            kw = {}
+            if self.mesh is not None:
+                kw["sharded"] = r is not None
+                if self.augment:  # drawn for the global batch
+                    kw["params"] = _rows_of(sample_augment_params(
+                        self.generator,
+                        self._full_sizes(len(batch), images[0])), r)
+            losses.append(self._observed(self.train_batch, *images,
+                                         epoch=epoch, step=i, **kw))
         return _mean(losses)
 
-    def _observed(self, fn, *args, epoch, step: int) -> torch.Tensor:
-        """``fn(*args)`` (``train_step`` or ``train_batch``), under the step
-        timer when there is one (up to a device sync, so that the time
-        holds the card's work), naming the step in the NaN check's error
-        when that is on."""
-        kw = {"where": step_label(epoch, step)} if self.nan_checks else {}
+    def _observed(self, fn, *args, epoch, step: int, **kw) -> torch.Tensor:
+        """``fn(*args, **kw)`` (``train_step`` or ``train_batch``), under the
+        step timer when there is one (up to a device sync, so that the
+        time holds the card's work), naming the step in the NaN check's
+        error when that is on."""
+        if self.nan_checks:
+            kw["where"] = step_label(epoch, step)
         if self.step_timer is None:
             return fn(*args, **kw)
         with self.step_timer.step():
@@ -279,18 +348,36 @@ class SiameseTrainer:
     @torch.no_grad()
     def validate(self, cache) -> float:
         """Mean FocalDice over contiguous eval-mode batches (forward kernel
-        only).  0.0 for an empty cache, as the JAX package returns."""
+        only).  0.0 for an empty cache, as the JAX package returns.  Under
+        a mesh each rank runs its rows of a batch that divides (the loss
+        the global batch's), all of one that does not."""
         bs = self.config.batch_size
         self.model.eval()
         losses = []
         for start in range(0, len(cache), bs):
-            img1 = normalize(cache.img1[start:start + bs])
-            img2 = normalize(cache.img2[start:start + bs])
+            stop, sharded = start + bs, False
+            if self.mesh is not None:
+                rows = self.mesh.rows(min(stop, len(cache)) - start)
+                if rows is not None:
+                    start, stop, sharded = (start + rows.start,
+                                            start + rows.stop, True)
+            img1 = normalize(cache.img1[start:stop])
+            img2 = normalize(cache.img2[start:stop])
             with compute_precision(self.config.compute_dtype,
                                    self.device.type):
                 logits = self.model(img1, img2)
-            losses.append(self.loss(logits, cache.labels[start:start + bs]))
+            labels = cache.labels[start:stop]
+            losses.append(self.loss(logits, labels, sharded=True) if sharded
+                          else self.loss(logits, labels))
         return _mean(losses)
+
+
+def _rows_of(params, rows):
+    """The draws of ``rows`` (a slice; None: all) from the draws for a
+    global batch (a ``sample_augment_params`` dict, or None)."""
+    if params is None or rows is None:
+        return params
+    return {k: v[rows] for k, v in params.items()}
 
 
 def _mean(losses) -> float:

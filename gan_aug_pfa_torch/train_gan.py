@@ -11,9 +11,12 @@ generator's EMA.  Run control: ``--log-jsonl``, ``--profile-dir``,
 in flight, writes the epoch's checkpoints and the ``last_*`` resume pair at
 it and exits 0, and ``--resume`` continues from there, or from the JAX
 package's ``last_generator.msgpack`` and ``last_discriminator.msgpack``.
-``--no-data-parallel`` and ``--no-compile-cache`` are accepted so that the
-JAX package's command lines run unchanged (the port trains on one device
-and has no compilation cache).  ``--stream host|decode`` keeps the corpus
+Training is data-parallel over every visible card, as the JAX CLI's (one
+worker a card, or the ranks of ``torchrun``; ``parallel/mesh.py``); the
+default batch of 1 then runs whole on every card.  ``--no-data-parallel``
+trains on one device.  ``--no-compile-cache`` is accepted so that the JAX
+package's command lines run unchanged (the port has no compilation
+cache).  ``--stream host|decode`` keeps the corpus
 off the device (``data/stream.py``).  The JAX package's GAN knobs:
 ``--batched-disc``, ``--concat-free-disc`` and ``--shared-gen-fwd`` (the
 step; ``train/gan.py``), ``--momentum-dtype`` and ``--flat-opt-state``
@@ -24,6 +27,7 @@ the one these flags give exits 2 naming both.
 from __future__ import annotations
 
 import argparse
+import importlib
 from typing import Dict, List, Optional
 
 from .config import (
@@ -78,8 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
     p.add_argument("--no-data-parallel", action="store_true",
-                   help="accepted for the JAX package's command lines; "
-                        "the port trains on one device")
+                   help="train on one device (default: data-parallel over "
+                        "every visible card, one process a card; under "
+                        "torchrun, over its ranks)")
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted for the JAX package's command lines; "
                         "the port has no compilation cache")
@@ -162,14 +167,29 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
         profile_dir=args.profile_dir,
         debug_nans=args.debug_nans,
         log_jsonl=args.log_jsonl,
+        data_parallel=not args.no_data_parallel,
     )
+    from .parallel.mesh import LaunchError, launch
+
+    # By its importable name, so that a spawned worker can unpickle it.
+    train = importlib.import_module(__spec__.name).train
+    try:
+        return launch(train, (data_cfg, gan_cfg, args.device),
+                      data_parallel=gan_cfg.data_parallel,
+                      device=args.device)
+    except LaunchError as e:
+        parser.error(str(e))
+
+
+def train(data_cfg: DataConfig, gan_cfg: GANTrainConfig, device):
+    """``pipelines.run_gan_training`` on one rank (or alone); a resume pair
+    of another optimizer layout exits 2 naming both."""
     from . import pipelines
 
     try:
-        return pipelines.run_gan_training(data_cfg, gan_cfg,
-                                          device=args.device)
+        return pipelines.run_gan_training(data_cfg, gan_cfg, device=device)
     except ResumeStateError as e:
-        parser.error(str(e))
+        build_parser().error(str(e))
 
 
 if __name__ == "__main__":

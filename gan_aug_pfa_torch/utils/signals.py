@@ -2,7 +2,9 @@
 copy): the first SIGTERM or SIGINT only latches a flag; the epoch loop
 sees it at the next epoch boundary, writes the resume state and returns,
 so that ``--resume`` continues from that epoch.  A second signal falls
-through to the previous handler (ctrl-C twice still kills).
+through to the previous handler (ctrl-C twice still kills).  Under a data
+mesh the ranks agree (``GracefulShutdown.agreed``): a signal that reached
+one rank stops them all after the same epoch.
 """
 
 from __future__ import annotations
@@ -41,6 +43,13 @@ class GracefulShutdown:
             "the current epoch, saving resume state, then exiting. "
             "Signal again to stop immediately."
         )
+
+    def agreed(self, mesh=None) -> bool:
+        """``requested`` here, or under a data mesh (``parallel/mesh.py``)
+        on any rank: every rank stops after the same epoch."""
+        if mesh is None:
+            return self.requested
+        return mesh.agree(self.requested)
 
     def __enter__(self):
         try:

@@ -476,7 +476,8 @@ def test_bf16_loss_runs_no_cast_kernel(cuda):
 def test_fused_loss_kernel_refuses_a_plan_it_does_not_take(cuda):
     """The C entry points check the plan: threads that are not a multiple
     of 32 or above 256, no blocks or more than the workspace holds, groups
-    past the end, groups that are not 16-byte aligned.  An error, not a
+    past the end, groups that are not 16-byte aligned; and a focal-mean
+    divisor n_total below the element count.  An error, not a
     fallback."""
     fwd, bwd = fl._kernels()
     x, t = _loss_inputs((4, 1, 128, 128), seed=15)
@@ -490,11 +491,12 @@ def test_fused_loss_kernel_refuses_a_plan_it_does_not_take(cuda):
     plan = fl.plan_for(xf, tf)
     hyper = _loss_hyper(GAMMAS[0])
 
-    def run(p):
-        a = fwd(xf.data_ptr(), 0, tf.data_ptr(), n, *p.c_args(), *hyper,
-                out.data_ptr(), ws.data_ptr(), stream)
+    def run(p, n_total=n):
+        a = fwd(xf.data_ptr(), 0, tf.data_ptr(), n, n_total, *p.c_args(),
+                *hyper, out.data_ptr(), ws.data_ptr(), stream)
         b = bwd(xf.data_ptr(), 0, tf.data_ptr(), out[1:].data_ptr(),
-                g.data_ptr(), n, *p.c_args(), *hyper, dx.data_ptr(), stream)
+                g.data_ptr(), n, n_total, *p.c_args(), *hyper, dx.data_ptr(),
+                stream)
         return a, b
 
     for bad in (dataclasses.replace(plan, threads=48),
@@ -504,7 +506,9 @@ def test_fused_loss_kernel_refuses_a_plan_it_does_not_take(cuda):
                 dataclasses.replace(plan, groups=plan.groups + 1),
                 dataclasses.replace(plan, head=1)):
         assert all(e != 0 for e in run(bad)), bad
+    assert all(e != 0 for e in run(plan, n - 1))
     assert run(plan) == (0, 0)
+    assert run(plan, 2 * n) == (0, 0)
     torch.cuda.synchronize()
 
 
