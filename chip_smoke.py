@@ -123,10 +123,13 @@ Phases, each of which fails the run if it fails:
    ``python -m gan_aug_pfa_torch.train_gan --resume``, its Adam moments on
    the card equal to the file's, and one fp32 D+G step from it (TF32 off)
    within 1e-5 relative of the JAX losses saved beside it;
-15. serve: ``python -m gan_aug_pfa_torch.export_model --backend cuda`` at
+15. serve (run last, after phase 18: its sidecar's compile brings
+   Inductor into the process): ``python -m gan_aug_pfa_torch.export_model
+   --backend cuda`` at
    full width from seeded checkpoints (the Siamese net at fp32, bf16 and
-   int8, the generator at fp32 and int8, the discriminator at fp32); each
-   artifact loaded in a fresh process that cannot import the model code,
+   int8, the generator at fp32 and int8, the discriminator at fp32); the
+   artifacts loaded in turn in one fresh process that cannot import the
+   model code, each
    serving batches 1 and 4 against the eager port model (fp32 and int8
    within 1e-5 of the eager model with the same, dequantized, weights;
    bf16 within the eager bf16 forward's own distance from fp32, its
@@ -134,11 +137,17 @@ Phases, each of which fails the run if it fails:
    the confusion counts' (calls, launches) set to 0 just before and read
    just after ((7, 7); the checkpoint path's counts at fp32 within the
    phase-5 rule); ``generate_synthetic --serving-artifact`` (img2 within 1
-   LSB of the checkpoint path on at most 0.5% of pixels); ``--serving-aot
-   require`` exiting non-zero; export seconds, load ms and first-batch
-   latency in a fresh process, evaluation pairs/s at bs 2 and 16 through
-   each artifact and the checkpoint path, int8 against fp32 file and
-   device bytes.
+   LSB of the checkpoint path on at most 0.5% of pixels); export seconds,
+   load ms and first-batch latency in a fresh process, evaluation pairs/s
+   at bs 2 and 16 through each artifact and the checkpoint path, int8
+   against fp32 file and device bytes.  Then the executable sidecar
+   (``phase_serving_sidecar``): ``python -m gan_aug_pfa_torch.serve`` on
+   the fp32 Siamese artifact at batch 2 (compile seconds, package bytes),
+   the AOTInductor package against the ``.pt2`` within 1e-5, ``evaluate
+   --serving-aot require`` in a fresh process with ``never``'s report and
+   confusion counts (7, 7), cold start and pairs/s against the ``.pt2``,
+   a damaged package (``require`` raises naming it, ``auto`` serves the
+   ``.pt2``) and a recompile that leaves no stale package.
 
 16. stream: hold the C unfilter of ``data/native_loader.py`` (built in
    phase 2) against ``data/png.py`` byte for byte on every file of a
@@ -1086,13 +1095,18 @@ def phase_model(torch, SiameseUNet, predict):
 
 def check_report(result, report_path):
     """The evaluation of the 14 cities at 128x128: counts that cover each
-    map, the JAX package's report keys, every metric finite in [0, 1]."""
-    from gan_aug_pfa_torch.metrics import METRIC_KEYS
-
+    map, and ``check_report_file``."""
     counts = result["counts"]
     if counts.shape[0] != len(CITIES) or not (
             counts.sum(axis=1) == 128 * 128).all():
         raise AssertionError(f"counts do not cover 14 128x128 maps: {counts}")
+    check_report_file(report_path)
+
+
+def check_report_file(report_path):
+    """The JAX package's report keys, every metric finite in [0, 1]."""
+    from gan_aug_pfa_torch.metrics import METRIC_KEYS
+
     with open(report_path) as f:
         report = json.load(f)
     want_keys = {"n_samples", "threshold", "checkpoints", "post_process",
@@ -2766,73 +2780,86 @@ SERVE_REPS = 8  # copies of the 14 pairs in the timed evaluation cache
 SERVE_INT8_RATIO = 0.45
 
 SERVE_CHILD = r"""
-import json, sys, time
+import gc, json, sys, time
 t0 = time.perf_counter()
 sys.modules["gan_aug_pfa_torch.models"] = None  # the model code is gone
 import numpy as np
 import torch
 from gan_aug_pfa_torch import serve
-path, inputs, outputs, device = sys.argv[1:5]
+device, batches, jobs = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3:]
 t1 = time.perf_counter()
 torch.zeros(1, device=device)
 torch.cuda.synchronize()
-before = torch.cuda.memory_allocated()
 t2 = time.perf_counter()
-header, fn = serve.load_serving_fn(path, device=device)
-torch.cuda.synchronize()
-t3 = time.perf_counter()
-weights = torch.cuda.memory_allocated() - before
-t = time.perf_counter()
-serve.load_serving_fn(path, device=device)  # again, its imports done
-torch.cuda.synchronize()
-reload_ms = 1e3 * (time.perf_counter() - t)
-d = np.load(inputs)
-xs = [d[k] for k in sorted(d.files)]
-out, ms, peak = {}, {}, {}
-for i, bs in enumerate(json.loads(sys.argv[5])):
-    runs = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(1 if i == 0 else 5):
-        t = time.perf_counter()
-        y = fn(*[x[:bs] for x in xs])
-        torch.cuda.synchronize()
-        runs.append(1e3 * (time.perf_counter() - t))
-    out[f"b{bs}"] = y.cpu().numpy()
-    ms[bs] = runs
-    peak[bs] = torch.cuda.max_memory_allocated() - before
-np.savez(outputs, **out)
-print(json.dumps({
-    "arch": header["arch"], "compute_dtype": header["compute_dtype"],
-    "quantize": header.get("quantize"), "import_s": t1 - t0,
-    "context_s": t2 - t1, "load_ms": 1e3 * (t3 - t2), "reload_ms": reload_ms,
-    "weight_bytes": weights, "batch_ms": ms, "peak_bytes": peak,
-    "model_modules": sorted(m for m, v in sys.modules.items()
-                            if v is not None and ".models" in m)}))
+for path, inputs, outputs in zip(jobs[0::3], jobs[1::3], jobs[2::3]):
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    header, fn = serve.load_serving_fn(path, aot="never", device=device)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t)
+    weights = torch.cuda.memory_allocated() - before
+    t = time.perf_counter()
+    serve.load_serving_fn(path, aot="never", device=device)  # again
+    torch.cuda.synchronize()
+    reload_ms = 1e3 * (time.perf_counter() - t)
+    d = np.load(inputs)
+    xs = [d[k] for k in sorted(d.files)]
+    out, ms, peak = {}, {}, {}
+    for i, bs in enumerate(batches):
+        runs = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(1 if i == 0 else 5):
+            t = time.perf_counter()
+            y = fn(*[x[:bs] for x in xs])
+            torch.cuda.synchronize()
+            runs.append(1e3 * (time.perf_counter() - t))
+        out[f"b{bs}"] = y.cpu().numpy()
+        ms[bs] = runs
+        peak[bs] = torch.cuda.max_memory_allocated() - before
+    np.savez(outputs, **out)
+    print(json.dumps({
+        "arch": header["arch"], "compute_dtype": header["compute_dtype"],
+        "quantize": header.get("quantize"), "load_ms": load_ms,
+        "reload_ms": reload_ms, "weight_bytes": weights, "batch_ms": ms,
+        "peak_bytes": peak}))
+    del fn, y
+print(json.dumps({"import_s": t1 - t0, "context_s": t2 - t1,
+                  "model_modules": sorted(
+                      m for m, v in sys.modules.items()
+                      if v is not None and ".models" in m)}))
 """
 
 
-def serve_child(path, inputs, device):
-    """Load the artifact at ``path`` in a fresh process that cannot import
-    the port's model code, serve the first 1 and 4 of ``inputs`` and
-    return (its JSON report, the outputs by batch)."""
+def serve_child(jobs, device):
+    """Load each artifact of ``jobs`` ((path, inputs) pairs) in turn in one
+    fresh process that cannot import the port's model code, serve the
+    first 1 and 4 of its inputs, and return (the process's JSON report,
+    [(each artifact's report, its outputs by batch)]).  The first load
+    pays torch.export's imports."""
     with tempfile.TemporaryDirectory() as tmp:
-        np.savez(os.path.join(tmp, "in.npz"), *inputs)
-        out = os.path.join(tmp, "out.npz")
+        argv = []
+        for i, (path, inputs) in enumerate(jobs):
+            np.savez(os.path.join(tmp, f"in{i}.npz"), *inputs)
+            argv += [path, os.path.join(tmp, f"in{i}.npz"),
+                     os.path.join(tmp, f"out{i}.npz")]
         proc = subprocess.run(
-            [sys.executable, "-c", SERVE_CHILD, path,
-             os.path.join(tmp, "in.npz"), out, device,
-             json.dumps(SERVE_BATCHES)],
-            cwd=REPO, capture_output=True, text=True, timeout=300)
+            [sys.executable, "-c", SERVE_CHILD, device,
+             json.dumps(SERVE_BATCHES), *argv],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
-            raise AssertionError(f"serving {path} in a fresh process failed:"
+            raise AssertionError(f"serving in a fresh process failed:"
                                  f"\n{proc.stderr[-4000:]}")
-        report = json.loads(proc.stdout.strip().splitlines()[-1])
-        with np.load(out) as d:
-            outputs = {int(k[1:]): d[k] for k in d.files}
-    if report["model_modules"]:
+        lines = [json.loads(line) for line in
+                 proc.stdout.strip().splitlines()[-len(jobs) - 1:]]
+        results = []
+        for i, report in enumerate(lines[:-1]):
+            with np.load(os.path.join(tmp, f"out{i}.npz")) as d:
+                results.append((report, {int(k[1:]): d[k] for k in d.files}))
+    if lines[-1]["model_modules"]:
         raise AssertionError(f"the serving process imported "
-                             f"{report['model_modules']}")
-    return report, outputs
+                             f"{lines[-1]['model_modules']}")
+    return lines[-1], results
 
 
 def serving_refs(torch, arch, model, inputs, compute_dtype, device):
@@ -2856,7 +2883,7 @@ def serving_refs(torch, arch, model, inputs, compute_dtype, device):
     return y.float().cpu().numpy()
 
 
-def phase_serving(torch, root, device="cuda"):
+def phase_serving(torch, root, device="cuda", sidecar_job=None):
     """Phase 15: serving artifacts on the card.  ``python -m
     gan_aug_pfa_torch.export_model --backend cuda`` at full width from
     seeded checkpoints: the Siamese net at fp32, bf16 and int8 (128x128),
@@ -2868,11 +2895,11 @@ def phase_serving(torch, root, device="cuda"):
     distance from fp32); then ``evaluate --serving-artifact`` (confusion
     counts (7, 7), the checkpoint path's counts at fp32 within the phase-5
     rule), ``generate_synthetic --serving-artifact`` (img2 within 1 LSB of
-    the checkpoint path on at most 0.5% of pixels) and ``--serving-aot
-    require`` (exits non-zero).  Prints export seconds, load ms and first
-    batch latency in a fresh process, evaluation pairs/s at bs 2 and 16
-    through each artifact against the checkpoint path, and the fp32 and
-    int8 artifacts' file and device bytes."""
+    the checkpoint path on at most 0.5% of pixels), then the executable
+    sidecar (``phase_serving_sidecar``).  Prints export seconds, load ms
+    and first batch latency in a fresh process, evaluation pairs/s at bs 2
+    and 16 through each artifact against the checkpoint path, and the fp32
+    and int8 artifacts' file and device bytes."""
     from gan_aug_pfa_torch import checkpoint, evaluate, pipelines
     from gan_aug_pfa_torch import export_model as export_cli
     from gan_aug_pfa_torch import generate_synthetic as synth_cli
@@ -2889,7 +2916,10 @@ def phase_serving(torch, root, device="cuda"):
     )
     from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
 
-    write_oscd_tree(root)
+    # The fp32 Siamese artifact and its sidecar come from the export CLI
+    # with --aot-batch-sizes, started early when the caller gave the job.
+    job = sidecar_job or start_sidecar_export(torch, root, device)
+    export_wall = finish_sidecar_export(job)
     torch.manual_seed(SEED)
     models = {"siamese": seeded_model(torch, SiameseUNet),
               "generator": UNetGenerator().eval(),
@@ -2910,6 +2940,11 @@ def phase_serving(torch, root, device="cuda"):
         key = (arch, dtype, quant)
         arts[key] = os.path.join(
             root, "artifacts", f"{arch}_{quant or dtype}.pt2")
+        if arts[key] == job["artifact"]:
+            print(f"serving: exported {arch} {dtype} and compiled its sidecar"
+                  f" in {export_wall:.2f} s of a child process "
+                  f"({os.path.getsize(arts[key])} bytes)")
+            continue
         argv = ["--checkpoint-path", pths[arch], "--output", arts[key],
                 "--backend", device, "--compute-dtype", dtype]
         t0 = time.perf_counter()
@@ -2919,17 +2954,23 @@ def phase_serving(torch, root, device="cuda"):
               f"{time.perf_counter() - t0:.2f} s "
               f"({os.path.getsize(arts[key])} bytes)")
 
-    # Each artifact in a fresh process, against the eager model.
+    # The artifacts in one fresh process, each against the eager model.
     rng = np.random.RandomState(SEED + 15)
-    reports = {}
-    for key, path in arts.items():
-        arch, dtype, quant = key
+    reports, jobs = {}, []
+    for arch, dtype, quant in arts:
         size = 128 if arch == "siamese" else 256
         lo = 0.0 if arch == "generator" else -1.0
-        inputs = [(rng.rand(max(SERVE_BATCHES), size, size, 3) * (1 - lo)
-                   + lo).astype(np.float32)
-                  for _ in range(1 if arch == "generator" else 2)]
-        report, outputs = serve_child(path, inputs, device)
+        jobs.append([(rng.rand(max(SERVE_BATCHES), size, size, 3) * (1 - lo)
+                      + lo).astype(np.float32)
+                     for _ in range(1 if arch == "generator" else 2)])
+    process, results = serve_child(list(zip(arts.values(), jobs)), device)
+    print(f"serving: one fresh process for the {len(arts)} artifacts: "
+          f"import {process['import_s']:.2f} s, CUDA context "
+          f"{process['context_s']:.2f} s (the first load pays "
+          "torch.export's imports)")
+    for (key, path), inputs, (report, outputs) in zip(arts.items(), jobs,
+                                                      results):
+        arch, dtype, quant = key
         reports[key] = report
         model = models[arch].to(device)
         if quant:
@@ -2952,10 +2993,8 @@ def phase_serving(torch, root, device="cuda"):
                                         device)).max())
                 for bs in SERVE_BATCHES)
         ms = report["batch_ms"]
-        print(f"serving: {arch} {quant or dtype} in a fresh process: import "
-              f"{report['import_s']:.2f} s, CUDA context "
-              f"{report['context_s']:.2f} s, load {report['load_ms']:.1f} "
-              f"ms (a second load {report['reload_ms']:.1f} ms), weights on "
+        print(f"serving: {arch} {quant or dtype}: load "
+              f"{report['load_ms']:.1f} ms (a second load {report['reload_ms']:.1f} ms), weights on "
               f"the device {report['weight_bytes']} bytes; "
               f"first batch (bs 1) {ms['1'][0]:.2f} ms, bs 4 median "
               f"{float(np.median(ms['4'])):.2f} ms; peak "
@@ -2994,8 +3033,9 @@ def phase_serving(torch, root, device="cuda"):
     fn.calls = fn.launches = 0
     t0 = time.time()
     art_result, _ = run_captured(evaluate.main, [
-        "--root-dir", root, "--serving-artifact", siamese_fp32, "--device",
-        device, "--json-out", os.path.join(root, "artifact.json")])
+        "--root-dir", root, "--serving-artifact", siamese_fp32,
+        "--serving-aot", "never", "--device", device, "--json-out",
+        os.path.join(root, "artifact.json")])
     counts = (fn.calls, fn.launches)
     print(f"serving: evaluate --serving-artifact wall {time.time() - t0:.2f} "
           f"s, confusion counts (calls, launches) {counts}")
@@ -3013,7 +3053,8 @@ def phase_serving(torch, root, device="cuda"):
         create_sample_lists(root, SUBDIR, mode="all", verbose=False),
         (128, 128), verbose=False)
     cache = pipelines.DeviceCache.from_dataset(ds, device)
-    _, serve_fn = serve.load_serving_fn(siamese_fp32, device=device)
+    _, serve_fn = serve.load_serving_fn(siamese_fp32, aot="never",
+                                        device=device)
     probs = {"artifact": pipelines.artifact_fn(serve_fn),
              "checkpoint": pipelines.ensemble_fn([models["siamese"]],
                                                  "float32")}
@@ -3043,7 +3084,7 @@ def phase_serving(torch, root, device="cuda"):
     for name, key in (("artifact bf16", ("siamese", "bfloat16", None)),
                       ("artifact int8", ("siamese", "float32", "int8"))):
         paths[name] = pipelines.artifact_fn(
-            serve.load_serving_fn(arts[key], device=device)[1])
+            serve.load_serving_fn(arts[key], aot="never", device=device)[1])
     for bs in (2, 16):
         cfg = EvalConfig(batch_size=bs)
         for name, probs_fn in paths.items():
@@ -3098,19 +3139,311 @@ def phase_serving(torch, root, device="cuda"):
     if diffs.max() > 1 or share > SYNTH_LSB_SHARE:
         raise AssertionError("synthesis through the artifact disagrees")
 
-    # No executable sidecar: --serving-aot require must fail.
+    first = reports[("siamese", "float32", None)]
+    pt2_cold = (process["import_s"] + process["context_s"],
+                (first["load_ms"] + first["batch_ms"]["1"][0]) / 1e3)
+    sidecar = phase_serving_sidecar(
+        torch, root, siamese_fp32, arts[("siamese", "float32", "int8")],
+        arts[("discriminator", "float32", None)], cache, ds.cities,
+        pt2_cold, device)
+    return {"confusion_counts": counts, **sidecar}
+
+
+# Phase 15, the executable sidecar: AOTInductor packages of the fp32
+# Siamese artifact.  A package runs Inductor's kernels (fused elementwise
+# work, its own choice of convolution calls) where the .pt2 runs ATen's op
+# by op, so the two agree within float32 rounding, TF32 off in both.
+AOT_TOL = 1e-5  # max |package - .pt2| on probabilities at batch 2
+AOT_BATCH = 2  # the evaluation CLI's default batch
+AOT_RECOMPILE_BATCH = 4
+AOT_INT8_UNDER_S = 90.0  # compile the int8 artifact only if fp32 took less
+AOT_EXPORT_TIMEOUT_S = 900.0
+
+# The evaluation CLI in a fresh process, timed from its start to its first
+# batch served and from the artifact's load to it (the artifact's function
+# is wrapped to wait for that batch).
+AOT_EVAL_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+from gan_aug_pfa_torch import evaluate, serve
+from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
+fn = cc.confusion_counts_batch
+fn.calls = fn.launches = 0
+t = {"imports": time.perf_counter()}
+load = serve.load_serving_fn
+
+
+def timed_load(*args, **kwargs):
+    t["load"] = time.perf_counter()
+    header, serve_fn = load(*args, **kwargs)
+
+    def first(*xs):
+        y = serve_fn(*xs)
+        if "first" not in t:
+            y.sum().item()
+            t["first"] = time.perf_counter()
+        return y
+
+    return header, first
+
+
+serve.load_serving_fn = timed_load
+result = evaluate.main(sys.argv[1:])
+print(json.dumps({"counts": [fn.calls, fn.launches],
+                  "ok": result is not None, "import_s": t["imports"] - t0,
+                  "to_first_batch_s": t["first"] - t0,
+                  "load_to_first_batch_s": t["first"] - t["load"],
+                  "wall_s": time.perf_counter() - t0}))
+"""
+
+
+def start_sidecar_export(torch, root, device="cuda"):
+    """Phase 15's first step, which may start early: the phase's tree and
+    seeded Siamese checkpoint, then ``python -m
+    gan_aug_pfa_torch.export_model --aot-batch-sizes 2`` on it in a child
+    process (output to a file in ``root``), which exports the fp32
+    artifact and compiles its executable sidecar.  Returns the job."""
+    from gan_aug_pfa_torch import checkpoint
+    from gan_aug_pfa_torch.models import SiameseUNet
+
+    write_oscd_tree(root)
+    pth = os.path.join(root, "siamese_checkpoints", "best_model.pth")
+    with torch.random.fork_rng(devices=[]):
+        checkpoint.save_model(pth, seeded_model(torch, SiameseUNet))
+    artifact = os.path.join(root, "artifacts", "siamese_float32.pt2")
+    log = os.path.join(root, "sidecar_export.log")
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "gan_aug_pfa_torch.export_model",
+             "--checkpoint-path", pth, "--output", artifact, "--backend",
+             device, "--aot-batch-sizes", str(AOT_BATCH)],
+            cwd=REPO, stdout=out, stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "log": log, "artifact": artifact,
+            "t0": time.perf_counter()}
+
+
+def finish_sidecar_export(job):
+    """Wait for ``start_sidecar_export``'s child (killed after
+    ``AOT_EXPORT_TIMEOUT_S``), echo its output and return its wall
+    seconds; raises if it failed."""
+    proc = job["proc"]
+    try:
+        rc = proc.wait(timeout=max(
+            1.0, AOT_EXPORT_TIMEOUT_S - (time.perf_counter() - job["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError("export_model --aot-batch-sizes still running "
+                             f"after {AOT_EXPORT_TIMEOUT_S} s")
+    wall = time.perf_counter() - job["t0"]
+    with open(job["log"]) as f:
+        for line in f.read().splitlines():
+            print(f"  | {line}")
+    if rc != 0:
+        raise AssertionError(f"export_model --aot-batch-sizes exited {rc}")
+    return wall
+
+
+def stop_sidecar_export(job):
+    """Kill ``start_sidecar_export``'s child if it still runs."""
+    if job["proc"].poll() is None:
+        job["proc"].kill()
+        job["proc"].wait()
+
+
+def phase_serving_sidecar(torch, root, artifact, int8_artifact,
+                          disc_artifact, cache, cities, pt2_cold,
+                          device="cuda"):
+    """Phase 15's executable sidecar of the full-width fp32 Siamese
+    artifact, which ``export_model --aot-batch-sizes 2`` wrote: its
+    compile seconds and package bytes; the package against the ``.pt2`` at
+    batch 2 within ``AOT_TOL``; ``evaluate --serving-aot require`` in a
+    fresh process with the report of the ``.pt2`` (phase 15's ``evaluate
+    --serving-aot never``, ``artifact.json``) and confusion counts (7, 7);
+    its time to the first batch beside the ``.pt2``'s (``pt2_cold``:
+    import and context, load and first batch, read in phase 15's fresh
+    process) and evaluation pairs/s at bs 2, package against ``.pt2``; a
+    damaged package (``require`` raises naming it, ``auto`` serves through
+    the ``.pt2``); the full-width discriminator's artifact compiled at
+    batch 4 beside a batch-2 package, which the compile removes (the
+    Siamese net's compile takes minutes); the int8 artifact's package
+    bytes when the fp32 compile took under ``AOT_INT8_UNDER_S``."""
+    from gan_aug_pfa_torch import pipelines, serve
+    from gan_aug_pfa_torch.config import EvalConfig
+
+    package = f"{artifact}.aotc.bs{AOT_BATCH}.pt2"
+    entries, why = serve._load_aot_sidecar(artifact, device)
+    with open(serve.aot_sidecar_path(artifact), "rb") as f:
+        index = json.loads(f.read()[len(serve.AOT_MAGIC):])
+    info = index["shapes"][str(AOT_BATCH)]
+    print(f"serving sidecar: compile {info['compile_s']} s at batch "
+          f"{AOT_BATCH}, package {info['bytes']} bytes (the .pt2 "
+          f"{os.path.getsize(artifact)} bytes); index {index['device_name']}"
+          f", torch {index['torch_version']}, CUDA {index['cuda_version']}")
+    if entries is None or sorted(entries) != [AOT_BATCH]:
+        raise AssertionError(f"the sidecar is not usable: {why}")
+
+    # The package against the .pt2, in this process.
+    header, aot_fn = serve.load_serving_fn(artifact, aot="require",
+                                           device=device)
+    _, pt2_fn = serve.load_serving_fn(artifact, aot="never", device=device)
+    if header["aot_batch_sizes"] != [AOT_BATCH]:
+        raise AssertionError(f"aot_batch_sizes {header['aot_batch_sizes']}")
+    gen = torch.Generator().manual_seed(SEED + 16)
+    xs = [torch.rand((AOT_BATCH, 128, 128, 3), generator=gen) * 2 - 1
+          for _ in range(2)]
+    t0 = time.perf_counter()
+    got = aot_fn(*xs)
+    load_s = time.perf_counter() - t0
+    want = pt2_fn(*xs)
+    err = float((got - want).abs().max())
+    print(f"serving sidecar: this process loaded the package and served "
+          f"its first batch in {load_s:.2f} s")
+    print(f"serving sidecar: max |package - .pt2| at batch {AOT_BATCH} = "
+          f"{err} (limit {AOT_TOL}); finite {bool(torch.isfinite(got).all())}")
+    if not err <= AOT_TOL or got.shape != (AOT_BATCH, 128, 128, 1):
+        raise AssertionError("the sidecar disagrees with the .pt2")
+
+    # Evaluation through the sidecar in a fresh process: the .pt2's report.
+    out = os.path.join(root, "aot_require.json")
+    t0 = time.perf_counter()
     rc, lines, _ = run_child(
-        ["-m", "gan_aug_pfa_torch.evaluate", "--root-dir", root, "--device",
-         device, "--serving-artifact", siamese_fp32, "--serving-aot",
-         "require"], timeout=300)
-    if rc == 0 or not any("aot='require'" in line for line in lines):
-        raise AssertionError(f"--serving-aot require exited {rc}")
-    print(f"serving: --serving-aot require exited {rc}")
-    return {"confusion_counts": counts}
+        ["-c", AOT_EVAL_CHILD, "--root-dir", root, "--serving-artifact",
+         artifact, "--serving-aot", "require", "--device", device,
+         "--json-out", out], timeout=300)
+    wall = time.perf_counter() - t0
+    child = json.loads(lines[-1])
+    print(f"serving sidecar: evaluate --serving-aot require in a fresh "
+          f"process exited {rc}: confusion counts (calls, launches) "
+          f"{tuple(child['counts'])}; evaluation {child['wall_s']:.2f} s, "
+          f"process wall {wall:.2f} s")
+    if rc != 0 or not child["ok"] or child["counts"] != [7, 7]:
+        raise AssertionError("evaluate --serving-aot require failed")
+    if not any(f"aot=[{AOT_BATCH}]" in line for line in lines):
+        raise AssertionError("evaluate did not serve the sidecar")
+    print(f"serving sidecar: a fresh process to its first batch: package "
+          f"{child['import_s']:.2f} s of imports, then "
+          f"{child['load_to_first_batch_s']:.2f} s from load_serving_fn "
+          f"(evaluate's first batch {child['to_first_batch_s']:.2f} s after "
+          f"its start); .pt2 {pt2_cold[0]:.2f} s of imports and context, "
+          f"then {pt2_cold[1]:.2f} s from load_serving_fn (phase 15's "
+          "fresh process, bs 1)")
+    check_report_file(out)
+    with open(out) as f:
+        a = json.load(f)
+    with open(os.path.join(root, "artifact.json")) as f:
+        b = json.load(f)
+    same = a == b
+    if not same:
+        # Only pixels within the two paths' largest probability difference
+        # of the threshold may flip.
+        pa, pb = (pipelines.artifact_fn(f)(cache.img1.permute(0, 2, 3, 1),
+                                           cache.img2.permute(0, 2, 3, 1))
+                  for f in (aot_fn, pt2_fn))
+        dprob = float((pa - pb).abs().max())
+        flips = int(((pa > 0.5) != (pb > 0.5)).sum())
+        near = int(((pb - 0.5).abs() <= dprob).sum())
+        print(f"serving sidecar: {flips} pixels flip between the paths, "
+              f"{near} lie within max |dprob| = {dprob} of the threshold")
+        if flips > near:
+            raise AssertionError("the sidecar's evaluation differs beyond "
+                                 "its probabilities")
+    print(f"serving sidecar: report require vs never (the .pt2) equal: "
+          f"{same}; overall {a['overall']} vs {b['overall']}")
+
+    # Pairs/s at bs 2, package against .pt2, in turns.
+    big = pipelines.DeviceCache(cache.img1.repeat(SERVE_REPS, 1, 1, 1),
+                                cache.img2.repeat(SERVE_REPS, 1, 1, 1),
+                                cache.labels.repeat(SERVE_REPS, 1, 1))
+    cfg = EvalConfig(batch_size=AOT_BATCH)
+    rates = {"package": [], ".pt2": []}
+    fns = {"package": pipelines.artifact_fn(aot_fn),
+           ".pt2": pipelines.artifact_fn(pt2_fn)}
+    for name in fns:
+        pipelines.evaluate_cached(fns[name], big, cities * SERVE_REPS, cfg)
+    for _ in range(SERVE_PASSES):
+        for name in ("package", ".pt2"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipelines.evaluate_cached(fns[name], big, cities * SERVE_REPS,
+                                      cfg)
+            torch.cuda.synchronize()
+            rates[name].append(len(big) / (time.perf_counter() - t0))
+    for name, r in rates.items():
+        print(f"serving sidecar: eval throughput ({name}, 128x128, "
+              f"{len(big)} pairs, bs {AOT_BATCH}): median "
+              f"{float(np.median(r)):.1f} pairs/s over {SERVE_PASSES} passes"
+              f" in turns, range [{min(r):.1f}, {max(r):.1f}]")
+    del big, fns
+
+    # A damaged package: require raises naming it, auto serves the .pt2.
+    with open(package, "r+b") as f:
+        f.seek(os.path.getsize(package) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    _, damaged = serve.load_serving_fn(artifact, aot="require", device=device)
+    try:
+        damaged(*xs)
+    except ValueError as e:
+        if package not in str(e):
+            raise AssertionError(f"the error does not name {package}: {e}")
+        print(f"serving sidecar: damaged package, require raised: {e}")
+    else:
+        raise AssertionError("require served a damaged package")
+    _, auto = serve.load_serving_fn(artifact, aot="auto", device=device)
+    fell, printed = run_captured(auto, *xs)
+    dfall = float((fell - want).abs().max())
+    print(f"serving sidecar: damaged package, auto served the .pt2: max "
+          f"|auto - .pt2| = {dfall}")
+    if f"serving batch {AOT_BATCH} through the exported program" not in \
+            printed or dfall > AOT_TOL:
+        raise AssertionError("auto did not fall back to the .pt2")
+
+    # A compile at batch 4 removes the batch-2 package an earlier compile
+    # left (the damaged one, copied beside the discriminator's artifact).
+    name = os.path.basename(disc_artifact)
+    shutil.copy(package, f"{disc_artifact}.aotc.bs{AOT_BATCH}.pt2")
+    t0 = time.perf_counter()
+    run_captured(serve._main, [disc_artifact, str(AOT_RECOMPILE_BATCH),
+                               "--device", device])
+    left = sorted(f for f in os.listdir(os.path.dirname(disc_artifact))
+                  if f.startswith(name + ".aotc"))
+    print(f"serving sidecar: discriminator compiled at batch "
+          f"{AOT_RECOMPILE_BATCH} in {time.perf_counter() - t0:.2f} s beside "
+          f"a batch-{AOT_BATCH} package; sidecar files {left}")
+    if left != [name + ".aotc", f"{name}.aotc.bs{AOT_RECOMPILE_BATCH}.pt2"]:
+        raise AssertionError("the compile left a stale package")
+
+    int8_bytes = None
+    if info["compile_s"] < AOT_INT8_UNDER_S:
+        meta8 = serve.compile_artifact(int8_artifact, [AOT_BATCH],
+                                       device=device)
+        int8_bytes = meta8["shapes"][str(AOT_BATCH)]["bytes"]
+        _, q8 = serve.load_serving_fn(int8_artifact, aot="require",
+                                      device=device)
+        _, q8_pt2 = serve.load_serving_fn(int8_artifact, aot="never",
+                                          device=device)
+        err8 = float((q8(*xs) - q8_pt2(*xs)).abs().max())
+        print(f"serving sidecar: int8 package {int8_bytes} bytes against "
+              f"the fp32 package's {info['bytes']} "
+              f"({int8_bytes / info['bytes']:.4f}x; the .pt2 files "
+              f"{os.path.getsize(int8_artifact) / os.path.getsize(artifact):.4f}"
+              f"x), compile {meta8['shapes'][str(AOT_BATCH)]['compile_s']} s"
+              f"; max |package - .pt2| {err8} (limit {AOT_TOL})")
+        if not err8 <= AOT_TOL:
+            raise AssertionError("the int8 package disagrees with its .pt2")
+    else:
+        print(f"serving sidecar: the fp32 compile took {info['compile_s']} s"
+              f" (>= {AOT_INT8_UNDER_S} s): the int8 compile is not run")
+    return {"sidecar_counts": child["counts"],
+            "sidecar": {"compile_s": info["compile_s"],
+                        "bytes": info["bytes"], "max_abs_err": err,
+                        "int8_bytes": int8_bytes}}
 
 
 # Phase 16: the C PNG decoder, the pooled PNG writer and --stream.
-STREAM_PER_CITY = 90  # synthetic 256x256 samples written for each train city
+STREAM_PER_CITY = 45  # synthetic 256x256 samples written for each train city
 STREAM_DEPTH = 2  # prefetch_batches' depth, the trainers' default
 DECODE_SIDE = 600  # the all-Paeth and all-Average decoder cases
 DECODE_THREADS = 8
@@ -3646,7 +3979,7 @@ GAN_KNOBS = {
     "flat_opt_state": (["--flat-opt-state"], dict(opt_flat_state=True)),
 }
 KNOB_REPS = 8  # copies of the 11 train pairs in the timed Siamese epochs
-KNOB_PASSES = 2  # timed epochs a configuration, after one warm-up epoch
+KNOB_PASSES = 1  # timed epochs a configuration, after one warm-up epoch
 
 
 def knob_cli_training(torch, root, extra, val_steps=1, train_steps=3):
@@ -4406,11 +4739,21 @@ def main():
         if log.strip():
             print(f"nvcc {name}:\n{log.strip()}")
 
+    t_start = last = time.time()
+
+    def stamp(label):
+        nonlocal last
+        now = time.time()
+        print(f"[{label} took {now - last:.1f} s; {now - t_start:.1f} s in all]")
+        last = now
+
     max_err, timings = phase_kernel(torch, cc)
     loss_errs, loss_t = phase_loss_kernel(torch, fl)
     phase_model(torch, SiameseUNet, predict)
+    stamp("phases 1-4")
     with tempfile.TemporaryDirectory() as root:
         launches = phase_main_path(torch, root)
+        stamp("phase 5")
     with tempfile.TemporaryDirectory() as root:
         train_counts = phase_training(torch, root)
         train_ds = build_cached_dataset(
@@ -4427,9 +4770,11 @@ def main():
             verbose=False)
     phase_aug_card_vs_cpu(torch, native_ds, train_ds)
     aug_throughput(torch, native_ds)
+    stamp("phases 6-7")
     native_shape = (4, 3, *native_ds.img1.shape[1:3])
     photo_errs, photo_t = phase_photometric(
         torch, ph, native_shape, native_ds.sizes[:4].tolist())
+    stamp("phase 8")
     with tempfile.TemporaryDirectory() as root:
         phase_gan(torch, root)
         gan_ds = build_cached_dataset(
@@ -4439,14 +4784,18 @@ def main():
         gan_throughput(torch, gan_ds)
         phase_synthesis(torch, root)
         phase_loop(torch, root)
+        stamp("phases 9-10")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         run_control = phase_run_control(torch, root)
     phase_run_control_in_process(torch, train_ds)
+    stamp("phase 11")
     with tempfile.TemporaryDirectory() as root:
         phase_jax_checkpoint(torch, root)
+        stamp("phase 12")
     with tempfile.TemporaryDirectory() as root:
         eval_extras = phase_eval_extras(torch, root)
+        stamp("phase 13")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         tuning = phase_tuning(torch, root)
@@ -4454,22 +4803,37 @@ def main():
             create_sample_lists(root, SUBDIR, mode="train", verbose=False),
             verbose=False)
     tuning_errs = phase_tuning_kernels(torch, fl, ph, tuning, tuning_ds)
+    stamp("phase 14")
     with tempfile.TemporaryDirectory() as root:
         phase_gan_resume(torch, root)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as root:
-        serving = phase_serving(torch, root)
+        stamp("phase 14c")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         stream = phase_stream(torch, root)
+        stamp("phase 16")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         knobs = phase_knobs(torch, root)
+        stamp("phase 17")
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as root:
-        data_parallel = phase_data_parallel(torch, root, {
-            "train": train_counts["history"],
-            "augment": aug_runs["native"]["history"]})
+    # Serving runs last: its executable sidecar's compile and packages
+    # bring Inductor, Triton and their worker processes into this process,
+    # which the phases that time host-bound steps should not share.  The
+    # sidecar's export and compile (minutes) run in a child process beside
+    # phase 18, which times nothing.
+    with tempfile.TemporaryDirectory() as serve_root:
+        job = start_sidecar_export(torch, serve_root)
+        try:
+            with tempfile.TemporaryDirectory() as root:
+                data_parallel = phase_data_parallel(torch, root, {
+                    "train": train_counts["history"],
+                    "augment": aug_runs["native"]["history"]})
+                stamp("phase 18 (the sidecar's compile beside it)")
+            torch.cuda.empty_cache()
+            serving = phase_serving(torch, serve_root, sidecar_job=job)
+            stamp("phase 15")
+        finally:
+            stop_sidecar_export(job)
 
     # The main numbers are each path's shape: the evaluation's bs 2 for the
     # confusion counts (bs 16 and 16x1024x1024 beside them), the train
@@ -4494,6 +4858,7 @@ def main():
         "eval_extras": {k: list(v) for k, v in eval_extras.items()},
         "tuning": list(tuning["counts"]["confusion"]),
         "serving": list(serving["confusion_counts"]),
+        "serving_sidecar": list(serving["sidecar_counts"]),
         "stream": list(stream["confusion_counts"]),
         "shape": list(CONFUSION_SHAPES[0]),
         "plan": eval_t["plan"],

@@ -83,8 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serving-aot", type=str, default="auto",
                    choices=["auto", "never", "require"],
                    help="executable-sidecar policy for --serving-artifact: "
-                        "auto and never run the exported program; require "
-                        "fails (the port writes no sidecar yet)")
+                        "auto serves the batch sizes of a usable sidecar "
+                        "(export_model --aot-batch-sizes) through it, "
+                        "require fails without one, never ignores it")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
     p.add_argument("--no-compile-cache", action="store_true",

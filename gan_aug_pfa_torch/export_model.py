@@ -12,8 +12,10 @@ The checkpoint is the port's ``.pth`` or a JAX package ``.msgpack``
 ``evaluate``/``generate_synthetic --serving-artifact`` take it in place of
 a checkpoint.  Flag names and defaults are the root CLI's, except that
 ``--platform`` takes ``cuda`` and ``cpu`` and ``--backend`` (``cuda`` by
-default) is the device the export runs on.  ``--aot-batch-sizes`` (the
-JAX package's executable sidecar) is not ported yet and exits non-zero.
+default) is the device the export runs on.  ``--aot-batch-sizes B1,B2``
+then compiles the artifact's executable sidecar on that device
+(``serve.compile_artifact``: one AOTInductor package a batch size), as
+``python -m gan_aug_pfa_torch.serve ARTIFACT B1,B2`` does on its own.
 """
 
 from __future__ import annotations
@@ -68,8 +70,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Device the export runs on")
     p.add_argument("--aot-batch-sizes", type=str, default=None,
                    metavar="B1,B2",
-                   help="not ported yet (the JAX package's executable "
-                        "sidecar); any value exits non-zero")
+                   help="After exporting, compile the artifact ahead of "
+                        "time at these batch sizes on the --backend device "
+                        "and write the executable sidecar (<output>.aotc "
+                        "and one AOTInductor package a batch size); serving "
+                        "processes then run those batch sizes without the "
+                        "exported program.  The sidecar is bound to the "
+                        "device, torch and CUDA: run this on the deployment "
+                        "host (also standalone: python -m "
+                        "gan_aug_pfa_torch.serve ARTIFACT B1,B2)")
     return p
 
 
@@ -77,11 +86,15 @@ def main(argv: Optional[List[str]] = None) -> str:
     """Returns the artifact's path."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.aot_batch_sizes is not None:
-        parser.error("--aot-batch-sizes is not ported yet: the port writes "
-                     "no executable sidecar")
     from . import checkpoint as ckpt
     from . import serve
+
+    aot_sizes = None
+    if args.aot_batch_sizes:
+        try:
+            aot_sizes = serve.parse_batch_sizes(args.aot_batch_sizes)
+        except ValueError as e:
+            parser.error(f"--aot-batch-sizes: {e}")
 
     arch = args.arch or serve.arch_from_stem(args.checkpoint_path)
     if arch is None:
@@ -135,6 +148,10 @@ def main(argv: Optional[List[str]] = None) -> str:
     serve.save_artifact(out, exported, meta)
     print(f"Saved serving artifact to {out} "
           f"({os.path.getsize(out) / 1e6:.1f} MB)")
+    if aot_sizes:
+        print(f"AOT-compiling for batch sizes {aot_sizes} on "
+              f"{args.backend} ...")
+        serve.compile_artifact(out, aot_sizes, device=args.backend)
     return out
 
 

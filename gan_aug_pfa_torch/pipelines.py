@@ -674,8 +674,11 @@ def _generator_fn(data_cfg: DataConfig, gen_cfg: GenerateConfig, dev,
         if not os.path.exists(artifact):
             print(f"Error: Serving artifact not found at {artifact}")
             return None
-        return serve.load_serving_fn(artifact, aot=gen_cfg.serving_aot,
-                                     device=dev)[1]
+        header, serve_fn = serve.load_serving_fn(
+            artifact, aot=gen_cfg.serving_aot, device=dev)
+        if verbose and header.get("aot_batch_sizes"):
+            print(f"  AOT sidecar batch sizes: {header['aot_batch_sizes']}")
+        return serve_fn
     gen_path = os.path.join(data_cfg.root_dir, gen_cfg.gan_checkpoint_dir,
                             gen_cfg.generator_checkpoint_name)
     if verbose:
@@ -981,7 +984,8 @@ def _evaluate(ds, data_cfg: DataConfig, eval_cfg: EvalConfig,
         if verbose:
             print(f"Serving artifact: {artifact} ({header['arch']}, "
                   f"{header['compute_dtype']}, quantize="
-                  f"{header.get('quantize')}, aot=none)")
+                  f"{header.get('quantize')}, "
+                  f"aot={header.get('aot_batch_sizes', 'none')})")
         paths = [artifact]
         probs_fn = artifact_fn(serve_fn)
     else:

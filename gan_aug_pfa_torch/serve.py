@@ -35,19 +35,31 @@ weights as int8.
 
 File format: a ``torch.export.save`` archive (``.pt2``) with the JSON
 header as its extra file ``header.json``.  A JAX package artifact (magic
-``GAPTPUX1``) is refused with a message that says so.  The JAX package's
-executable sidecar (``--aot-batch-sizes``, ``aot="require"``) has no
-counterpart yet.
+``GAPTPUX1``) is refused with a message that says so.
+
+Executable sidecar (the JAX package's ``compile_artifact``, format 2):
+``compile_artifact`` re-exports the program at each chosen batch size and
+compiles it ahead of time with AOTInductor into one package a batch size,
+``<artifact>.aotc.bs<k>.pt2``, indexed by ``<artifact>.aotc`` (magic
+``GAPTORA1`` and a JSON meta: the artifact's sha256, the environment it
+was compiled in, each package's file, bytes, sha256 and compile seconds).
+``load_serving_fn`` serves those batch sizes through the packages, each
+loaded at its first call, and any other batch size through the exported
+program; ``python -m gan_aug_pfa_torch.serve ARTIFACT BS1,BS2`` writes the
+sidecar.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
+import hashlib
 import json
 import os
+import time
 import zipfile
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -329,6 +341,16 @@ def read_header(path: str) -> Dict[str, Any]:
     return header
 
 
+def _check_platform(path: str, header: Mapping[str, Any],
+                    dev: torch.device) -> None:
+    if dev.type not in header["platforms"]:
+        raise ValueError(
+            f"artifact {path} was exported for platforms "
+            f"{tuple(header['platforms'])} but the device is {dev.type!r}; "
+            f"re-export with --platform {dev.type} (or pass "
+            "check_platform=False)")
+
+
 def load_artifact(path: str, device="cuda", check_platform: bool = True
                   ) -> Tuple[Dict[str, Any], torch.export.ExportedProgram]:
     """(header, the exported program with its weights on ``device``).
@@ -336,12 +358,8 @@ def load_artifact(path: str, device="cuda", check_platform: bool = True
     for."""
     header = read_header(path)
     dev = resolve_device(device)
-    if check_platform and dev.type not in header["platforms"]:
-        raise ValueError(
-            f"artifact {path} was exported for platforms "
-            f"{tuple(header['platforms'])} but the device is {dev.type!r}; "
-            f"re-export with --platform {dev.type} (or pass "
-            "check_platform=False)")
+    if check_platform:
+        _check_platform(path, header, dev)
     try:
         program = torch.export.load(path)
     except Exception as e:  # a damaged archive: any error of the reader
@@ -354,32 +372,332 @@ def load_artifact(path: str, device="cuda", check_platform: bool = True
     return header, program
 
 
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _replace_atomically(path: str, write) -> None:
+    """``write(tmp)`` to a temporary path beside ``path`` (ending as
+    ``path`` does), then rename it to ``path``."""
+    stem, ext = os.path.splitext(path)
+    tmp = f"{stem}.tmp{ext}"
+    try:
+        write(tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _precision(header: Mapping[str, Any]):
+    """A float32 program computes with TF32 off: Inductor reads the
+    matmul flag when it compiles, the convolutions read cuDNN's at each
+    call."""
+    return (tf32_off if header["compute_dtype"] == "float32"
+            else contextlib.nullcontext)
+
+
+def _user_input_shapes(program: torch.export.ExportedProgram, bs: int
+                       ) -> List[Tuple[int, ...]]:
+    """The program's image inputs' shapes with the batch set to ``bs``;
+    raises for a fixed-batch program of another batch."""
+    names = set(program.graph_signature.user_inputs)
+    shapes = []
+    for node in program.graph.nodes:
+        if node.op == "placeholder" and node.name in names:
+            batch, *rest = node.meta["val"].shape
+            if isinstance(batch, int) and batch != bs:
+                raise ValueError(f"the artifact's batch is fixed at {batch}; "
+                                 f"cannot compile it at batch {bs}")
+            shapes.append((bs, *map(int, rest)))
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# the executable sidecar (AOTInductor packages)
+
+AOT_MAGIC = b"GAPTORA1"
+AOT_FORMAT = 2
+
+
+def aot_sidecar_path(artifact_path: str) -> str:
+    return artifact_path + ".aotc"
+
+
+def parse_batch_sizes(text: str) -> List[int]:
+    """``"B1,B2"`` -> [B1, B2]; raises ``ValueError`` for anything but
+    positive integers."""
+    try:
+        sizes = [int(b) for b in text.split(",")]
+    except ValueError:
+        sizes = []
+    if not sizes or min(sizes) < 1:
+        raise ValueError(f"batch sizes must be positive integers, got "
+                         f"{text!r}")
+    return sizes
+
+
+def _aot_env(dev: torch.device) -> Dict[str, Any]:
+    """What a package is bound to: the platform, torch and CUDA versions,
+    and the device (its name and compute capability; on the CPU, the
+    vector ISA Inductor compiled for)."""
+    env = {"platform": dev.type, "torch_version": torch.__version__,
+           "cuda_version": torch.version.cuda}
+    if dev.type == "cuda":
+        env["device_name"] = torch.cuda.get_device_name(dev)
+        env["capability"] = ".".join(
+            map(str, torch.cuda.get_device_capability(dev)))
+    else:
+        env["device_name"] = "cpu"
+        env["capability"] = torch.backends.cpu.get_cpu_capability()
+    return env
+
+
+def openmp_cxx() -> Optional[str]:
+    """The C++ compiler for AOTInductor, which builds and links a package
+    with ``-fopenmp``: ``$CXX`` (Inductor's own choice) when it links an
+    OpenMP program, else the first of ``g++`` and ``c++`` that does (a GCC
+    wrapper may lack ``libgomp.spec``); None when none does."""
+    import shutil
+    import subprocess
+
+    from .ops.kernels.build import BUILD_DIR
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    src = os.path.join(BUILD_DIR, "openmp_probe.cpp")
+    with open(src, "w") as f:
+        f.write("#include <omp.h>\nint main() { return omp_get_max_threads()"
+                " > 0 ? 0 : 1; }\n")
+    for cxx in (os.environ.get("CXX"), "g++", "c++"):
+        if cxx and shutil.which(cxx) and subprocess.run(
+                [cxx, "-fopenmp", src, "-o", src[:-4]],
+                capture_output=True).returncode == 0:
+            return cxx
+    return None
+
+
+def _aoti_compile(program: torch.export.ExportedProgram, package: str) -> None:
+    import torch._inductor
+
+    cxx = openmp_cxx()
+    with torch._inductor.config.patch({"cpp.cxx": (cxx,)} if cxx else {}):
+        torch._inductor.aoti_compile_and_package(program,
+                                                 package_path=package)
+
+
+def _aoti_load(package: str, dev: torch.device):
+    import torch._inductor
+
+    return torch._inductor.aoti_load_package(
+        package, device_index=-1 if dev.index is None else dev.index)
+
+
+def compile_artifact(path: str, batch_sizes: Sequence[int],
+                     out_path: Optional[str] = None, device="cuda",
+                     verbose: bool = True) -> Dict[str, Any]:
+    """Compile the artifact at ``path`` ahead of time on ``device`` at each
+    of ``batch_sizes`` and write the sidecar (``out_path``, default
+    ``<path>.aotc``); returns its meta.
+
+    Each batch size: the program's module re-exported at that concrete
+    batch from distinct seeded NHWC inputs, then compiled by AOTInductor
+    into ``<out>.bs<k>.pt2``.  Every file is written atomically; package
+    files of an earlier compile that the new index does not list are
+    deleted.  A package is bound to this device, torch and CUDA: compile
+    on the deployment host."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        # The re-export's fake tensors carry an index, and the program's
+        # device assertions must name the same device.
+        dev = torch.device("cuda", torch.cuda.current_device())
+    header, program = load_artifact(path, dev)
+    module = program.module()
+    out = out_path or aot_sidecar_path(path)
+    meta: Dict[str, Any] = {"format": AOT_FORMAT,
+                            "artifact_sha256": _sha256(path),
+                            **_aot_env(dev), "shapes": {}}
+    gen = torch.Generator().manual_seed(0)
+    for bs in sorted({int(b) for b in batch_sizes}):
+        sample = tuple(torch.rand(shape, generator=gen).to(dev)
+                       for shape in _user_input_shapes(program, bs))
+        shape_file = f"{out}.bs{bs}.pt2"
+        t0 = time.perf_counter()
+        with torch.no_grad(), _precision(header)():
+            concrete = torch.export.export(module, sample, strict=False)
+            _replace_atomically(
+                shape_file, lambda tmp: _aoti_compile(concrete, tmp))
+        info = {"file": os.path.basename(shape_file),
+                "bytes": os.path.getsize(shape_file),
+                "sha256": _sha256(shape_file),
+                "compile_s": round(time.perf_counter() - t0, 2)}
+        meta["shapes"][str(bs)] = info
+        if verbose:
+            print(f"  AOT bs={bs}: compiled in {info['compile_s']:.1f}s, "
+                  f"{info['bytes'] / 1e6:.1f} MB at {shape_file}")
+
+    def write_index(tmp):
+        with open(tmp, "wb") as f:
+            f.write(AOT_MAGIC)
+            f.write(json.dumps(meta, sort_keys=True).encode())
+
+    _replace_atomically(out, write_index)
+    listed = {info["file"] for info in meta["shapes"].values()}
+    for stale in glob.glob(glob.escape(out) + ".bs*.pt2"):
+        if os.path.basename(stale) not in listed:
+            os.remove(stale)
+    if verbose:
+        print(f"Saved AOT sidecar index to {out} "
+              f"({os.path.getsize(out)} B + per-shape packages, "
+              f"{meta['device_name']}/{meta['platform']})")
+    return meta
+
+
+class SidecarError(ValueError):
+    """A package file of the sidecar fails its check at first use."""
+
+
+class _Lazy:
+    """``load()``'s callable, made at the first call."""
+
+    def __init__(self, load):
+        self.load, self.fn = load, None
+
+    def __call__(self, *inputs):
+        if self.fn is None:
+            self.fn = self.load()
+        return self.fn(*inputs)
+
+
+def _load_aot_sidecar(path: str, device="cuda"):
+    """({batch size: the package's callable, loaded at its first call},
+    "ok"), or (None, why) when there is no usable sidecar for the artifact
+    at ``path`` on ``device``.  A package file must have the size the
+    index gives; its sha256 is checked before its first use, which raises
+    ``SidecarError`` on a mismatch."""
+    dev = resolve_device(device)
+    side = aot_sidecar_path(path)
+    if not os.path.exists(side):
+        return None, "no sidecar file"
+    with open(side, "rb") as f:
+        raw = f.read()
+    if raw[:len(AOT_MAGIC)] != AOT_MAGIC:
+        return None, "bad sidecar magic"
+    try:
+        meta = json.loads(raw[len(AOT_MAGIC):])
+        shapes = {int(bs): info for bs, info in meta["shapes"].items()}
+    except (ValueError, KeyError, TypeError, AttributeError) as e:
+        return None, f"unreadable sidecar ({e})"
+    if meta.get("format") != AOT_FORMAT:
+        return None, (f"sidecar format {meta.get('format')!r} != "
+                      f"{AOT_FORMAT}")
+    for k, v in _aot_env(dev).items():
+        if meta.get(k) != v:
+            return None, f"sidecar {k}={meta.get(k)!r} != current {v!r}"
+    if meta.get("artifact_sha256") != _sha256(path):
+        return None, "artifact changed since the sidecar was compiled"
+    folder = os.path.dirname(side) or "."
+    files = {}
+    for bs, info in shapes.items():
+        shape_file = os.path.join(folder, info["file"])
+        if not os.path.exists(shape_file):
+            return None, f"missing sidecar shape file {shape_file}"
+        size = os.path.getsize(shape_file)
+        if size != info["bytes"]:
+            return None, (f"damaged sidecar shape file {shape_file} "
+                          f"({size} bytes, the index says {info['bytes']})")
+        files[bs] = (shape_file, info["sha256"])
+
+    def loader(shape_file, sha256):
+        def load():
+            if _sha256(shape_file) != sha256:
+                raise SidecarError(f"damaged sidecar shape file "
+                                   f"{shape_file} (its sha256 is not the "
+                                   "index's)")
+            return _aoti_load(shape_file, dev)
+        return load
+
+    return {bs: _Lazy(loader(*f)) for bs, f in files.items()}, "ok"
+
+
 def load_serving_fn(path: str, aot: str = "auto", device="cuda"):
     """Load an artifact and return (header, fn); fn(*inputs) runs it on
     ``device``: probs = fn(img1, img2) for a Siamese artifact.  Inputs
     are NHWC arrays or tensors, taken as float32 on ``device``.
 
-    aot: "auto" and "never" run the exported program; "require" raises,
-    as the JAX package does without a usable sidecar: this package writes
-    no executable sidecar yet."""
+    aot: "auto" serves the batch sizes of a usable executable sidecar
+    (``compile_artifact``'s ``<path>.aotc``) through their packages and
+    every other batch size through the exported program; a sidecar that
+    does not match this artifact, device or torch is ignored.  "require"
+    raises ``ValueError`` when there is no usable sidecar, and when a
+    package fails its check at first use (where "auto" prints why and
+    serves through the program).  "never" ignores any sidecar.
+    ``header["aot_batch_sizes"]`` lists the sidecar's batch sizes.  Each
+    package, and with a sidecar the program too, loads at its first
+    call."""
     if aot not in AOT_POLICIES:
         raise ValueError(f"aot must be one of {AOT_POLICIES}, got {aot!r}")
-    if aot == "require":
-        read_header(path)  # a file that is no artifact says so first
-        raise ValueError(
-            f"aot='require' but no usable executable sidecar for {path}: "
-            "the PyTorch port writes no executable sidecar yet (its exported "
-            "program runs without a per-shape compile)")
-    header, program = load_artifact(path, device)
     dev = resolve_device(device)
-    module = program.module()
-    precision = (tf32_off if header["compute_dtype"] == "float32"
-                 else contextlib.nullcontext)
+    header = read_header(path)
+    _check_platform(path, header, dev)
+    entries = None
+    if aot != "never":
+        entries, why = _load_aot_sidecar(path, dev)
+        if aot == "require" and entries is None:
+            raise ValueError(f"aot='require' but no usable executable "
+                             f"sidecar for {path}: {why}")
+        if entries:
+            header["aot_batch_sizes"] = sorted(entries)
+
+    def load_program():
+        return load_artifact(path, dev)[1].module()
+
+    # With a sidecar, the program loads only if a batch size needs it.
+    program = _Lazy(load_program) if entries else load_program()
+    precision = _precision(header)
 
     def fn(*inputs):
         xs = [torch.as_tensor(x, dtype=torch.float32, device=dev)
               for x in inputs]
+        package = entries.get(xs[0].shape[0]) if entries else None
         with torch.no_grad(), precision():
-            return module(*xs)
+            if package is not None:
+                try:
+                    return package(*(x.contiguous() for x in xs))
+                except SidecarError as e:
+                    if aot == "require":
+                        raise ValueError(f"aot='require' but the executable "
+                                         f"sidecar for {path} is not "
+                                         f"usable: {e}") from e
+                    print(f"{e}; serving batch {xs[0].shape[0]} through the "
+                          "exported program")
+                    del entries[xs[0].shape[0]]
+            return program(*xs)
 
     return header, fn
+
+
+def _main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    """python -m gan_aug_pfa_torch.serve ARTIFACT BS1,BS2 [--device D]:
+    write the artifact's executable sidecar on the deployment host."""
+    import argparse
+
+    p = argparse.ArgumentParser(
+        prog="python -m gan_aug_pfa_torch.serve",
+        description="Compile a serving artifact's executable sidecar")
+    p.add_argument("artifact")
+    p.add_argument("batch_sizes", metavar="BS1,BS2,...")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = p.parse_args(argv)
+    try:
+        sizes = parse_batch_sizes(args.batch_sizes)
+    except ValueError as e:
+        p.error(str(e))
+    return compile_artifact(args.artifact, sizes, device=args.device)
+
+
+if __name__ == "__main__":
+    _main()

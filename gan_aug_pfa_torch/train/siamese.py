@@ -317,9 +317,11 @@ class SiameseTrainer:
         losses = []
         staged = prefetch_batches(source, staged_rows, BatchPut(self.device),
                                   depth=depth)
-        for i, ((_, put), batch, r) in enumerate(zip(staged, batches, rows),
-                                                 1):
-            images = put.get()
+        for i, (batch, r) in enumerate(zip(batches, rows), 1):
+            # The batch lives in ``images`` alone, and goes before the next
+            # is staged: a tuple of the loop would keep it while the
+            # generator stages two more.
+            images = next(staged)[1].get()
             kw = {}
             if self.mesh is not None:
                 kw["sharded"] = r is not None
@@ -329,6 +331,7 @@ class SiameseTrainer:
                         self._full_sizes(len(batch), images[0])), r)
             losses.append(self._observed(self.train_batch, *images,
                                          epoch=epoch, step=i, **kw))
+            del images
         return _mean(losses)
 
     def _observed(self, fn, *args, epoch, step: int, **kw) -> torch.Tensor:

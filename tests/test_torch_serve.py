@@ -260,8 +260,10 @@ def jax_artifact(pix2pix, tmp_path_factory):
 
 def test_load_errors(pix2pix, jax_artifact, tmp_path):
     """A JAX package artifact, files that are not artifacts, a device type
-    not among the artifact's platforms and aot='require' each raise a
-    ValueError that says what is wrong, never a zip or pickle error."""
+    not among the artifact's platforms and aot='require' without a
+    sidecar (``tests/test_torch_serve_aot.py`` holds the sidecar) each
+    raise a ValueError that says what is wrong, never a zip or pickle
+    error."""
     with pytest.raises(ValueError, match="JAX package serving artifact "
                        r"\(magic GAPTPUX1\).*gan_aug_pfa_tpu.serve.*"
                        "python -m gan_aug_pfa_torch.export_model"):
@@ -291,7 +293,7 @@ def test_load_errors(pix2pix, jax_artifact, tmp_path):
                            platforms=["tpu"])
     path = pix2pix["discriminator"]["paths"]["fp32"]
     with pytest.raises(ValueError, match="aot='require' but no usable "
-                       "executable sidecar"):
+                       "executable sidecar for .*: no sidecar file"):
         serve.load_serving_fn(path, aot="require", device="cpu")
     for aot in ("auto", "never"):
         assert serve.load_serving_fn(path, aot=aot, device="cpu")[0][
@@ -384,7 +386,10 @@ def test_export_cli_from_jax_msgpack(tmp_path):
 
 @pytest.mark.parametrize("flags, message", [
     (["--platform", "tpu"], "invalid choice: 'tpu'"),
-    (["--aot-batch-sizes", "2,1"], "not ported yet"),
+    # The id of the case this replaced, when the flag was not ported.
+    pytest.param(["--aot-batch-sizes", "2,x"],
+                 "batch sizes must be positive integers",
+                 id="flags1-not ported yet"),
     (["--backend", "tpu"], "invalid choice: 'tpu'")])
 def test_export_cli_refuses(flags, message, capsys):
     with pytest.raises(SystemExit) as exc:
