@@ -223,6 +223,21 @@ Phases, each of which fails the run if it fails:
    16M elements.  Two ranks on one card check correctness; they time
    nothing.
 
+19. tuning over data-parallel sub-meshes (``tune.tune_on_ranks``), on
+   the one card, beside the sidecar's compile: four gloo ranks (child
+   processes with torchrun's variables) call ``tune.run_tuning`` with
+   ``--parallel-trials 2`` on a 14-city tree at 128x128 (native
+   augmentation, bf16, full width): two partitions of two ranks run a
+   two-trial study, one epoch a trial.  Each rank's FocalDice and
+   photometric (calls, launches) are set to 0 just before and read just
+   after and must equal its trials' steps (one launch a call); the study
+   holds trials 0 and 1, COMPLETE or PRUNED; the two ranks of a partition
+   ran the same epochs with equal losses; each trial's first step loss
+   lies within 1e-3 of the same step run in this process (its first
+   epoch's train and val losses are printed beside two runs of it in this
+   process, which differ from each other on the card); the phase's
+   seconds.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero.
@@ -4455,20 +4470,20 @@ def dp_cli_rank(out_dir, module, *argv):
     return 0
 
 
-def run_ranks(fn, args, timeout=300.0):
-    """``chip_smoke.fn(*args)`` as ranks 0..DP_WORLD-1 of one group, each
-    in a child process with torchrun's variables (a free port on
-    localhost), their output in files and echoed after; raises unless
-    every rank exits 0.  Kills what still runs."""
+def run_ranks(fn, args, timeout=300.0, world=DP_WORLD):
+    """``chip_smoke.fn(*args)`` as ranks 0..world-1 of one group, each in
+    a child process with torchrun's variables (a free port on localhost),
+    their output in files and echoed after; raises unless every rank
+    exits 0.  Kills what still runs."""
     from gan_aug_pfa_torch.parallel.mesh import free_port
 
     port = str(free_port())
-    logs = [tempfile.TemporaryFile("w+") for _ in range(DP_WORLD)]
+    logs = [tempfile.TemporaryFile("w+") for _ in range(world)]
     procs = []
     try:
         for rank, log in enumerate(logs):
-            env = dict(os.environ, WORLD_SIZE=str(DP_WORLD), RANK=str(rank),
-                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(DP_WORLD),
+            env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(rank),
+                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
             procs.append(subprocess.Popen(
                 [sys.executable, "-u", "-c", DP_CHILD.format(fn=fn),
@@ -4488,7 +4503,7 @@ def run_ranks(fn, args, timeout=300.0):
         log.close()
         for line in lines[-40:]:
             print(f"  rank {rank} | {line}")
-    if rcs != [0] * DP_WORLD:
+    if rcs != [0] * world:
         raise AssertionError(f"{fn}: ranks exited {rcs}")
 
 
@@ -4703,6 +4718,199 @@ def phase_data_parallel(torch, root, reference):
     return result
 
 
+# -- phase 19: tuning over data-parallel sub-meshes ------------------------
+
+SUB_WORLD, SUB_PARALLEL = 4, 2  # four gloo ranks on the one card: two
+# partitions of two ranks, one trial at a time each
+# One epoch a trial (the CLI's 15; two took the phase to 60 s alone).
+SUB_TRIALS, SUB_EPOCHS = 2, 1
+SUB_SIZE = 128
+# A trial's first step on two ranks against one process, relative: the
+# same weights, batch and draws, the sums (BatchNorm's, the loss's) in
+# another order, at bf16.  Its first epoch is printed, not held to this:
+# one process differs from itself by up to 5.1e-4 over that epoch (the
+# upsample's backward adds with atomics), and Adam's first steps, lr times
+# the sign of each gradient, turn bf16 rounding into lr-sized moves (the
+# search space's lr reaches 5e-3, 50 times the CLI's).
+SUB_STEP_RTOL = DP_LOSS_RTOL
+
+
+def first_step_losses(trainer_cls):
+    """Record, by trial (the trainer's seed is the trial number), the loss
+    of each trial's first train step: a dict filled while the returned
+    undo callable has not been called."""
+    seen, step = {}, trainer_cls.train_step
+
+    def recorded(self, *args, **kwargs):
+        loss = step(self, *args, **kwargs)
+        if self.config.seed not in seen:
+            seen[self.config.seed] = float(loss)
+        return loss
+
+    trainer_cls.train_step = recorded
+    return seen, lambda: setattr(trainer_cls, "train_step", step)
+
+
+def tune_sub_rank(out_dir, root, device="cuda", size=SUB_SIZE):
+    """Phase 19 in a child: one rank of SUB_WORLD (gloo, every rank on the
+    one card), ``tune.run_tuning`` on the group's ranks with
+    ``--parallel-trials`` SUB_PARALLEL, the FocalDice and photometric
+    (calls, launches) set to 0 just before and read just after; its
+    partition, mesh, counts, trials and each trial's first step loss into
+    ``out_dir/rank<R>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from gan_aug_pfa_torch import tune
+    from gan_aug_pfa_torch.config import DataConfig
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
+    from gan_aug_pfa_torch.ops.kernels.fused_loss import FocalDiceLossFn
+    from gan_aug_pfa_torch.parallel.mesh import maybe_distributed_init
+
+    if not maybe_distributed_init(device, tune.GROUP_TIMEOUT):
+        raise AssertionError("no process group from the environment")
+    first, _ = first_step_losses(tune.SiameseTrainer)
+    try:
+        reset_loss_counts(FocalDiceLossFn)
+        reset_photometric_counts(ph)
+        t0 = time.time()
+        report = tune.run_tuning(
+            DataConfig(root_dir=root, target_size=(int(size), int(size))),
+            n_trials=SUB_TRIALS, trial_epochs=SUB_EPOCHS, verbose=False,
+            storage="sqlite:///" + os.path.join(out_dir, "study.db"),
+            n_parallel=SUB_PARALLEL, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out = {"partition": report["partition"],
+               "mesh": [report["mesh"].world_size, report["mesh"].rank,
+                        str(report["mesh"].device), report["mesh"].backend],
+               "seconds": time.time() - t0,
+               "loss": loss_counts(FocalDiceLossFn),
+               "photometric": photometric_counts(ph),
+               "trials": report["trials"], "first_step": first}
+    finally:
+        dist.destroy_process_group()
+    print(f"rank {os.environ['RANK']}: partition {out['partition']}, mesh "
+          f"{out['mesh']}, {out['seconds']:.1f} s")
+    with open(os.path.join(out_dir, f"rank{os.environ['RANK']}.json"),
+              "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def sub_expected_counts(trials, n_train, n_val):
+    """A rank's kernel (calls, launches) of its partition's trials (its
+    records): per epoch, ceil(n_train / batch) train steps of two native
+    photometric calls, a loss forward and a backward on the rank's rows
+    (or the whole batch, when it does not divide), and ceil(n_val / batch)
+    validation forwards; one launch a call."""
+    native = fwd = bwd = 0
+    for t in trials:
+        bs, epochs = t["params"]["batch_size"], len(t["val_loss"])
+        steps = -(-n_train // bs)
+        native += 2 * steps * epochs
+        fwd += (steps + -(-n_val // bs)) * epochs
+        bwd += steps * epochs
+    return ({"native": [native, native], "flip": [0, 0]},
+            {"fwd": [fwd, fwd], "bwd": [bwd, bwd]})
+
+
+def phase_tuning_submesh(torch, root, device="cuda", size=SUB_SIZE):
+    """Phase 19: a study of SUB_TRIALS trials, SUB_EPOCHS epochs each, at
+    ``size`` (native augmentation, bf16, full width) over a 14-city tree,
+    on SUB_WORLD gloo ranks sharing the card: two partitions of two ranks
+    (``tune.tune_on_ranks``).  Checks the study's rows (numbers unique,
+    COMPLETE or PRUNED), each rank's kernel counts against its trials, the
+    two ranks of a partition against each other, and each trial's first
+    step against the same trial in this process (SUB_STEP_RTOL); prints
+    its first epoch against two runs of it in this process.  Returns each
+    rank's counts, the relative differences and the phase's seconds."""
+    from gan_aug_pfa_torch import tune
+    from gan_aug_pfa_torch.config import DataConfig
+    from gan_aug_pfa_torch.data.scanner import create_sample_lists
+    from gan_aug_pfa_torch.tuning import TrialState, load_study
+
+    t0 = time.time()
+    write_oscd_tree(root)
+    out = os.path.join(root, "tune_submesh")
+    os.makedirs(out)
+    run_ranks("tune_sub_rank", [out, root, device, size], world=SUB_WORLD)
+    reports = []
+    for rank in range(SUB_WORLD):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            reports.append(json.load(f))
+    trials = load_study(tune.STUDY_NAME, "sqlite:///" + os.path.join(
+        out, "study.db")).trials
+    n = {mode: len(create_sample_lists(root, SUBDIR, mode=mode,
+                                       verbose=False))
+         for mode in ("train", "val")}
+    rows = [(t.number, t.state.value, t.params["batch_size"],
+             len(t.intermediate_values)) for t in trials]
+    ranks = [(r["partition"], r["mesh"], r["loss"], r["photometric"])
+             for r in reports]
+    print(f"phase 19: study (number, state, batch, epochs) {rows}; ranks "
+          f"(partition, mesh, loss and photometric counts) {ranks}")
+    if (sorted(t.number for t in trials) != list(range(SUB_TRIALS))
+            or not {t.state for t in trials} <= {TrialState.COMPLETE,
+                                                 TrialState.PRUNED}):
+        raise AssertionError(f"phase 19 study rows: {trials}")
+    for rank, rep in enumerate(reports):
+        want = (rank // 2, [2, rank % 2])
+        if (rep["partition"], rep["mesh"][:2]) != want:
+            raise AssertionError(f"rank {rank}: partition {rep['partition']}"
+                                 f", mesh {rep['mesh']}, expected {want}")
+        want_photo, want_loss = sub_expected_counts(rep["trials"],
+                                                    n["train"], n["val"])
+        if rep["loss"] != want_loss or rep["photometric"] != want_photo:
+            raise AssertionError(f"rank {rank}: counts {rep['loss']} "
+                                 f"{rep['photometric']}, expected "
+                                 f"{want_loss} {want_photo}")
+        if rank % 2 and rep["trials"] != reports[rank - 1]["trials"]:
+            raise AssertionError(f"rank {rank}'s trials differ from its "
+                                 "partition's rank 0")
+    data = DataConfig(root_dir=root, target_size=(size, size))
+    datasets = tune.load_tuning_datasets(data, verbose=False)
+    first, undo = first_step_losses(tune.SiameseTrainer)
+    rel = {}
+    try:
+        for rep in reports[::2]:
+            for t in rep["trials"]:
+                ones = []
+                for _ in range(2):  # the one-process run, and its spread
+                    first.clear()
+                    objective = tune.make_objective(
+                        data, verbose=False, trial_epochs=1, device=device,
+                        datasets=datasets)
+                    objective(tune.SharedTrial(t["number"], t["params"]))
+                    ones.append([first[t["number"]]] + [
+                        objective.trials[0][k][0]
+                        for k in ("train_loss", "val_loss")])
+                got = [rep["first_step"][str(t["number"])]] + [
+                    t[k][0] for k in ("train_loss", "val_loss")]
+                rel[t["number"]] = {
+                    "lr": t["params"]["lr"],
+                    "batch": t["params"]["batch_size"],
+                    "ranks_vs_one": [abs(a - b) / abs(b)
+                                     for a, b in zip(got, ones[0])],
+                    "one_vs_one": [abs(a - b) / abs(b)
+                                   for a, b in zip(ones[1], ones[0])]}
+    finally:
+        undo()
+    seconds = time.time() - t0
+    print(f"phase 19: each trial's (first step, first epoch's train and "
+          f"val) losses, relative: two ranks vs one process, and one "
+          f"process vs itself: {rel}; ranks' own seconds "
+          f"{[round(r['seconds'], 1) for r in reports]}")
+    if sorted(rel) != list(range(SUB_TRIALS)) or max(
+            v["ranks_vs_one"][0] for v in rel.values()) > SUB_STEP_RTOL:
+        raise AssertionError("phase 19: a sub-mesh trial's first step "
+                             "differs from the same step in one process")
+    print(f"phase 19 (tuning over sub-meshes) took {seconds:.1f} s")
+    return {"loss": [r["loss"] for r in reports],
+            "photometric": [r["photometric"] for r in reports],
+            "rel": rel, "seconds": seconds}
+
+
 def main():
     import torch
 
@@ -4829,6 +5037,9 @@ def main():
                     "train": train_counts["history"],
                     "augment": aug_runs["native"]["history"]})
                 stamp("phase 18 (the sidecar's compile beside it)")
+            with tempfile.TemporaryDirectory() as root:
+                submesh = phase_tuning_submesh(torch, root)
+                stamp("phase 19 (the sidecar's compile beside it)")
             torch.cuda.empty_cache()
             serving = phase_serving(torch, serve_root, sidecar_job=job)
             stamp("phase 15")
@@ -4894,6 +5105,7 @@ def main():
             "data_parallel": {run: [list(r["loss"][name]) for r in ranks]
                               for run, ranks in
                               data_parallel["cli"].items()},
+            "tuning_submesh": [r[name] for r in submesh["loss"]],
             "shape": list(TRAIN_SHAPE),
             "logits": "bfloat16",
             "plan": t["plan"],
@@ -4932,7 +5144,9 @@ def main():
             "tuning": list(tuning["counts"][kind]),
             **({"tuning_max_abs_err": tuning_errs[2],
                 "data_parallel": [list(r["photometric"]["native"]) for r in
-                                  data_parallel["cli"]["augment"]]}
+                                  data_parallel["cli"]["augment"]],
+                "tuning_submesh": [r["native"]
+                                   for r in submesh["photometric"]]}
                if kind == "native" else {"stream": list(stream["flip"])}),
             "knobs": {run: list(knobs["runs"][run]["photometric"][kind])
                       for run in ("all", "resume")},

@@ -33,16 +33,25 @@ on a host with several cards it starts one worker a card with
 worker or group ends the run with its error; nothing falls back to one
 card.
 
+A ``DataMesh`` may span a sub-group of the world (``group``): tuning
+with ``--parallel-trials k`` partitions the ranks into k data meshes, one
+trial each (``tune.partition_devices``, ``tune.tune_on_ranks``).  Every
+collective of a mesh names its group, and ``broadcast`` maps the mesh's
+rank 0 to its global rank.
+
 Not ported (reached only through the JAX API, no CLI default): the
-tensor-parallel 'model' axis (``param_shardings``), the 'spatial' axis
-and tuning over sub-meshes.
+tensor-parallel 'model' axis (``param_shardings``) and the 'spatial'
+axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import socket
+import time
+import traceback
 from typing import Any, Callable, Optional, Sequence
 
 import torch
@@ -72,8 +81,8 @@ def shard_rows(n: int, world_size: int, rank: int) -> Optional[slice]:
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
     """The data axis over the ranks of a process group: this process's
-    ``rank`` of ``world_size``, its ``device`` and the group's
-    ``backend``; ``group`` None is the default group."""
+    ``rank`` of ``world_size`` (its rank in ``group``), its ``device``
+    and the group's ``backend``; ``group`` None is the default group."""
 
     world_size: int
     rank: int
@@ -97,8 +106,13 @@ class DataMesh:
         return tensor
 
     def broadcast(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Rank ``src``'s ``tensor`` on every rank, in place; returns it."""
-        dist.broadcast(tensor, src, group=self.group)
+        """Rank ``src``'s (of this mesh) ``tensor`` on every rank, in
+        place; returns it.  ``torch.distributed.broadcast`` names its
+        source by its rank in the world, which a sub-group's rank 0 is
+        not."""
+        root = (src if self.group is None
+                else dist.get_global_rank(self.group, src))
+        dist.broadcast(tensor, root, group=self.group)
         return tensor
 
     def agree(self, flag: bool) -> bool:
@@ -165,9 +179,12 @@ def backend_for(device, local_world_size: int) -> str:
     return "gloo"
 
 
-def maybe_distributed_init(device="cuda") -> bool:
+def maybe_distributed_init(device="cuda",
+                           timeout: Optional[datetime.timedelta] = None
+                           ) -> bool:
     """Join the process group that the environment describes (``torchrun``'s
-    variables; ``env://`` rendezvous) on this rank's device and backend.
+    variables; ``env://`` rendezvous) on this rank's device and backend,
+    its collectives waiting up to ``timeout`` (None: torch's default).
     A no-op that returns False without those variables, or when the group
     exists already.  A failed init raises."""
     if not torchrun_env() or dist.is_initialized():
@@ -182,7 +199,7 @@ def maybe_distributed_init(device="cuda") -> bool:
         # CPU ranks share the host's cores.
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // local_world))
     dist.init_process_group(backend, init_method="env://", world_size=world,
-                            rank=int(os.environ["RANK"]))
+                            rank=int(os.environ["RANK"]), timeout=timeout)
     return True
 
 
@@ -206,8 +223,9 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda") -> DataMesh:
         if n_devices < world:
             raise ValueError(
                 f"make_mesh wanted {n_devices} of the group's {world} "
-                "ranks: the data axis spans every rank (sub-meshes are "
-                "not ported). Start as many ranks as the mesh needs.")
+                "ranks: the data axis spans every rank (only tuning "
+                "partitions the ranks into sub-meshes, tune.tune_on_ranks)."
+                " Start as many ranks as the mesh needs.")
     if world == 1:
         dev = torch.device(device)
         return DataMesh(1, 0, dev, dist.get_backend() if
@@ -234,35 +252,52 @@ def free_port() -> int:
 
 
 def _worker(rank: int, fn: Callable, args: Sequence, nprocs: int,
-            port: int, device, results) -> None:
+            port: int, device, results, timeout=None) -> None:
     """One spawned rank: ``torchrun``'s variables, the group, ``fn``; rank
-    0 reports whether ``fn`` returned a result."""
+    0 reports whether ``fn`` returned a result, a rank that raises when
+    and what."""
     os.environ.update(WORLD_SIZE=str(nprocs), RANK=str(rank),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(nprocs),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-    maybe_distributed_init(device)
+    maybe_distributed_init(device, timeout)
     try:
         result = fn(*args)
+    except Exception:
+        results.put((time.monotonic(), rank, traceback.format_exc()))
+        raise
     finally:
         dist.destroy_process_group()
     if rank == 0:
         results.put(result is not None)
 
 
-def spawn(fn: Callable, args: Sequence, nprocs: int, device="cuda"
-          ) -> Optional[dict]:
+def spawn(fn: Callable, args: Sequence, nprocs: int, device="cuda",
+          timeout: Optional[datetime.timedelta] = None) -> Optional[dict]:
     """Run ``fn(*args)`` on ``nprocs`` ranks of one group, one process
     each (``torch.multiprocessing.spawn``; ``fn`` and ``args`` must
-    pickle).  Returns ``{"world_size": nprocs}`` when rank 0's ``fn``
-    returned a result, None when it returned None.  A worker that raises
-    raises here; one that exits with a code (an argument error, say)
-    exits this process with it."""
+    pickle), the group's collectives waiting up to ``timeout``.  Returns
+    ``{"world_size": nprocs}`` when rank 0's ``fn`` returned a result,
+    None when it returned None.  A worker that raises stops the others and
+    raises here: the first error raised, with its rank and traceback, not
+    the closed connections it causes on the other ranks.  One that exits
+    with a code (an argument error, say) exits this process with it."""
     import torch.multiprocessing as mp
 
     results = mp.get_context("spawn").SimpleQueue()
     try:
         mp.spawn(_worker, args=(fn, tuple(args), nprocs, free_port(), device,
-                                results), nprocs=nprocs, join=True)
+                                results, timeout), nprocs=nprocs, join=True)
+    except mp.ProcessRaisedException as e:
+        errors = []
+        while not results.empty():
+            item = results.get()
+            if isinstance(item, tuple):
+                errors.append(item)
+        if not errors:
+            raise
+        _, rank, trace = min(errors)
+        raise RuntimeError(f"rank {rank} of {nprocs} failed first:\n"
+                           f"{trace}") from e
     except mp.ProcessExitedException as e:
         if e.exit_code and e.exit_code > 0:
             raise SystemExit(e.exit_code) from e

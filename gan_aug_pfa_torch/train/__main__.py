@@ -29,7 +29,13 @@ Training is data-parallel over every visible card, as the JAX CLI's
 worker a card; under ``torchrun`` (``torchrun --nproc-per-node N -m
 gan_aug_pfa_torch.train ...``, also with ``--device cpu``) each process is
 one rank.  Rank 0 prints and writes.  ``--no-data-parallel`` trains on
-one device.  Tuning runs on one device a trial.
+one device.  ``--tune --parallel-trials k`` splits the cards as the JAX
+CLI does (``tune.partition_devices``): k partitions of ``cards // k``
+cards, one trial at a time each.  A partition of one card is a worker
+thread; one of several trains each of its trials data-parallel, one rank
+a card (the CLI spawns them; under ``torchrun`` the world is
+partitioned).  With ``--no-data-parallel`` each worker thread takes one
+card.
 """
 
 from __future__ import annotations
@@ -94,9 +100,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-trials", type=int, default=50,
                    help="[extension] number of tuning trials for --tune")
     p.add_argument("--parallel-trials", type=int, default=1,
-                   help="[extension] run N trials concurrently, one worker "
-                        "a device (capped at the devices of --device's "
-                        "kind)")
+                   help="[extension] run N trials concurrently: the "
+                        "devices of --device's kind (every card; under "
+                        "torchrun, every rank) split into N partitions of "
+                        "devices // N, each trial data-parallel over its "
+                        "partition (one worker thread a card with "
+                        "--no-data-parallel)")
     p.add_argument("--augment", action="store_true",
                    help="joint augmentation of the training pairs (the "
                         "reference augments only under --tune)")
@@ -121,7 +130,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-data-parallel", action="store_true",
                    help="train on one device (default: data-parallel over "
                         "every visible card, one process a card; under "
-                        "torchrun, over its ranks)")
+                        "torchrun, over its ranks); with --tune, one "
+                        "worker thread a card")
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted for the JAX package's command lines; "
                         "the port has no compilation cache")
@@ -212,11 +222,16 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
                 "use the HBM-resident cache (their datasets are rebuilt "
                 "per trial at tuning batch sizes)."
             )
+        from ..parallel.mesh import LaunchError
         from ..tune import run_tuning
 
-        return run_tuning(data_cfg, n_trials=args.n_trials,
-                          n_parallel=args.parallel_trials,
-                          native_aug=args.native_aug, device=args.device)
+        try:
+            return run_tuning(data_cfg, n_trials=args.n_trials,
+                              n_parallel=args.parallel_trials,
+                              native_aug=args.native_aug, device=args.device,
+                              data_parallel=not args.no_data_parallel)
+        except LaunchError as e:
+            parser.error(str(e))
     train_cfg = SiameseTrainConfig(
         batch_size=args.batch_size,
         num_epochs=args.num_epochs,

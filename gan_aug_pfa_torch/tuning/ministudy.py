@@ -26,10 +26,19 @@ around good-trial values (categoricals from the good-trial histogram).
 This is NOT a copy of Optuna: the storage schema, sampler, and code are
 original; only the call signature is mirrored so the same training code runs
 with either backend.
+
+Several processes may write one study file at once (parallel trials over
+sub-meshes, ``tune.tune_on_ranks``): each write is one ``BEGIN IMMEDIATE``
+transaction, which takes the file's write lock before it reads, so a new
+trial's number (``MAX(number) + 1``) and its row go in together; and a
+writer or reader that finds the file locked waits for it (the connection's
+busy timeout, ``BUSY_TIMEOUT_S``) rather than fail.  A thread lock still
+serializes the threads that share one connection.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import enum
 import json
@@ -38,6 +47,9 @@ import random
 import sqlite3
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence
+
+# Seconds a statement waits for another process's lock on the study file.
+BUSY_TIMEOUT_S = 600.0
 
 
 class TrialPruned(Exception):
@@ -188,7 +200,7 @@ class Study:
         else:
             raise ValueError(f"Unsupported storage: {storage}")
         self._conn = sqlite3.connect(
-            self._db_path, check_same_thread=False
+            self._db_path, timeout=BUSY_TIMEOUT_S, check_same_thread=False
         )
         self._init_schema()
         self._study_id = self._get_or_create_study()
@@ -214,46 +226,63 @@ class Study:
         )
         c.commit()
 
+    @contextlib.contextmanager
+    def _write(self):
+        """One write transaction: this connection's thread lock, then the
+        file's write lock (``BEGIN IMMEDIATE``, waiting up to the busy
+        timeout), committed at the end, rolled back on an error."""
+        with self._lock:
+            self._conn.execute("BEGIN IMMEDIATE")
+            try:
+                yield self._conn
+            except BaseException:
+                self._conn.rollback()
+                raise
+            self._conn.commit()
+
     def _get_or_create_study(self) -> int:
-        cur = self._conn.execute(
-            "SELECT study_id, direction FROM studies WHERE name=?",
-            (self.study_name,),
-        )
-        row = cur.fetchone()
+        def find(c):
+            return c.execute(
+                "SELECT study_id, direction FROM studies WHERE name=?",
+                (self.study_name,),
+            ).fetchone()
+
+        row = find(self._conn)  # a read: a read-only file opens too
         if row:
             return row[0]
-        cur = self._conn.execute(
-            "INSERT INTO studies (name, direction) VALUES (?, ?)",
-            (self.study_name, self.direction),
-        )
-        self._conn.commit()
-        return cur.lastrowid
+        with self._write() as c:
+            row = find(c)  # another process may have made it meanwhile
+            if row:
+                return row[0]
+            return c.execute(
+                "INSERT INTO studies (name, direction) VALUES (?, ?)",
+                (self.study_name, self.direction),
+            ).lastrowid
 
     def _store_param(self, trial_id: int, name: str, value):
-        with self._lock:
-            self._conn.execute(
+        with self._write() as c:
+            c.execute(
                 "INSERT INTO trial_params VALUES (?, ?, ?)",
                 (trial_id, name, json.dumps(value)),
             )
-            self._conn.commit()
 
     def _store_intermediate(self, trial_id: int, step: int, value: float):
-        with self._lock:
-            self._conn.execute(
+        with self._write() as c:
+            c.execute(
                 "INSERT INTO intermediate_values VALUES (?, ?, ?)",
                 (trial_id, step, value),
             )
-            self._conn.commit()
 
     def _new_trial(self) -> Trial:
-        with self._lock:
-            cur = self._conn.execute(
+        # The number is read and its row inserted under one write lock:
+        # another process cannot take the same number in between.
+        with self._write() as c:
+            number = c.execute(
                 "SELECT COALESCE(MAX(number), -1) + 1 FROM trials WHERE "
                 "study_id=?",
                 (self._study_id,),
-            )
-            number = cur.fetchone()[0]
-            cur = self._conn.execute(
+            ).fetchone()[0]
+            cur = c.execute(
                 "INSERT INTO trials (study_id, number, state, value, "
                 "datetime_start) VALUES (?, ?, ?, NULL, ?)",
                 (
@@ -261,13 +290,12 @@ class Study:
                     datetime.datetime.now().isoformat(),
                 ),
             )
-            self._conn.commit()
-            return Trial(self, number, cur.lastrowid)
+        return Trial(self, number, cur.lastrowid)
 
     def _finish_trial(self, trial: Trial, state: TrialState,
                       value: Optional[float]):
-        with self._lock:
-            self._conn.execute(
+        with self._write() as c:
+            c.execute(
                 "UPDATE trials SET state=?, value=?, datetime_complete=? "
                 "WHERE trial_id=?",
                 (
@@ -275,7 +303,6 @@ class Study:
                     datetime.datetime.now().isoformat(), trial._trial_id,
                 ),
             )
-            self._conn.commit()
 
     # -- trials view -------------------------------------------------------
 

@@ -43,6 +43,7 @@ from gan_aug_pfa_tpu.data import loader as jl
 from gan_aug_pfa_tpu.data import scanner as js
 from gan_aug_pfa_tpu.data import transforms as jt
 from gan_aug_pfa_tpu.ops.pallas_kernels import photometric as jph
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 SUBDIR = "Onera Satellite Change Detection Dataset"
 CHAIN_ATOL = 1e-4

@@ -45,6 +45,7 @@ from gan_aug_pfa_tpu.models.siamese_unet import SiameseUNet as JaxModel
 from gan_aug_pfa_tpu.train.siamese import SiameseTrainer as JaxTrainer
 from gan_aug_pfa_tpu.train.siamese import TrainState
 from torch_port_helpers import jax_siamese_variables
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 SUBDIR = "Onera Satellite Change Detection Dataset"
 SIZE = (32, 32)

@@ -15,6 +15,7 @@ from gan_aug_pfa_torch.data import png
 from gan_aug_pfa_torch.data import scanner as ts
 from gan_aug_pfa_tpu.data import loader as jl
 from gan_aug_pfa_tpu.data import scanner as js
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 SUBDIR = "Onera Satellite Change Detection Dataset"
 

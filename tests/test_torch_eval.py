@@ -27,6 +27,7 @@ from gan_aug_pfa_torch.train.siamese import predict
 from gan_aug_pfa_tpu import config as jcfg
 from gan_aug_pfa_tpu import pipelines as jp
 from torch_port_helpers import jax_siamese_variables
+from torch_tmp import drop_tmp_path, dropped  # noqa: F401
 
 SIZE = (32, 32)
 # With these weights no probability on oscd_tree lies within 1e-4 of 0.5
@@ -42,8 +43,9 @@ def slice_setup(oscd_tree, tmp_path_factory):
     model.load_state_dict(ti.siamese_state_dict_from_jax(
         jax_siamese_variables(seed=WEIGHT_SEED, size=SIZE[0])), strict=True)
     pth = str(work / "siamese_checkpoints" / "best_model.pth")
-    tck.save_model(pth, model)
-    return str(oscd_tree), pth, work
+    with dropped(work):
+        tck.save_model(pth, model)
+        yield str(oscd_tree), pth, work
 
 
 def _port_eval_cfg(pth, work, **kw):

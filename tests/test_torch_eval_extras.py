@@ -39,6 +39,7 @@ from gan_aug_pfa_tpu import metrics as jm
 from gan_aug_pfa_tpu import pipelines as jp
 from gan_aug_pfa_tpu.ops import morphology as jmorph
 from torch_port_helpers import jax_siamese_logits, jax_siamese_variables
+from torch_tmp import drop_tmp_path, dropped  # noqa: F401
 
 SIZE = (32, 32)
 SUBDIR = "Onera Satellite Change Detection Dataset"
@@ -75,7 +76,8 @@ def setup(oscd_tree, tmp_path_factory):
                                  batch_stats=variables["batch_stats"],
                                  opt_state=(), step=0),
         extra={"epoch": 1}, model_only=True)
-    return str(oscd_tree), pth, msgpack, work, jax_vars
+    with dropped(work):
+        yield str(oscd_tree), pth, msgpack, work, jax_vars
 
 
 def _ensemble(case, pth, msgpack):

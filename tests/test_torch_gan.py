@@ -46,6 +46,7 @@ from gan_aug_pfa_tpu import pipelines as jp
 from gan_aug_pfa_tpu.train.gan import GANState
 from gan_aug_pfa_tpu.train.gan import GANTrainer as JaxGANTrainer
 from torch_port_helpers import jax_pix2pix_models, jax_pix2pix_variables
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 32

@@ -25,6 +25,7 @@ from gan_aug_pfa_torch.config import DataConfig, GANTrainConfig
 from gan_aug_pfa_torch.models import UNetGenerator
 from gan_aug_pfa_torch.train.gan import GANTrainer
 from gan_aug_pfa_torch.utils.profiling import StepTimer, enable_nan_checks
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 SIZE = (32, 32)
 ARCH = dict(num_downs=5, ngf=8, ndf=8)

@@ -13,6 +13,7 @@ from gan_aug_pfa_torch.ops.kernels import build
 from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
 from gan_aug_pfa_tpu import metrics as jm
 from gan_aug_pfa_tpu.ops.pallas_kernels import confusion_counts_batch
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 SHAPES = [(5, 33, 47), (1, 37, 53), (3, 1, 1)]
 

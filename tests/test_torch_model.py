@@ -22,6 +22,7 @@ from gan_aug_pfa_tpu.ops.resize import (
     upsample2x_align_corners as jax_upsample,
 )
 from torch_port_helpers import jax_siamese_logits, jax_siamese_variables
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 LOGIT_ATOL = 1e-4
 PROB_ATOL = 2e-5

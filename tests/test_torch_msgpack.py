@@ -56,6 +56,7 @@ from torch_port_helpers import (
     jax_siamese_logits,
     jax_siamese_variables,
 )
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 32

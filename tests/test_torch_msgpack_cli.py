@@ -26,6 +26,7 @@ from gan_aug_pfa_tpu import checkpoint as jck
 from gan_aug_pfa_tpu import config as jcfg
 from gan_aug_pfa_tpu import pipelines as jp
 from torch_port_helpers import jax_pix2pix_variables, jax_siamese_variables
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 SIZE = 32
 # As in tests/test_torch_eval.py: with these weights no probability on

@@ -19,6 +19,7 @@ from gan_aug_pfa_torch.data import png
 from gan_aug_pfa_torch.data import scanner as ts
 from gan_aug_pfa_torch.ops.kernels import build
 from test_torch_data import PNG_FLAVOURS, PNG_SIZES, _write_png
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBDIR = "Onera Satellite Change Detection Dataset"

@@ -52,6 +52,7 @@ from gan_aug_pfa_torch.train import optim as topt
 from gan_aug_pfa_torch.train.siamese import SiameseTrainer
 from gan_aug_pfa_tpu import checkpoint as jck
 from gan_aug_pfa_tpu.train import optim as jopt
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 LR, WD = 1e-3, 1e-2
 RTOL = 1e-6

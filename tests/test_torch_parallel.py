@@ -60,6 +60,7 @@ from gan_aug_pfa_torch.pipelines import DeviceCache, NativeDeviceCache
 from gan_aug_pfa_torch.train.gan import GANTrainer
 from gan_aug_pfa_torch.train.optim import make_optimizer
 from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 WORLD = 2
 SIZE = 32

@@ -28,6 +28,7 @@ from gan_aug_pfa_torch.config import SiameseTrainConfig
 from gan_aug_pfa_torch.models import SiameseUNet
 from gan_aug_pfa_torch.parallel import mesh as pm
 from gan_aug_pfa_torch.train import __main__ as train_cli
+from torch_tmp import drop_tmp_path, dropped  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
@@ -53,9 +54,11 @@ def _common(root, ckpt_dir, *extra):
             str(ckpt_dir), *extra]
 
 
-def _ranks(args, sigterm_rank1=False, timeout=240):
+def _ranks(args, sigterm_rank1=False, timeout=900):
     """``python -m gan_aug_pfa_torch.train *args`` as ranks 0 and 1 of one
-    gloo group on ``localhost``: [(returncode, stdout, stderr)] by rank."""
+    gloo group on ``localhost``: [(returncode, stdout, stderr)] by rank.
+    Alone a run takes seconds; the timeout leaves room for Tier-1's six
+    workers sharing the host's cores."""
     port = str(pm.free_port())
     procs = []
     for rank in range(WORLD):
@@ -88,13 +91,13 @@ def _events(path):
 @pytest.fixture(scope="module")
 def two_ranks(oscd_tree, tmp_path_factory):
     """One epoch on two ranks and the same run in one process."""
-    tmp = tmp_path_factory.mktemp("parallel_cli")
-    log = tmp / "run.jsonl"
-    ranks = _ranks(_common(oscd_tree, tmp / "ranks", "--num-epochs", "1",
-                           "--log-jsonl", str(log)))
-    one = train_cli.main(_common(oscd_tree, tmp / "one", "--num-epochs",
-                                 "1"))
-    return {"ranks": ranks, "tmp": tmp, "log": log, "one": one}
+    with dropped(tmp_path_factory.mktemp("parallel_cli")) as tmp:
+        log = tmp / "run.jsonl"
+        ranks = _ranks(_common(oscd_tree, tmp / "ranks", "--num-epochs",
+                               "1", "--log-jsonl", str(log)))
+        one = train_cli.main(_common(oscd_tree, tmp / "one", "--num-epochs",
+                                     "1"))
+        yield {"ranks": ranks, "tmp": tmp, "log": log, "one": one}
 
 
 def test_only_rank_0_prints_and_writes(two_ranks):

@@ -64,6 +64,7 @@ from gan_aug_pfa_tpu.train import optim as jopt
 from gan_aug_pfa_tpu.models.siamese_unet import SiameseUNet as JaxSiamese
 from gan_aug_pfa_tpu.train import plateau as jpl
 from torch_port_helpers import _randomize_bn
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GAN_FIXTURE = os.path.join(REPO, "tests", "data", "jax_gan_state_nd5_ngf4")

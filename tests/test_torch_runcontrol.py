@@ -34,6 +34,7 @@ from gan_aug_pfa_torch.utils.profiling import (
 )
 from gan_aug_pfa_torch.utils.runlog import JsonlRunLog, open_run_log
 from gan_aug_pfa_torch.utils.signals import GracefulShutdown
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SIZE = (32, 32)

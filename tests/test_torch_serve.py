@@ -44,6 +44,7 @@ from torch_port_helpers import (
     jax_siamese_logits,
     jax_siamese_variables,
 )
+from torch_tmp import drop_tmp_path, dropped  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 32
@@ -119,8 +120,9 @@ def siamese(tmp_path_factory):
     serve.save_artifact(paths["int8"], exported,
                         {"arch": "siamese", "quantize": "int8",
                          "quantize_report": report})
-    return {"variables": variables, "model": model, "pth": pth,
-            "paths": paths, "work": work}
+    with dropped(work):
+        yield {"variables": variables, "model": model, "pth": pth,
+               "paths": paths, "work": work}
 
 
 def _pix2pix_eager(arch, model, a, b):

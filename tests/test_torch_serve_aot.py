@@ -33,6 +33,7 @@ from gan_aug_pfa_torch.models import (
     SiameseUNet,
     UNetGenerator,
 )
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 32

@@ -33,6 +33,7 @@ from gan_aug_pfa_torch.data.pil_resize import (
 )
 from gan_aug_pfa_torch.models import SiameseUNet
 from torch_port_helpers import jax_siamese_variables
+from torch_tmp import drop_tmp_path, dropped  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = (32, 32)
@@ -142,7 +143,8 @@ def pair(tmp_path_factory):
         cwd=REPO, capture_output=True, text=True, timeout=600,
         env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode == 0, proc.stderr[-3000:]
-    return work, paths, cases
+    with dropped(work):
+        yield work, paths, cases
 
 
 def _port(work, paths, case, cases, **kw):

@@ -44,6 +44,7 @@ from gan_aug_pfa_tpu import config as jcfg
 from gan_aug_pfa_tpu import pipelines as jp
 from gan_aug_pfa_tpu.data.stream import StreamingSource as JaxSource
 from torch_port_helpers import jax_pix2pix_variables, jax_siamese_variables
+from torch_tmp import drop_tmp_path, dropped  # noqa: F401
 
 SIZE = (32, 32)
 SUBDIR = "Onera Satellite Change Detection Dataset"
@@ -323,9 +324,11 @@ def eval_pth(tmp_path_factory):
     model.load_state_dict(ti.siamese_state_dict_from_jax(
         jax_siamese_variables(seed=EVAL_WEIGHT_SEED, size=SIZE[0])),
         strict=True)
-    pth = str(tmp_path_factory.mktemp("stream_eval") / "model.pth")
-    tck.save_model(pth, model)
-    return pth
+    work = tmp_path_factory.mktemp("stream_eval")
+    pth = str(work / "model.pth")
+    with dropped(work):
+        tck.save_model(pth, model)
+        yield pth
 
 
 def test_streamed_evaluation_equals_resident_and_jax(oscd_tree, eval_pth,

@@ -34,6 +34,7 @@ from gan_aug_pfa_tpu import pipelines as jp
 from gan_aug_pfa_tpu.data.loader import float_to_uint8 as jax_float_to_uint8
 from gan_aug_pfa_tpu.utils.viz import save_gan_sample_strip as jax_strip
 from torch_port_helpers import jax_pix2pix_variables
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 SUBDIR = "Onera Satellite Change Detection Dataset"
 SIZE = 32

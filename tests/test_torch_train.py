@@ -60,6 +60,7 @@ from gan_aug_pfa_tpu.train import plateau as jpl
 from gan_aug_pfa_tpu.train.siamese import SiameseTrainer as JaxTrainer
 from gan_aug_pfa_tpu.train.siamese import TrainState
 from torch_port_helpers import jax_siamese_variables
+from torch_tmp import drop_tmp_path, dropped  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBDIR = "Onera Satellite Change Detection Dataset"
@@ -304,7 +305,8 @@ def _jax_run(root, init):
 @pytest.fixture(scope="module")
 def lockstep(oscd_tree, tmp_path_factory):
     root = str(oscd_tree)
-    ckpt_dir = str(tmp_path_factory.mktemp("torch_train") / "ckpt")
+    work = tmp_path_factory.mktemp("torch_train")
+    ckpt_dir = str(work / "ckpt")
     init = jax_siamese_variables(seed=INIT_SEED, size=SIZE[0],
                                  head_scale=HEAD_SCALE)
     jax_hist, jax_final, n_train = _jax_run(root, init)
@@ -315,9 +317,10 @@ def lockstep(oscd_tree, tmp_path_factory):
                            checkpoint_dir=ckpt_dir, save_every=1),
         verbose=False, device="cpu",
         initial_state_dict=ti.siamese_state_dict_from_jax(init))
-    return {"root": root, "ckpt_dir": ckpt_dir, "init": init,
-            "jax": jax_hist, "jax_final": jax_final, "port": port_hist,
-            "steps": EPOCHS * -(-n_train // BS)}
+    with dropped(work):
+        yield {"root": root, "ckpt_dir": ckpt_dir, "init": init,
+               "jax": jax_hist, "jax_final": jax_final, "port": port_hist,
+               "steps": EPOCHS * -(-n_train // BS)}
 
 
 def test_lockstep_train_losses_match_jax(lockstep):

@@ -40,6 +40,7 @@ from gan_aug_pfa_torch.train import __main__ as train_cli
 from gan_aug_pfa_torch.train.siamese import SiameseTrainer
 from gan_aug_pfa_tpu import interop as ji
 from gan_aug_pfa_tpu.models.siamese_unet import SiameseUNet as JaxModel
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 SIZE = 32
 BS = 2

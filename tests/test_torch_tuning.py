@@ -37,6 +37,7 @@ from gan_aug_pfa_torch.tuning import ministudy as tms
 from gan_aug_pfa_tpu import tune as jtune
 from gan_aug_pfa_tpu.config import DataConfig as JaxDataConfig
 from gan_aug_pfa_tpu.tuning import ministudy as jms
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 SIZE = (32, 32)
 STUDY = "s"
