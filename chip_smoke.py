@@ -4304,14 +4304,18 @@ def knob_gan_throughput(torch, ds, device="cuda", arch=None):
               f"{[round(r, 2) for r in rates[name]]}")
         trainers[name] = trainer
     profiles = {}
+    # Half an epoch profiled (the trace's processing took most of the
+    # phase's time at 14 steps).
+    half = DeviceCache(*(t[:len(cache) // 2] for t in (
+        cache.img1, cache.img2, cache.labels)))
     if device == "cuda":
         for name, trainer in trainers.items():
             rng = np.random.RandomState(SEED)
             busy_us, kernels = device_breakdown(
-                torch, lambda: trainer.train_epoch(cache, rng),
-                f"one GAN epoch, {name} ({len(cache)} steps)", (), top=3)
+                torch, lambda: trainer.train_epoch(half, rng),
+                f"one GAN epoch, {name} ({len(half)} steps)", (), top=3)
             profiles[name] = {
-                "launches": sum(e.count for e in kernels) / len(cache),
+                "launches": sum(e.count for e in kernels) / len(half),
                 "busy_us": busy_us}
             print(f"GAN {name}: {profiles[name]['launches']:.1f} kernel "
                   "launches a step")
@@ -4910,6 +4914,324 @@ def phase_tuning_submesh(torch, root, device="cuda", size=SUB_SIZE):
             "photometric": [r["photometric"] for r in reports],
             "rel": rel, "seconds": seconds}
 
+# -- phase 20: the tensor-parallel 'model' axis -----------------------------
+
+MA_WORLD, MA_SHAPE = 4, (2, 2)  # four gloo ranks on the card: (data, model)
+MA_BATCH, MA_STEPS = 4, 3  # the Siamese defaults' batch, 2 rows a data rank
+# A (data 2, model 2) step's loss against the (data 2) step on the same
+# rows from the same weights: the first equal in bits, the later ones
+# within this.  Under bf16 autocast torch casts each weight once a forward
+# and adds the two encoder passes' weight gradients in bf16; a sharded
+# conv casts at each call and adds them in float32, as flax does (ROADMAP
+# §C16: 3.4e-5, then 2.3e-4 relative on the CPU); and on the card cuDNN's
+# bf16 backward and the upsample's backward add with atomics (§C7).
+MA_LOSS_RTOL = DP_LOSS_RTOL
+MA_GAN_RTOL = DP_LOSS_RTOL  # one bf16 D+G step, (2, 2) against one process
+
+
+def leaf_bytes(model, plan, m, names=None):
+    """(exact bytes, the most the CUDA caching allocator may count for
+    them) of ``model``'s leaves (``names``: those only) as a rank of a
+    'model' extent ``m`` holds them under ``plan``.  The allocator rounds
+    a block up to 512 bytes and keeps a remainder of up to 1 MiB of a
+    larger block's segment in the block."""
+    exact = most = 0
+    for k, t in model.state_dict().items():
+        if names is not None and k not in names:
+            continue
+        n = t.numel() * t.element_size() // (m if k in plan else 1)
+        exact += n
+        most += -(-max(n, 1) // 512) * 512 + ((1 << 20) if n > 1 << 20
+                                               else 0)
+    return exact, most
+
+
+def own_bytes(tensors):
+    """The bytes of ``tensors`` themselves."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def model_axis_rank(out_dir, root, device="cuda"):
+    """Phase 20 in a child: one rank of MA_WORLD (gloo, every rank on the
+    one card).  MA_STEPS ``--augment`` steps (native chain, bf16, full
+    width, batch MA_BATCH from the seed) on the (data 2, model 2) mesh,
+    then on the (data 2) mesh of its pair of ranks ({0, 1} or {2, 3}),
+    each with the FocalDice and photometric (calls, launches) set to 0
+    just before and read just after, its parameter and optimizer-state
+    bytes (``torch.cuda.memory_allocated`` deltas) and each step's peak;
+    the (2, 2) train state saved whole (rank 0) and each rank's own
+    blocks; one GAN step at 256x256, batch 1, on the (2, 2) mesh (rank 0:
+    also in one process).  Into ``out_dir/rank<R>.json``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from gan_aug_pfa_torch import checkpoint as ckpt
+    from gan_aug_pfa_torch.config import GANTrainConfig, SiameseTrainConfig
+    from gan_aug_pfa_torch.data.loader import (
+        build_cached_dataset,
+        build_padded_native_dataset,
+    )
+    from gan_aug_pfa_torch.data.scanner import create_sample_lists
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
+    from gan_aug_pfa_torch.ops.kernels.fused_loss import FocalDiceLossFn
+    from gan_aug_pfa_torch.parallel import mesh as pm
+    from gan_aug_pfa_torch.pipelines import DeviceCache, NativeDeviceCache
+    from gan_aug_pfa_torch.train import plateau
+    from gan_aug_pfa_torch.train.gan import GANTrainer
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+
+    t0 = time.time()
+    if not pm.maybe_distributed_init(device):
+        raise AssertionError("no process group from the environment")
+    cuda = device == "cuda"
+
+    def allocated():
+        if not cuda:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    try:
+        rank = dist.get_rank()
+        mesh = pm.make_mesh(MA_WORLD, ("data", "model"), MA_SHAPE,
+                            device=device)
+        pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+        data = pm.DataMesh(2, rank % 2, mesh.device, mesh.backend,
+                           group=pairs[rank // 2])
+        dev = mesh.device
+        samples = create_sample_lists(root, SUBDIR, mode="all",
+                                      verbose=False)
+        cache = NativeDeviceCache.from_dataset(build_padded_native_dataset(
+            samples, verbose=False), dev)
+        perm = np.random.RandomState(SEED).permutation(len(samples))
+        batches = [torch.from_numpy(perm[i * MA_BATCH:(i + 1) * MA_BATCH])
+                   .to(dev) for i in range(MA_STEPS)]
+        seconds = {"setup": time.time() - t0}
+        t0 = time.time()
+        out = {"mesh": [mesh.world_size, mesh.rank, mesh.model_size,
+                        mesh.model_rank, str(dev), mesh.backend],
+               "runs": {}, "seconds": seconds}
+        for name, m in (("model", mesh), ("data", data)):
+            base = allocated()
+            trainer = SiameseTrainer(SiameseTrainConfig(
+                batch_size=MA_BATCH, seed=SEED), device, augment=True,
+                native_out_size=(SUB_SIZE, SUB_SIZE), mesh=m)
+            model = trainer.model
+            run = {"param_bytes": allocated() - base, "opt_bytes": None,
+                   "param_own": own_bytes(list(model.parameters())
+                                          + list(model.buffers())),
+                   "loss": [], "peak": []}
+            step, opt = trainer.optimizer.step, trainer.optimizer
+
+            def measured_step(*args, step=step, run=run, opt=opt, **kwargs):
+                before = allocated()
+                result = step(*args, **kwargs)
+                if run["opt_bytes"] is None:  # the moments, made lazily
+                    run["opt_bytes"] = allocated() - before
+                    run["opt_own"] = own_bytes(
+                        t for st in opt.state.values() for t in st.values()
+                        if torch.is_tensor(t) and t.device == dev)
+                return result
+
+            trainer.optimizer.step = measured_step
+            reset_loss_counts(FocalDiceLossFn)
+            reset_photometric_counts(ph)
+            for idx in batches:
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                run["loss"].append(float(trainer.train_step(cache, idx)))
+                run["peak"].append(torch.cuda.max_memory_allocated()
+                                   if cuda else 0)
+            run["loss_counts"] = loss_counts(FocalDiceLossFn)
+            run["photometric"] = photometric_counts(ph)
+            if name == "model":
+                sched = plateau.make_plateau_scheduler(trainer.optimizer)
+                payload = ckpt.train_state(
+                    trainer.model, trainer.optimizer, sched,
+                    plateau.EarlyStopping(3), 1, run["loss"][-1])
+                if rank == 0:
+                    ckpt.save(os.path.join(out_dir, "state22.pth"), payload)
+                del payload
+                ckpt.save(os.path.join(out_dir, f"local{rank}.pth"), {
+                    "model": trainer.model.state_dict(),
+                    "optimizer": trainer.optimizer.state_dict()})
+            out["runs"][name] = run
+            seconds[name] = time.time() - t0
+            t0 = time.time()
+            del trainer, step, opt, model
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        gan_cache = DeviceCache.from_dataset(build_cached_dataset(
+            samples[:1], (256, 256), verbose=False), dev)
+        idx = torch.zeros(1, dtype=torch.int64, device=dev)
+        cfg = GANTrainConfig(seed=SEED)
+        out["gan"] = [float(v) for v in GANTrainer(cfg, device, mesh=mesh)
+                      .train_step(gan_cache, idx)]
+        seconds["gan"] = time.time() - t0
+        if rank == 0:
+            out["gan_one"] = [float(v) for v in GANTrainer(cfg, device)
+                              .train_step(gan_cache, idx)]
+        seconds["gan_one"] = time.time() - t0 - seconds["gan"]
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_model_axis(torch, root, device="cuda"):
+    """Phase 20: the tensor-parallel 'model' axis on MA_WORLD gloo ranks
+    sharing the card, (data 2, model 2) (``model_axis_rank``).  Checks
+    each rank's place on the mesh, each step's loss against the (data 2)
+    run's (MA_LOSS_RTOL), the FocalDice (calls, launches) against the
+    steps and the native photometric count against the (data 2) run's,
+    the parameter and optimizer-state bytes against the rule's
+    prediction, the GAN step against one process (MA_GAN_RTOL), and the
+    (2, 2) train state restored in this process bit for bit, each rank's
+    blocks its own.  Prints each rank's peaks against the (data 2) rank's.
+    Returns each rank's counts and the phase's seconds."""
+    from gan_aug_pfa_torch import checkpoint as ckpt
+    from gan_aug_pfa_torch.config import SiameseTrainConfig
+    from gan_aug_pfa_torch.models import SiameseUNet
+    from gan_aug_pfa_torch.parallel import tensor as tp
+    from gan_aug_pfa_torch.train import plateau
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+
+    t0 = time.time()
+    card = card_name()
+    write_oscd_tree(root)
+    out = os.path.join(root, "model_axis")
+    os.makedirs(out)
+    run_ranks("model_axis_rank", [out, root, device], world=MA_WORLD)
+    reports = []
+    for rank in range(MA_WORLD):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            reports.append(json.load(f))
+    full = SiameseUNet()
+    plan = tp.shard_plan(full, MA_SHAPE[1])
+    params = dict(full.named_parameters())
+    want_bytes = {
+        "model": (leaf_bytes(full, plan, MA_SHAPE[1]),
+                  [2 * b for b in leaf_bytes(full, plan, MA_SHAPE[1],
+                                             params)]),
+        "data": (leaf_bytes(full, {}, 1),
+                 [2 * b for b in leaf_bytes(full, {}, 1, params)])}
+    want_loss = {"fwd": [MA_STEPS] * 2, "bwd": [MA_STEPS] * 2}
+    failures = []
+    for rank, rep in enumerate(reports):
+        model, data = rep["runs"]["model"], rep["runs"]["data"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(model["loss"],
+                                                   data["loss"])]
+        same = model["loss"] == data["loss"]
+        print(f"phase 20 rank {rank} ({card}): mesh {rep['mesh']}; step "
+              f"losses (2, 2) {model['loss']} vs (data 2) {data['loss']}: "
+              + ("equal in bits" if same else
+                 f"rel {rel} (not bit-equal after step 1: autocast's cached "
+                 "bf16 weights add the encoder passes' gradients in bf16, a "
+                 "sharded conv in float32, ROADMAP §C16; atomics, §C7)"))
+        for name, run in (("model", model), ("data", data)):
+            (p_exact, p_most), (o_exact, o_most) = want_bytes[name]
+            print(f"phase 20 rank {rank} {name} run ({card}): parameter "
+                  f"and buffer bytes {run['param_own']} (rule {p_exact}), "
+                  f"memory_allocated delta {run['param_bytes']} (at most "
+                  f"{p_most}); Adam moments {run.get('opt_own')} bytes "
+                  f"(rule {o_exact}), delta {run['opt_bytes']} (at most "
+                  f"{o_most}); step peaks {run['peak']}; counts "
+                  f"{run['loss_counts']} {run['photometric']}")
+            if (run["param_own"] != p_exact
+                    or device == "cuda" and not (
+                        run["opt_own"] == o_exact
+                        and p_exact <= run["param_bytes"] <= p_most
+                        and o_exact <= run["opt_bytes"] <= o_most)):
+                failures.append(f"rank {rank} {name}: bytes")
+        print(f"phase 20 rank {rank} ({card}): step peak (2, 2) "
+              f"{max(model['peak'])} vs (data 2) {max(data['peak'])} "
+              f"bytes ({max(model['peak']) / max(1, max(data['peak'])):.3f}"
+              "x)")
+        if (rep["mesh"][:4] != [2, rank // 2, 2, rank % 2]
+                or rel[0] != 0.0 and device != "cuda"
+                or max(rel) > MA_LOSS_RTOL):
+            failures.append(f"rank {rank}: mesh {rep['mesh']}, rel {rel}")
+        for name, run in (("model", model), ("data", data)):
+            if (run["loss_counts"] != want_loss
+                    or run["photometric"]["flip"] != [0, 0]
+                    or run["photometric"]["native"]
+                    != data["photometric"]["native"]
+                    or run["photometric"]["native"][0] == 0):
+                failures.append(f"rank {rank} {name}: counts "
+                                f"{run['loss_counts']} {run['photometric']}")
+    gan, one = reports[0]["gan"], reports[0]["gan_one"]
+    gan_rel = [abs(a - b) / abs(b) for a, b in zip(gan, one)]
+    print(f"phase 20 GAN step at 256x256, batch 1 ({card}): (loss_D, "
+          f"loss_G) on (2, 2) by rank {[r['gan'] for r in reports]}, one "
+          f"process {one} (rel {gan_rel})")
+    if max(gan_rel) > MA_GAN_RTOL:
+        failures.append(f"GAN rel {gan_rel}")
+    # The (2, 2) state, restored in this process: bit for bit, and each
+    # rank's own blocks are the blocks of it.
+    path = os.path.join(out, "state22.pth")
+    saved = torch.load(path, weights_only=True)
+    trainer = SiameseTrainer(SiameseTrainConfig(batch_size=MA_BATCH,
+                                                seed=SEED), device)
+    sched, stopper = (plateau.make_plateau_scheduler(trainer.optimizer),
+                      plateau.EarlyStopping(3))
+    info = ckpt.restore_train_state(path, trainer.model, trainer.optimizer,
+                                    sched, stopper)
+    again = ckpt.train_state(trainer.model, trainer.optimizer, sched,
+                             stopper, info["epoch"], info["best_val_loss"])
+    mismatch = [compare_nested(torch, ckpt._map(again, lambda t: t.cpu()),
+                               saved)]
+    names = [k for k, _ in trainer.model.named_parameters()]
+    for rank in range(MA_WORLD):
+        local = torch.load(os.path.join(out, f"local{rank}.pth"),
+                           weights_only=True)
+        k_rank = rank % MA_SHAPE[1]
+
+        def block(key, t):
+            if key not in plan:
+                return t
+            n = t.shape[plan[key]] // MA_SHAPE[1]
+            return t.narrow(plan[key], k_rank * n, n)
+
+        want = {"model": {k: block(k, v) for k, v in saved["model"].items()},
+                "optimizer": {i: {k: block(names[i], v) if v.dim() else v
+                                  for k, v in st.items()}
+                              for i, st in saved["optimizer"]["state"]
+                              .items()}}
+        mismatch.append(compare_nested(torch, {
+            "model": local["model"],
+            "optimizer": local["optimizer"]["state"]}, want,
+            f"rank {rank} "))
+    mismatch = [m for m in mismatch if m]
+    print(f"phase 20 checkpoint ({card}): the (2, 2) state "
+          f"({os.path.getsize(path)} bytes) restored in one process: "
+          f"{'bit for bit' if not mismatch else mismatch[:5]}; each rank's "
+          "blocks its own")
+    if mismatch:
+        failures.append(f"checkpoint: {mismatch[:5]}")
+    seconds = time.time() - t0
+    print(f"phase 20: each rank's seconds {[r['seconds'] for r in reports]}")
+    print(f"phase 20 (the 'model' axis) took {seconds:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 20: {failures}")
+    return {"loss": [r["runs"]["model"]["loss_counts"] for r in reports],
+            "photometric": [r["runs"]["model"]["photometric"]["native"]
+                            for r in reports],
+            "seconds": seconds}
+
+
+@functools.lru_cache(maxsize=None)
+def card_name():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
 
 def main():
     import torch
@@ -4931,10 +5253,7 @@ def main():
     from gan_aug_pfa_torch.ops.kernels import photometric as ph
     from gan_aug_pfa_torch.train.siamese import predict
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_name()
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
@@ -5040,6 +5359,9 @@ def main():
             with tempfile.TemporaryDirectory() as root:
                 submesh = phase_tuning_submesh(torch, root)
                 stamp("phase 19 (the sidecar's compile beside it)")
+            with tempfile.TemporaryDirectory() as root:
+                model_axis = phase_model_axis(torch, root)
+                stamp("phase 20 (the sidecar's compile beside it)")
             torch.cuda.empty_cache()
             serving = phase_serving(torch, serve_root, sidecar_job=job)
             stamp("phase 15")
@@ -5106,6 +5428,7 @@ def main():
                               for run, ranks in
                               data_parallel["cli"].items()},
             "tuning_submesh": [r[name] for r in submesh["loss"]],
+            "model_axis": [r[name] for r in model_axis["loss"]],
             "shape": list(TRAIN_SHAPE),
             "logits": "bfloat16",
             "plan": t["plan"],
@@ -5146,7 +5469,8 @@ def main():
                 "data_parallel": [list(r["photometric"]["native"]) for r in
                                   data_parallel["cli"]["augment"]],
                 "tuning_submesh": [r["native"]
-                                   for r in submesh["photometric"]]}
+                                   for r in submesh["photometric"]],
+                "model_axis": model_axis["photometric"]}
                if kind == "native" else {"stream": list(stream["flip"])}),
             "knobs": {run: list(knobs["runs"][run]["photometric"][kind])
                       for run in ("all", "resume")},

@@ -35,6 +35,17 @@ JAX package's or the port's, whose layout is not the one the run's flags
 give raises ``ResumeLayoutError`` naming both, as the JAX package fails
 on it (at the restore or the first step); a file that is not a train
 state raises ``ResumeStateError``.
+
+A model sharded over the tensor-parallel 'model' axis
+(``parallel/tensor.py``) saves and restores the whole state, so that a
+file moves between topologies: ``train_state`` and ``gan_state`` gather
+every sharded leaf, its Adam moments and G's EMA over the model group (a
+collective: every rank of the group calls them; one rank writes), and
+hold the keys, shapes and dtypes of a one-process save; a bare model is
+``parallel.tensor.whole_state_dict`` written with ``save_state_dict``.
+The restores cut each rank's blocks from the whole tensors, the JAX
+package's files too.  The ``AsyncCheckpointWriter`` snapshots such a
+gathered payload.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ import torch
 from torch import nn
 
 from . import interop
+from .parallel import tensor
 from .train import optim
 
 
@@ -189,10 +201,11 @@ def train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
                 best_val_loss: float) -> Dict[str, Any]:
     """The Siamese resume payload (live tensors; ``save`` or a writer
     copies them): the model, optimizer, scheduler and early-stop state
-    dicts, the epoch just finished and the best validation loss so far."""
+    dicts, the epoch just finished and the best validation loss so far.
+    Whole under a 'model' axis (module docstring)."""
     return {
-        "model": model.state_dict(),
-        "optimizer": optimizer.state_dict(),
+        "model": tensor.whole_state_dict(model),
+        "optimizer": tensor.whole_optimizer_state(model, optimizer),
         "scheduler": scheduler.state_dict(),
         "early_stop": stopper.state_dict(),
         "epoch": int(epoch),
@@ -211,8 +224,8 @@ def restore_train_state(path: str, model: nn.Module,
                                             scheduler, stopper)
     state = torch.load(path, map_location="cpu", weights_only=True)
     _check_layout(path, optimizer, optim.saved_layout(state["optimizer"]))
-    model.load_state_dict(state["model"], strict=True)
-    optimizer.load_state_dict(state["optimizer"])
+    _load_model_and_optimizer(model, optimizer, state["model"],
+                              state["optimizer"])
     scheduler.load_state_dict(state["scheduler"])
     stopper.load_state_dict(state["early_stop"])
     return {"epoch": int(state["epoch"]),
@@ -224,12 +237,31 @@ def gan_state(model: nn.Module, optimizer: torch.optim.Optimizer,
               ) -> Dict[str, Any]:
     """One GAN model's resume payload (live tensors): the model and
     optimizer state dicts, the epoch just finished and, for the generator
-    with an EMA, the EMA by parameter name."""
-    payload = {"model": model.state_dict(),
-               "optimizer": optimizer.state_dict(), "epoch": int(epoch)}
+    with an EMA, the EMA by parameter name.  Whole under a 'model' axis
+    (module docstring)."""
+    payload = {"model": tensor.whole_state_dict(model),
+               "optimizer": tensor.whole_optimizer_state(model, optimizer),
+               "epoch": int(epoch)}
     if ema is not None:
-        payload["ema"] = dict(ema)
+        payload["ema"] = tensor.whole_state_dict(model, dict(ema))
     return payload
+
+
+def _load_model_and_optimizer(model, optimizer, model_state,
+                              optimizer_state) -> None:
+    """Load whole (one-process) state dicts, cut to this rank's blocks
+    when ``model`` is sharded."""
+    model.load_state_dict(tensor.cut_state_dict(model, model_state),
+                          strict=True)
+    optimizer.load_state_dict(tensor.cut_optimizer_state(
+        model, optimizer, optimizer_state))
+
+
+def _load_ema(model, ema, source) -> None:
+    """Copy ``source`` (whole tensors by parameter name) into ``ema``."""
+    source = tensor.cut_state_dict(model, {k: source[k] for k in ema})
+    for name, v in ema.items():
+        v.copy_(source[name])
 
 
 def restore_gan_state(path: str, model: nn.Module,
@@ -243,12 +275,10 @@ def restore_gan_state(path: str, model: nn.Module,
         return restore_gan_state_from_jax(path, model, optimizer, ema)
     state = torch.load(path, map_location="cpu", weights_only=True)
     _check_layout(path, optimizer, optim.saved_layout(state["optimizer"]))
-    model.load_state_dict(state["model"], strict=True)
-    optimizer.load_state_dict(state["optimizer"])
+    _load_model_and_optimizer(model, optimizer, state["model"],
+                              state["optimizer"])
     if ema is not None:
-        source = state.get("ema", state["model"])
-        for name, v in ema.items():
-            v.copy_(source[name])
+        _load_ema(model, ema, state.get("ema", state["model"]))
     return int(state["epoch"])
 
 
@@ -315,11 +345,11 @@ def _load_jax_model_and_optimizer(path: str, state: Dict[str, Any],
                                   optimizer: torch.optim.Optimizer) -> None:
     adam, hyperparams, multi = _adam_state(path, state["opt_state"],
                                            optimizer)
-    model.load_state_dict(interop.state_dict_from_jax(model, state),
-                          strict=True)
-    optimizer.load_state_dict(interop.optimizer_state_dict_from_jax(
-        model, optimizer, adam, hyperparams, state["batch_stats"],
-        state["params"], multi))
+    _load_model_and_optimizer(
+        model, optimizer, interop.state_dict_from_jax(model, state),
+        interop.optimizer_state_dict_from_jax(
+            model, optimizer, adam, hyperparams, state["batch_stats"],
+            state["params"], multi))
 
 
 def restore_train_state_from_jax(path: str, model: nn.Module,
@@ -367,11 +397,9 @@ def restore_gan_state_from_jax(path: str, model: nn.Module,
     state = _jax_train_state(path)
     _load_jax_model_and_optimizer(path, state, model, optimizer)
     if ema is not None:
-        source = interop.state_dict_from_jax(model, {
+        _load_ema(model, ema, interop.state_dict_from_jax(model, {
             "params": state.get("ema_params", state["params"]),
-            "batch_stats": state["batch_stats"]})
-        for name, v in ema.items():
-            v.copy_(source[name])
+            "batch_stats": state["batch_stats"]}))
     return int(state.get("extra", {}).get("epoch", 0))
 
 
@@ -390,5 +418,5 @@ def restore_model_only(path: str, model: nn.Module) -> nn.Module:
         sd = interop.state_dict_from_jax(model, variables)
     else:
         sd = interop.load_torch_state_dict(path)
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(tensor.cut_state_dict(model, sd), strict=True)
     return model

@@ -24,6 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.batchnorm import GlobalBatchNorm2d, reducing
+from ..parallel.tensor import conv_input_slice, whole
 
 Slices = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -32,21 +33,20 @@ def sliced_conv2d(xs: Slices, conv: nn.Conv2d) -> torch.Tensor:
     """``conv(cat(xs, dim=1))`` as ``sum_i conv(x_i, W[:, off_i:off_i +
     c_i])``, the bias added after the sum (the JAX package's
     ``SlicedConv``, blocks.py:77-133): the same function up to the order
-    of the sums, with ``conv``'s parameters as they are."""
+    of the sums, with ``conv``'s parameters as they are (gathered, when
+    they are sharded over the 'model' axis: ``parallel/tensor.py``)."""
     if isinstance(xs, torch.Tensor):
         return conv(xs)
     out, off = None, 0
     for x in xs:
-        c = x.shape[1]
-        y = F.conv2d(x, conv.weight[:, off:off + c], None, conv.stride,
-                     conv.padding)
+        y = conv_input_slice(conv, x, off)
         out = y if out is None else out + y
-        off += c
+        off += x.shape[1]
     if off != conv.in_channels:
         raise ValueError(f"slices hold {off} channels, the conv takes "
                          f"{conv.in_channels}")
     if conv.bias is not None:
-        out = out + conv.bias.to(out.dtype).view(1, -1, 1, 1)
+        out = out + whole(conv, "bias").to(out.dtype).view(1, -1, 1, 1)
     return out
 
 
@@ -58,12 +58,14 @@ def _stateless_bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     saves the same tensors for the backward as ``bn(x)`` does, as
     ``torch.utils.checkpoint`` checks.  A ``GlobalBatchNorm2d`` under a
     data mesh normalizes with the global batch's statistics, again
-    without an update (``parallel/batchnorm.py``)."""
+    without an update (``parallel/batchnorm.py``); a sharded one's weight
+    and bias are gathered, its scratch buffers whole."""
     if isinstance(bn, GlobalBatchNorm2d) and reducing():
         return bn.normalize(x, update_stats=False)
-    return F.batch_norm(x, torch.empty_like(bn.running_mean),
-                        torch.empty_like(bn.running_var), bn.weight,
-                        bn.bias, True, bn.momentum, bn.eps)
+    scratch = [torch.empty(bn.num_features, dtype=t.dtype, device=t.device)
+               for t in (bn.running_mean, bn.running_var)]
+    return F.batch_norm(x, *scratch, whole(bn, "weight"), whole(bn, "bias"),
+                        True, bn.momentum, bn.eps)
 
 
 class DoubleConv(nn.Sequential):

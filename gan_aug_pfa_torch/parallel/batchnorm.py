@@ -24,6 +24,17 @@ leaves the running statistics alone: ``GlobalBatchNorm2d.normalize(x,
 update_stats=False)``, called by ``models/blocks.py``'s stateless pass.
 The group is read when the module runs, so a recomputation inside the
 backward reduces over the same group in the same order on every rank.
+
+Under the tensor-parallel 'model' axis (``tensor.py``) the group is the
+mesh's data group: the ranks of a model group hold the same rows, so the
+statistics are never summed over them.  A wide BatchNorm's leaves hold
+this rank's block of the channels (``model_shard``): its weight and bias
+are gathered where they are used, as the convs' weights are, and its
+running mean and variance are updated from the whole statistics, which
+every rank of the model group computes, block by block.  Outside
+``global_statistics`` (a replicated step, evaluation) such a module runs
+``F.batch_norm`` on its gathered leaves and keeps its block of the
+running statistics it updated.
 """
 
 from __future__ import annotations
@@ -32,7 +43,10 @@ import contextlib
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
+
+from .tensor import gather_value, own_block, shard_of, whole
 
 # The group whose ranks hold the shards of the batch in flight, set by
 # ``global_statistics``; None: each rank's batch is the whole batch.  A
@@ -86,12 +100,40 @@ def all_reduce_sum(tensor: torch.Tensor, group=None) -> torch.Tensor:
 class GlobalBatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode statistics are the global
     batch's inside ``global_statistics`` (module docstring).  Adds no
-    state: ``convert_batchnorm`` swaps the class of existing modules."""
+    state: ``convert_batchnorm`` swaps the class of existing modules, and
+    ``tensor.shard_model`` sets ``model_shard`` on a wide one."""
+
+    model_shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (_ACTIVE and self.training and self.track_running_stats):
+        if _ACTIVE and self.training and self.track_running_stats:
+            return self.normalize(x, update_stats=True)
+        if self.model_shard is None:
             return super().forward(x)
-        return self.normalize(x, update_stats=True)
+        return self._forward_whole(x)
+
+    def _forward_whole(self, x: torch.Tensor) -> torch.Tensor:
+        """``nn.BatchNorm2d.forward`` on the gathered leaves of a sharded
+        module; its blocks of the running statistics take the update."""
+        self._check_input_dim(x)
+        factor = 0.0 if self.momentum is None else self.momentum
+        if self.training and self.track_running_stats:
+            self.num_batches_tracked.add_(1)
+            if self.momentum is None:
+                factor = 1.0 / float(self.num_batches_tracked)
+        shard = shard_of(self)
+        running = [gather_value(getattr(self, name), 0, shard)
+                   if name in shard.dims else getattr(self, name)
+                   for name in ("running_mean", "running_var")]
+        y = F.batch_norm(x, *running, whole(self, "weight"),
+                         whole(self, "bias"), self.training, factor,
+                         self.eps)
+        if self.training:
+            with torch.no_grad():
+                for name, t in zip(("running_mean", "running_var"),
+                                   running):
+                    getattr(self, name).copy_(own_block(self, name, t))
+        return y
 
     def normalize(self, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
         """The global train-mode BatchNorm of this rank's shard ``x``
@@ -113,21 +155,25 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
                              _GROUP) / count
         y = centered * torch.rsqrt(var + self.eps).view(1, c, 1, 1)
         if self.affine:
-            y = (y * self.weight.to(acc).view(1, c, 1, 1)
-                 + self.bias.to(acc).view(1, c, 1, 1))
+            y = (y * whole(self, "weight").to(acc).view(1, c, 1, 1)
+                 + whole(self, "bias").to(acc).view(1, c, 1, 1))
         if update_stats:
             self._update_running(mean.detach(), var.detach(), count)
         return y.to(x.dtype)
 
     @torch.no_grad()
     def _update_running(self, mean, var, count) -> None:
+        """The running statistics' update from the whole statistics (this
+        rank's block of them under the model axis)."""
         self.num_batches_tracked.add_(1)
         m = (self.momentum if self.momentum is not None
              else 1.0 / self.num_batches_tracked.double())
         unbiased = var * (count / (count - 1))
         rm, rv = self.running_mean, self.running_var
-        rm.mul_(1 - m).add_(m * mean.to(rm.dtype))
-        rv.mul_(1 - m).add_(m * unbiased.to(rv.dtype))
+        rm.mul_(1 - m).add_(m * own_block(self, "running_mean", mean)
+                            .to(rm.dtype))
+        rv.mul_(1 - m).add_(m * own_block(self, "running_var", unbiased)
+                            .to(rv.dtype))
 
 
 def convert_batchnorm(model: nn.Module) -> nn.Module:

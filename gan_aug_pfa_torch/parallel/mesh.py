@@ -39,9 +39,19 @@ trial each (``tune.partition_devices``, ``tune.tune_on_ranks``).  Every
 collective of a mesh names its group, and ``broadcast`` maps the mesh's
 rank 0 to its global rank.
 
-Not ported (reached only through the JAX API, no CLI default): the
-tensor-parallel 'model' axis (``param_shardings``) and the 'spatial'
-axis.
+``make_mesh(n, ("data", "model"), (d, m))`` adds the tensor-parallel
+'model' axis (JAX ``param_shardings``, reached only through the API, as
+in JAX): d x m ranks laid out row-major, as JAX's
+``np.asarray(devs).reshape(shape)``, so rank r is data index r // m and
+model index r % m.  The mesh's ``world_size``, ``rank`` and ``group`` are
+then its data axis (the ranks with its model index), which the trainers'
+rows, global BatchNorm, losses and gradient sums read as before, and
+``model_size``, ``model_rank`` and ``model_group`` its model axis (the
+ranks with its data index, which run the same rows).  ``tensor.py``
+shards the wide leaves over the model group.
+
+Not ported: the 'spatial' axis (ROADMAP A4); an extent of 1 is accepted,
+a larger one raises.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ import time
 import traceback
 from typing import Any, Callable, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
@@ -82,18 +93,28 @@ def shard_rows(n: int, world_size: int, rank: int) -> Optional[slice]:
 class DataMesh:
     """The data axis over the ranks of a process group: this process's
     ``rank`` of ``world_size`` (its rank in ``group``), its ``device``
-    and the group's ``backend``; ``group`` None is the default group."""
+    and the group's ``backend``; ``group`` None is the default group.
+    Under a 'model' axis (``model_size`` > 1) this process is also
+    ``model_rank`` of the ``model_group`` that shares its rows."""
 
     world_size: int
     rank: int
     device: torch.device
     backend: Optional[str] = None
     group: Any = None
+    model_size: int = 1
+    model_rank: int = 0
+    model_group: Any = None
+
+    @property
+    def size(self) -> int:
+        """The mesh's ranks: data extent times model extent."""
+        return self.world_size * self.model_size
 
     @property
     def is_main(self) -> bool:
-        """Rank 0, the one that prints and writes files."""
-        return self.rank == 0
+        """Rank 0 of the mesh, the one that prints and writes files."""
+        return self.rank == 0 and self.model_rank == 0
 
     def rows(self, n: int) -> Optional[slice]:
         """``shard_rows`` of this rank: its block of a batch of ``n``, or
@@ -116,17 +137,25 @@ class DataMesh:
         return tensor
 
     def agree(self, flag: bool) -> bool:
-        """True on every rank when ``flag`` is true on any (one host sync):
-        a shutdown one rank saw stops them all after the same epoch."""
+        """True on every rank of the mesh when ``flag`` is true on any (one
+        host sync): a shutdown one rank saw stops them all after the same
+        epoch."""
         t = torch.tensor([int(bool(flag))], dtype=torch.int32,
                          device=self.device)
-        return bool(self.all_reduce_sum(t).item())
+        self.all_reduce_sum(t)
+        if self.model_size > 1:
+            dist.all_reduce(t, group=self.model_group)
+        return bool(t.item())
 
     def broadcast_values(self, *values: float) -> list:
-        """Rank 0's ``values`` (floats) on every rank: the one value a
-        decision acts on (one host sync)."""
+        """Rank 0's ``values`` (floats) on every rank of the mesh: the one
+        value a decision acts on (one host sync)."""
         t = torch.tensor(values, dtype=torch.float64, device=self.device)
-        return self.broadcast(t).tolist()
+        self.broadcast(t)
+        if self.model_size > 1:
+            dist.broadcast(t, dist.get_global_rank(self.model_group, 0),
+                           group=self.model_group)
+        return t.tolist()
 
     def reduce_gradients(self, params, sharded: bool) -> None:
         """Make the gradients of ``params`` (those that have one) the
@@ -134,7 +163,11 @@ class DataMesh:
         the sum over the ranks after a sharded step (each rank's
         backward gives its rows' part of the global loss's gradient),
         rank 0's after a replicated one (every rank holds the whole
-        gradient)."""
+        gradient).  Under a 'model' axis the ranks of a model group
+        computed the same gradient of each replicated leaf, up to the
+        card's atomics; they take model rank 0's, so that their copies
+        stay equal (a sharded leaf's block has one owner)."""
+        params = list(params)
         grads = [p.grad for p in params if p.grad is not None]
         if not grads:
             return
@@ -144,6 +177,15 @@ class DataMesh:
         else:
             self.broadcast(flat)
         torch._foreach_copy_(grads, _unflatten_dense_tensors(flat, grads))
+        if self.model_size > 1:
+            grads = [p.grad for p in params if p.grad is not None
+                     and not getattr(p, "model_sharded", False)]
+            if grads:
+                flat = _flatten_dense_tensors(grads)
+                dist.broadcast(flat, dist.get_global_rank(
+                    self.model_group, 0), group=self.model_group)
+                torch._foreach_copy_(grads,
+                                     _unflatten_dense_tensors(flat, grads))
 
 
 def torchrun_env() -> bool:
@@ -203,11 +245,22 @@ def maybe_distributed_init(device="cuda",
     return True
 
 
-def make_mesh(n_devices: Optional[int] = None, device="cuda") -> DataMesh:
-    """The data mesh over every rank of the process group (JAX
-    ``make_mesh``, mesh.py:28-67), on ``device``'s kind.  Without a group
-    it is one rank on ``device``.  Raises ValueError, with what to do,
-    when ``n_devices`` is not what the group holds."""
+AXES = ("data", "spatial", "model")
+
+
+def make_mesh(n_devices: Optional[int] = None,
+              axis_names: Sequence[str] = ("data",),
+              shape: Optional[Sequence[int]] = None,
+              device="cuda") -> DataMesh:
+    """The mesh over every rank of the process group (JAX ``make_mesh``,
+    mesh.py:28-67), on ``device``'s kind: axes any of "data", "spatial"
+    (extent 1 only: ROADMAP A4) and "model"; ``shape`` by default every
+    rank on the first axis.  Without a group it is one rank on
+    ``device``.  With a 'model' extent m > 1 every rank creates the d
+    data groups and m model groups (``torch.distributed.new_group``, in
+    one order on every rank).  Raises ValueError, with what to do, when
+    ``n_devices`` is not what the group holds, or the shape does not fit
+    the axes or the ranks (JAX's errors)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n_devices is not None:
         if n_devices < 1:
@@ -226,12 +279,57 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda") -> DataMesh:
                 "ranks: the data axis spans every rank (only tuning "
                 "partitions the ranks into sub-meshes, tune.tune_on_ranks)."
                 " Start as many ranks as the mesh needs.")
+    axis_names = tuple(axis_names)
+    shape = ((world,) + (1,) * (len(axis_names) - 1) if shape is None
+             else tuple(int(s) for s in shape))
+    if len(shape) != len(axis_names):
+        raise ValueError(
+            f"make_mesh shape {shape} has {len(shape)} dims but "
+            f"axis_names {axis_names} has {len(axis_names)}.")
+    if (not set(axis_names) <= set(AXES)
+            or len(set(axis_names)) != len(axis_names)):
+        raise ValueError(f"make_mesh axis_names {axis_names}: each of "
+                         f"{AXES}, at most once")
+    extent = dict(zip(axis_names, shape))
+    if extent.get("spatial", 1) > 1:
+        raise ValueError(
+            f"make_mesh: a 'spatial' extent of {extent['spatial']} is not "
+            "ported yet (ROADMAP A4: halo exchanges around the convs); use "
+            "'data' and 'model'")
+    if int(np.prod(shape)) != world:
+        raise ValueError(
+            f"make_mesh shape {shape} needs {int(np.prod(shape))} devices "
+            f"but {world} are selected (of {world} visible). Pass a shape "
+            "whose product matches, or adjust n_devices.")
+    data, model = extent.get("data", 1), extent.get("model", 1)
     if world == 1:
         dev = torch.device(device)
         return DataMesh(1, 0, dev, dist.get_backend() if
                         dist.is_initialized() else None)
-    return DataMesh(world, dist.get_rank(), rank_device(device),
-                    dist.get_backend())
+    if model == 1:
+        return DataMesh(world, dist.get_rank(), rank_device(device),
+                        dist.get_backend())
+    # Row-major ranks, as JAX reshapes its device list; a rank's data
+    # group shares every index but its data index, its model group every
+    # index but its model index.
+    coords = np.stack(np.unravel_index(np.arange(world), shape), axis=1)
+    rank = dist.get_rank()
+    groups = {}
+    for axis in ("data", "model"):
+        # Only an axis of the mesh indexes; an absent one is extent 1.
+        k = axis_names.index(axis) if axis in axis_names else None
+        others = [i for i in range(len(shape)) if i != k]
+        keys = sorted({tuple(c[others]) for c in coords})
+        for key in keys:  # every rank creates every group, in one order
+            ranks = [r for r in range(world) if tuple(coords[r][others])
+                     == key]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = (group, ranks.index(rank))
+    (dgroup, drank), (mgroup, mrank) = groups["data"], groups["model"]
+    return DataMesh(data, drank, rank_device(device), dist.get_backend(),
+                    group=dgroup, model_size=model, model_rank=mrank,
+                    model_group=mgroup)
 
 
 def default_mesh(enabled: bool, device="cuda") -> Optional[DataMesh]:

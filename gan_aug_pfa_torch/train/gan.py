@@ -50,6 +50,9 @@ global mean (``losses.gan_bce_loss``, ``losses.l1_loss`` with the global
 count), and sums D's, then G's, gradients over the ranks before each
 optimizer step; a replicated step takes rank 0's.  The returned losses
 are the global batch's on every rank, and the EMA runs on every rank.
+Under a 'model' axis G's and D's wide leaves, their moments and G's EMA
+hold this rank's blocks (``parallel/tensor.py``), as JAX shards the whole
+``GANState``; ``ema_state_dict`` gathers them.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from ..device import resolve_device
 from ..losses import gan_bce_loss, l1_loss
 from ..models.pix2pix import NLayerDiscriminator, UNetGenerator
 from ..parallel.batchnorm import convert_batchnorm, global_statistics
+from ..parallel.tensor import cut_state_dict, shard_model, whole_state_dict
 from ..utils.profiling import step_guard, sync
 from .optim import make_optimizer
 from .siamese import compute_precision, step_label, tf32_off
@@ -93,13 +97,15 @@ class GANTrainer:
 
     def __init__(self, config: GANTrainConfig, device="cuda", mesh=None):
         self.config = config
-        self.mesh = mesh if mesh is not None and mesh.world_size > 1 else None
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.device = (self.mesh.device if self.mesh is not None
                        else resolve_device(device))
         g, d = self.init_models(config.seed)
         if self.mesh is not None:
-            convert_batchnorm(g)
-            convert_batchnorm(d)
+            for model in (g, d):
+                convert_batchnorm(model)
+                if self.mesh.model_size > 1:
+                    shard_model(model, self.mesh)
         self.generator = g.to(self.device)
         self.discriminator = d.to(self.device)
         knobs = dict(b1=config.beta1, mu_dtype=config.opt_momentum_dtype,
@@ -136,18 +142,22 @@ class GANTrainer:
 
     def load_state_dicts(self, generator: Dict[str, torch.Tensor],
                          discriminator: Dict[str, torch.Tensor]) -> None:
-        """Replace both models' weights (strict) and restart the EMA."""
-        self.generator.load_state_dict(generator, strict=True)
-        self.discriminator.load_state_dict(discriminator, strict=True)
+        """Replace both models' weights (strict; whole state dicts, cut to
+        this rank's blocks under a 'model' axis) and restart the EMA."""
+        self.generator.load_state_dict(
+            cut_state_dict(self.generator, generator), strict=True)
+        self.discriminator.load_state_dict(
+            cut_state_dict(self.discriminator, discriminator), strict=True)
         self.reset_ema()
 
     def ema_state_dict(self) -> Dict[str, torch.Tensor]:
         """The generator's ``state_dict`` with the EMA in place of its
         parameters and its live BatchNorm buffers: a regular generator
-        checkpoint (JAX pipelines.py:547-561)."""
+        checkpoint (JAX pipelines.py:547-561); whole under a 'model' axis
+        (a collective over the model group)."""
         sd = dict(self.generator.state_dict())
         sd.update(self.ema)
-        return sd
+        return whole_state_dict(self.generator, sd)
 
     def train_step(self, cache, idx: torch.Tensor, where: str = ""
                    ) -> Tuple[torch.Tensor, torch.Tensor]:

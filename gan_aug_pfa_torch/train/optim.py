@@ -21,7 +21,13 @@ The JAX package's three optimizer knobs have no counterpart in
   * ``flat=True`` (``--flat-opt-state``, ``optax.flatten``): the moments
     are two 1-D buffers, and the parameters become views of one flat
     buffer, so that the update runs over one tensor; the model's
-    ``state_dict`` keys are unchanged.
+    ``state_dict`` keys are unchanged.  Under the tensor-parallel 'model'
+    axis (``parallel/tensor.py``) the buffer and the moments hold this
+    rank's parameters as they are, the blocks of the sharded ones: per-rank
+    blocks, not JAX's whole flat moments (whose odd lengths its rule
+    replicates).  The update is elementwise, so it is one process's; the
+    checkpoint layer re-lays the moments as the whole parameters' vector
+    when it saves and cuts them when it restores.
   * ``grad_accum=k`` (``--grad-accum``, ``optax.MultiSteps``): each
     ``step`` folds the gradients into a running mean,
     ``acc + (g - acc)/(n + 1)`` with ``n`` the mini-step; the k-th applies

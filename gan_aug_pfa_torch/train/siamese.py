@@ -48,6 +48,14 @@ Either way one update equals the single-device update on the global
 batch, up to the order of the sums.  A streamed rank stages only its
 rows of a sharded batch.  ``validate`` splits each batch the same way
 and gives every rank the single-device value.
+
+A mesh with a 'model' axis (``make_mesh(n, ("data", "model"), (d, m))``;
+the JAX package's ``param_shardings``) shards the model's wide leaves,
+and so the optimizer's moments, over its model group
+(``parallel/tensor.py``).  The mesh's ``world_size``, ``rank`` and
+``group`` are its data axis, which everything above reads: the rows, the
+BatchNorm statistics, the loss's global count and the gradient sums are
+the (data d) mesh's, and the ranks of a model group run the same rows.
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ from ..device import resolve_device, tf32_off
 from ..models.siamese_unet import SiameseUNet
 from ..ops.kernels.fused_loss import focal_dice_loss_fused
 from ..parallel.batchnorm import convert_batchnorm, global_statistics
+from ..parallel.tensor import shard_model
 from ..utils.profiling import step_guard, sync
 from .optim import make_optimizer
 
@@ -139,9 +148,10 @@ class SiameseTrainer:
         ``pipelines.NativeDeviceCache``, and each batch is augmented at
         its native size and resized to (H, W).  ``mesh``: a
         ``parallel.mesh.DataMesh`` of more than one rank (the trainer then
-        runs on ``mesh.device``, its BatchNorms global), or None."""
+        runs on ``mesh.device``, its BatchNorms global, its wide leaves
+        sharded under a 'model' axis), or None."""
         self.config = config
-        self.mesh = mesh if mesh is not None and mesh.world_size > 1 else None
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.device = (self.mesh.device if self.mesh is not None
                        else resolve_device(device))
         self.augment = augment
@@ -154,6 +164,8 @@ class SiameseTrainer:
         model = self.init_model(config.seed)
         if self.mesh is not None:
             convert_batchnorm(model)
+            if self.mesh.model_size > 1:  # cut on the host: never whole
+                shard_model(model, self.mesh)  # on the card
         self.model = model.to(self.device)
         self.optimizer = make_optimizer(
             config.optimizer, self.model.parameters(), config.learning_rate,

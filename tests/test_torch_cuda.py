@@ -768,3 +768,67 @@ def test_batch_put_stages_rows_on_a_copy_stream(cuda):
     pinned = put.pin(hosts[0])
     assert all(t.is_pinned() for t in pinned.tensors)
     assert BatchPut("cuda", labels=False)(hosts[0]).get()[2] is None
+
+
+def _model_axis_rank(out_dir):
+    """One of two gloo ranks sharing the card, a (data 1, model 2) mesh:
+    a wide conv and conv-transpose sharded by the rule against the same
+    modules whole, forward and backward at float32 and under bf16
+    autocast (cuDNN deterministic: the same algorithm on the same
+    inputs); the largest differences into ``out_dir/rank<R>.pt``."""
+    import copy
+    import os
+
+    from gan_aug_pfa_torch.parallel import mesh as pm
+    from gan_aug_pfa_torch.parallel import tensor as tp
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = pm.make_mesh(2, ("data", "model"), (1, 2), device="cuda")
+    torch.manual_seed(0)
+    whole = torch.nn.Sequential(
+        torch.nn.Conv2d(64, 512, 3, padding=1),
+        torch.nn.ConvTranspose2d(512, 256, 4, stride=2, padding=1)).cuda()
+    sharded = tp.shard_model(copy.deepcopy(whole), mesh)
+    assert [type(m).__name__ for m in sharded] == [
+        "ShardedConv2d", "ShardedConvTranspose2d"]
+    assert sharded[1].weight.shape == (512, 128, 4, 4)
+    gen = torch.Generator("cuda").manual_seed(1)
+    x = torch.randn(2, 64, 16, 16, device="cuda", generator=gen)
+    g = torch.randn(2, 256, 32, 32, device="cuda", generator=gen)
+    diffs = {}
+    for mode in ("float32", "bfloat16"):
+        runs = []
+        for model in (whole, sharded):
+            model.zero_grad(set_to_none=True)
+            xi = x.clone().requires_grad_()
+            with torch.autocast("cuda", torch.bfloat16,
+                                enabled=mode == "bfloat16"):
+                y = model(xi)
+            (y.float() * g).sum().backward()
+            runs.append((y.detach(), xi.grad,
+                         [p.grad for p in model.parameters()]))
+        (yw, gxw, gw), (ys, gxs, gs) = runs
+        blocks = [tp.own_block(m, n, p) for (m, n), p in zip(
+            [(m, n) for m in sharded for n, _ in m.named_parameters()], gw)]
+        diffs[mode] = [float((ys.float() - yw.float()).abs().max()),
+                       float((gxs - gxw).abs().max())] + [
+            float((a - b).abs().max()) for a, b in zip(gs, blocks)]
+    torch.save(diffs, os.path.join(out_dir, f"rank{mesh.model_rank}.pt"))
+    return 0
+
+
+@pytest.mark.cuda
+def test_model_axis_gather_equals_the_whole_conv_on_two_ranks(cuda,
+                                                              tmp_path):
+    """``parallel/tensor.py`` on the card: two gloo ranks (NCCL refuses two
+    ranks on one card) gather a conv's and a conv-transpose's shards with
+    an all-reduce of CUDA tensors; outputs, input gradients and each
+    rank's weight and bias gradient blocks equal the whole modules'."""
+    from gan_aug_pfa_torch.parallel import mesh as pm
+
+    pm.spawn(_model_axis_rank, (str(tmp_path),), 2, device="cuda")
+    for rank in range(2):
+        diffs = torch.load(tmp_path / f"rank{rank}.pt")
+        for mode, d in diffs.items():
+            assert d == [0.0] * len(d), (rank, mode, d)
