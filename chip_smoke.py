@@ -156,7 +156,7 @@ Phases, each of which fails the run if it fails:
    on 1 and 8 threads and the set-up seconds of the scan and the cache
    through each; a synthesis pass's 42 PNG writes serially and through
    ``PngWriterPool`` (ms, byte-identical files); then, over the tree and
-   990 synthetic 256x256 triplets written by the pooled writer, in this
+   330 synthetic 256x256 triplets written by the pooled writer, in this
    process a resident epoch of a fresh trainer at the defaults (128x128,
    batch 4, bf16, full width), steps/s of a resident, a host and a decode
    epoch at batch 4 and 16 and each epoch's peak device memory above the
@@ -237,6 +237,18 @@ Phases, each of which fails the run if it fails:
    epoch's train and val losses are printed beside two runs of it in this
    process, which differ from each other on the card); the phase's
    seconds.
+
+20. the tensor-parallel 'model' axis, beside the sidecar's compile: four
+   gloo ranks sharing the card as (data 2, model 2) (``phase_model_axis``).
+
+21. the 'spatial' axis, beside the sidecar's compile: four gloo ranks
+   sharing the card (``phase_spatial_axis``) run three bf16 ``--augment``
+   Siamese steps at 128x128, batch 4, on (data 2, spatial 2) and on the
+   (data 2) mesh of the ranks that share a spatial index (losses within
+   1e-3; FocalDice (3, 3)/(3, 3) and native photometric counts equal to
+   (data 2)'s on every rank; each rank's step peak below the (data 2)
+   rank's), and one GAN step at 256x256, batch 1, on (data 1, spatial 4)
+   against one process (losses within 1e-3; peaks printed).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -3458,7 +3470,7 @@ def phase_serving_sidecar(torch, root, artifact, int8_artifact,
 
 
 # Phase 16: the C PNG decoder, the pooled PNG writer and --stream.
-STREAM_PER_CITY = 45  # synthetic 256x256 samples written for each train city
+STREAM_PER_CITY = 30  # synthetic 256x256 samples written for each train city
 STREAM_DEPTH = 2  # prefetch_batches' depth, the trainers' default
 DECODE_SIDE = 600  # the all-Paeth and all-Average decoder cases
 DECODE_THREADS = 8
@@ -5224,6 +5236,246 @@ def phase_model_axis(torch, root, device="cuda"):
             "seconds": seconds}
 
 
+# -- phase 21: the 'spatial' axis -------------------------------------------
+
+SP_WORLD, SP_SHAPE = 4, (2, 2)  # four gloo ranks on the card: (data, spatial)
+SP_GAN_SHAPE = (1, 4)  # the GAN at the reference's batch of 1: height only
+# Steps on height blocks against the (data 2) mesh's and one process's: the
+# same function, the sums in another order (the halo'd convs' and the
+# BatchNorm and loss sums over data x spatial).  Under bf16 autocast every
+# conv rounds its output to bf16 (8 bits) on other shapes, so even the first
+# step's loss differs by more than TRAIN_STEP1_RTOL (8.3e-5 on an H100), and
+# on the card cuDNN's bf16 backward and the upsample's backward add with
+# atomics (ROADMAP §C7): the bf16 steps are held at SP_LOSS_RTOL, and the
+# first step at float32 (TF32 off) at TRAIN_STEP1_RTOL (ROADMAP §C20).
+SP_LOSS_RTOL = DP_LOSS_RTOL
+SP_GAN_RTOL = DP_LOSS_RTOL
+
+
+def spatial_axis_rank(out_dir, root, device="cuda"):
+    """Phase 21 in a child: one rank of SP_WORLD (gloo, every rank on the
+    one card).  MA_STEPS ``--augment`` steps (native chain, bf16, full
+    width, batch MA_BATCH from the seed) on the (data 2) mesh of the ranks
+    that share its spatial index (first: it takes the process's first-use
+    costs), then on the (data 2, spatial 2) mesh, each with the FocalDice
+    and photometric (calls, launches) set to 0 just before and read just
+    after, each step's peak and seconds; then the first step again at
+    float32 (TF32 off) on both.  One GAN step at 256x256, batch 1, on
+    (data 1, spatial 4) with its peak, and at float32 (rank 0: both also
+    in one process).  Into ``out_dir/rank<R>.json``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from gan_aug_pfa_torch.config import GANTrainConfig, SiameseTrainConfig
+    from gan_aug_pfa_torch.data.loader import (
+        build_cached_dataset,
+        build_padded_native_dataset,
+    )
+    from gan_aug_pfa_torch.data.scanner import create_sample_lists
+    from gan_aug_pfa_torch.ops.kernels import photometric as ph
+    from gan_aug_pfa_torch.ops.kernels.fused_loss import FocalDiceLossFn
+    from gan_aug_pfa_torch.parallel import mesh as pm
+    from gan_aug_pfa_torch.pipelines import DeviceCache, NativeDeviceCache
+    from gan_aug_pfa_torch.train.gan import GANTrainer
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+
+    t0 = time.time()
+    if not pm.maybe_distributed_init(device):
+        raise AssertionError("no process group from the environment")
+    cuda = device == "cuda"
+
+    def peak_of(fn):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        result = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        return result, torch.cuda.max_memory_allocated() if cuda else 0
+
+    try:
+        rank = dist.get_rank()
+        mesh = pm.make_mesh(SP_WORLD, ("data", "spatial"), SP_SHAPE,
+                            device=device)
+        gan_mesh = pm.make_mesh(SP_WORLD, ("data", "spatial"), SP_GAN_SHAPE,
+                                device=device)
+        data = dataclasses.replace(mesh, spatial_size=1, spatial_rank=0,
+                                   spatial_group=None,
+                                   data_spatial_group=None)
+        dev = mesh.device
+        samples = create_sample_lists(root, SUBDIR, mode="all",
+                                      verbose=False)
+        cache = NativeDeviceCache.from_dataset(build_padded_native_dataset(
+            samples, verbose=False), dev)
+        perm = np.random.RandomState(SEED).permutation(len(samples))
+        batches = [torch.from_numpy(perm[i * MA_BATCH:(i + 1) * MA_BATCH])
+                   .to(dev) for i in range(MA_STEPS)]
+        seconds = {"setup": time.time() - t0}
+        t0 = time.time()
+        out = {"mesh": [mesh.world_size, mesh.rank, mesh.spatial_size,
+                        mesh.spatial_rank, str(dev), mesh.backend],
+               "gan_mesh": [gan_mesh.world_size, gan_mesh.spatial_size,
+                            gan_mesh.spatial_rank],
+               "runs": {}, "seconds": seconds}
+        def release():
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+
+        def siamese(m, dtype="bfloat16"):
+            return SiameseTrainer(SiameseTrainConfig(
+                batch_size=MA_BATCH, seed=SEED, compute_dtype=dtype), device,
+                augment=True, native_out_size=(SUB_SIZE, SUB_SIZE), mesh=m)
+
+        for name, m in (("data", data), ("spatial", mesh)):
+            trainer = siamese(m)
+            run = {"loss": [], "peak": [], "seconds": []}
+            reset_loss_counts(FocalDiceLossFn)
+            reset_photometric_counts(ph)
+            for idx in batches:
+                t1 = time.time()
+                loss, peak = peak_of(
+                    lambda idx=idx: float(trainer.train_step(cache, idx)))
+                run["loss"].append(loss)
+                run["peak"].append(peak)
+                run["seconds"].append(time.time() - t1)
+            run["loss_counts"] = loss_counts(FocalDiceLossFn)
+            run["photometric"] = photometric_counts(ph)
+            out["runs"][name] = run
+            seconds[name] = time.time() - t0
+            t0 = time.time()
+            del trainer
+            release()
+        for name, m in (("data", data), ("spatial", mesh)):
+            trainer = siamese(m, "float32")
+            out["runs"][name]["fp32_step1"] = float(trainer.train_step(
+                cache, batches[0]))
+            del trainer
+            release()
+        seconds["fp32"] = time.time() - t0
+        t0 = time.time()
+        del cache
+        gan_cache = DeviceCache.from_dataset(build_cached_dataset(
+            samples[:1], (256, 256), verbose=False), dev)
+        idx = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def gan_step(m, dtype):
+            trainer = GANTrainer(GANTrainConfig(seed=SEED,
+                                                compute_dtype=dtype),
+                                 device, mesh=m)
+            losses, peak = peak_of(lambda: trainer.train_step(gan_cache, idx))
+            del trainer
+            release()
+            return [float(v) for v in losses], peak
+
+        out["gan"], out["gan_peak"] = gan_step(gan_mesh, "bfloat16")
+        out["gan32"] = gan_step(gan_mesh, "float32")[0]
+        seconds["gan"] = time.time() - t0
+        t0 = time.time()
+        if rank == 0:
+            out["gan_one"], out["gan_one_peak"] = gan_step(None, "bfloat16")
+            out["gan_one32"] = gan_step(None, "float32")[0]
+        seconds["gan_one"] = time.time() - t0
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_spatial_axis(torch, root, device="cuda"):
+    """Phase 21: the 'spatial' axis on SP_WORLD gloo ranks sharing the
+    card (``spatial_axis_rank``).  Checks each rank's place on both
+    meshes, each bf16 Siamese step's loss on (data 2, spatial 2) against
+    the (data 2) run's (SP_LOSS_RTOL) and the float32 first step's
+    (TRAIN_STEP1_RTOL), the FocalDice (calls, launches) against the steps
+    and the native photometric count against the (data 2) run's, each
+    rank's step peak below the (data 2) rank's, and the GAN step on
+    (data 1, spatial 4) against one process (bf16: SP_GAN_RTOL; float32:
+    TRAIN_STEP1_RTOL).  Prints each rank's peaks against the (data 2)
+    rank's and one process's.  Returns each rank's counts, the peaks and
+    the phase's seconds."""
+    t0 = time.time()
+    card = card_name()
+    write_oscd_tree(root)
+    out = os.path.join(root, "spatial_axis")
+    os.makedirs(out)
+    run_ranks("spatial_axis_rank", [out, root, device], world=SP_WORLD)
+    reports = []
+    for rank in range(SP_WORLD):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            reports.append(json.load(f))
+    want_loss = {"fwd": [MA_STEPS] * 2, "bwd": [MA_STEPS] * 2}
+    failures = []
+    for rank, rep in enumerate(reports):
+        split, data = rep["runs"]["spatial"], rep["runs"]["data"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(split["loss"],
+                                                   data["loss"])]
+        rel32 = (abs(split["fp32_step1"] - data["fp32_step1"])
+                 / abs(data["fp32_step1"]))
+        ratio = max(split["peak"]) / max(1, max(data["peak"]))
+        print(f"phase 21 rank {rank} ({card}): mesh {rep['mesh']}, GAN "
+              f"mesh {rep['gan_mesh']}; bf16 step losses (2, 2) "
+              f"{split['loss']} vs (data 2) {data['loss']}: rel {rel}; "
+              f"float32 first step {split['fp32_step1']} vs "
+              f"{data['fp32_step1']}: rel {rel32}; step seconds (2, 2) "
+              f"{split['seconds']} vs (data 2) {data['seconds']}; step "
+              f"peaks (2, 2) {split['peak']} vs (data 2) {data['peak']} "
+              f"bytes ({ratio:.3f}x); counts {split['loss_counts']} "
+              f"{split['photometric']} vs {data['loss_counts']} "
+              f"{data['photometric']}")
+        if (rep["mesh"][:4] != [2, rank // 2, 2, rank % 2]
+                or rep["gan_mesh"] != [1, 4, rank]
+                or max(rel) > SP_LOSS_RTOL or rel32 > TRAIN_STEP1_RTOL
+                or device == "cuda" and ratio >= 1.0):
+            failures.append(f"rank {rank}: mesh {rep['mesh']}, rel {rel}, "
+                            f"float32 rel {rel32}, peak ratio {ratio}")
+        for name, run in (("spatial", split), ("data", data)):
+            if (run["loss_counts"] != want_loss
+                    or run["photometric"]["flip"] != [0, 0]
+                    or run["photometric"]["native"]
+                    != data["photometric"]["native"]
+                    or run["photometric"]["native"][0] == 0):
+                failures.append(f"rank {rank} {name}: counts "
+                                f"{run['loss_counts']} {run['photometric']}")
+    gans = [r["gan"] for r in reports]
+    one = reports[0]["gan_one"]
+    gan_rel = [abs(a - b) / abs(b) for a, b in zip(gans[0], one)]
+    gans32 = [r["gan32"] for r in reports]
+    gan_rel32 = [abs(a - b) / abs(b)
+                 for a, b in zip(gans32[0], reports[0]["gan_one32"])]
+    gan_ratio = [r["gan_peak"] / max(1, reports[0]["gan_one_peak"])
+                 for r in reports]
+    print(f"phase 21 GAN step at 256x256, batch 1 ({card}): (loss_D, "
+          f"loss_G) on (1, 4) by rank {gans}, one process {one} (rel "
+          f"{gan_rel}); float32 {gans32[0]} vs {reports[0]['gan_one32']} "
+          f"(rel {gan_rel32}); step peaks "
+          f"{[r['gan_peak'] for r in reports]} vs one process "
+          f"{reports[0]['gan_one_peak']} bytes "
+          f"({', '.join(f'{x:.3f}' for x in gan_ratio)}x)")
+    if (max(gan_rel) > SP_GAN_RTOL or max(gan_rel32) > TRAIN_STEP1_RTOL
+            or any(g != gans[0] for g in gans)
+            or any(g != gans32[0] for g in gans32)):
+        failures.append(f"GAN rel {gan_rel}, float32 rel {gan_rel32}, by "
+                        f"rank {gans} {gans32}")
+    seconds = time.time() - t0
+    print(f"phase 21: each rank's seconds {[r['seconds'] for r in reports]}")
+    print(f"phase 21 (the 'spatial' axis) took {seconds:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 21: {failures}")
+    return {"loss": [r["runs"]["spatial"]["loss_counts"] for r in reports],
+            "photometric": [r["runs"]["spatial"]["photometric"]["native"]
+                            for r in reports],
+            "peaks": {"siamese": [[max(r["runs"][n]["peak"])
+                                   for n in ("spatial", "data")]
+                                  for r in reports],
+                      "gan": [r["gan_peak"] for r in reports],
+                      "gan_one": reports[0]["gan_one_peak"]},
+            "seconds": seconds}
+
+
 @functools.lru_cache(maxsize=None)
 def card_name():
     """The card's name and power limit, as nvidia-smi gives them."""
@@ -5362,6 +5614,9 @@ def main():
             with tempfile.TemporaryDirectory() as root:
                 model_axis = phase_model_axis(torch, root)
                 stamp("phase 20 (the sidecar's compile beside it)")
+            with tempfile.TemporaryDirectory() as root:
+                spatial_axis = phase_spatial_axis(torch, root)
+                stamp("phase 21 (the sidecar's compile beside it)")
             torch.cuda.empty_cache()
             serving = phase_serving(torch, serve_root, sidecar_job=job)
             stamp("phase 15")
@@ -5429,6 +5684,7 @@ def main():
                               data_parallel["cli"].items()},
             "tuning_submesh": [r[name] for r in submesh["loss"]],
             "model_axis": [r[name] for r in model_axis["loss"]],
+            "spatial_axis": [r[name] for r in spatial_axis["loss"]],
             "shape": list(TRAIN_SHAPE),
             "logits": "bfloat16",
             "plan": t["plan"],
@@ -5470,7 +5726,8 @@ def main():
                                   data_parallel["cli"]["augment"]],
                 "tuning_submesh": [r["native"]
                                    for r in submesh["photometric"]],
-                "model_axis": model_axis["photometric"]}
+                "model_axis": model_axis["photometric"],
+                "spatial_axis": spatial_axis["photometric"]}
                if kind == "native" else {"stream": list(stream["flip"])}),
             "knobs": {run: list(knobs["runs"][run]["photometric"][kind])
                       for run in ("all", "resume")},

@@ -12,6 +12,11 @@ The knobs of the JAX package's ``models/blocks.py``:
     weight, and the channel concatenation is never built;
   * ``DoubleConv.remat`` (``--remat``) recomputes the block's activations
     in the backward (``torch.utils.checkpoint``) instead of keeping them.
+
+Under the 'spatial' axis (``parallel/spatial.py``) a DoubleConv's 3x3
+convolutions run on its level's height blocks with halo rows; the 1x1
+convolutions of the attention gate need none.  Neither knob runs there:
+each raises naming itself.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import spatial
 from ..parallel.batchnorm import GlobalBatchNorm2d, reducing
 from ..parallel.tensor import conv_input_slice, whole
 
@@ -36,7 +42,8 @@ def sliced_conv2d(xs: Slices, conv: nn.Conv2d) -> torch.Tensor:
     of the sums, with ``conv``'s parameters as they are (gathered, when
     they are sharded over the 'model' axis: ``parallel/tensor.py``)."""
     if isinstance(xs, torch.Tensor):
-        return conv(xs)
+        return spatial.conv(conv, xs)[0]
+    spatial.refuse("--concat-free (channel slices)")
     out, off = None, 0
     for x in xs:
         y = conv_input_slice(conv, x, off)
@@ -92,6 +99,8 @@ class DoubleConv(nn.Sequential):
 
     def forward(self, x: Slices) -> torch.Tensor:
         xs = (x,) if isinstance(x, torch.Tensor) else tuple(x)
+        if self.remat:
+            spatial.refuse("--remat")
         if not (self.remat and self.training and torch.is_grad_enabled()):
             return self._run(xs, update_stats=True)
         first = [True]
@@ -107,7 +116,8 @@ class DoubleConv(nn.Sequential):
         conv0, bn0, relu0, conv1, bn1, relu1 = self
         bn = (lambda m, t: m(t)) if update_stats else _stateless_bn
         x = sliced_conv2d(xs[0] if len(xs) == 1 else xs, conv0)
-        return relu1(bn(bn1, conv1(relu0(bn(bn0, x)))))
+        x = spatial.conv(conv1, relu0(bn(bn0, x)))[0]
+        return relu1(bn(bn1, x))
 
 
 class AttentionGate(nn.Module):

@@ -18,6 +18,15 @@ skip is ``cat([x, block(x)])`` with ``x`` as it entered the block (the
 activations are not in place); the discriminator's first and last convs
 have biases.  Full width: 41,828,995 and 2,768,705 parameters.  Dropout
 is left out: no CLI turns it on.
+
+Under the 'spatial' axis (``parallel/spatial.py``) both walk their layers
+with each map's global height, and each conv follows the split rule: the
+generator's 4x4 stride-2 convs and conv-transposes run on height blocks
+with one halo row each side while the maps split, its inner levels whole
+where their height no longer divides (the skip concatenations meet maps of
+one height); the discriminator's stride-2 convs run split, its two
+stride-1 convs (H - 1 rows, which no block layout keeps) whole, and its
+patch map comes out whole on every spatial rank.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel import spatial
 from .blocks import Slices, sliced_conv2d
 
 
@@ -61,9 +71,22 @@ class UnetSkipBlock(nn.Module):
         self.model = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.outermost:
-            return self.model(x)
-        return torch.cat([x, self.model(x)], dim=1)
+        y = _walk(self.model, x, spatial.height())[0]
+        return y if self.outermost else torch.cat([x, y], dim=1)
+
+
+def _walk(layers: nn.Sequential, x: torch.Tensor, h: int):
+    """``layers(x)`` on a map of global height ``h``: under a spatial
+    split each conv by the split rule, every other layer at its map's
+    level (without one, ``layers(x)``).  Returns the output and its global
+    height."""
+    for layer in layers:
+        if isinstance(layer, (nn.Conv2d, nn.ConvTranspose2d)):
+            x, h = spatial.conv(layer, x, h)
+        else:
+            with spatial.level(h):
+                x = layer(x)
+    return x, h
 
 
 class UNetGenerator(nn.Module):
@@ -87,7 +110,8 @@ class UNetGenerator(nn.Module):
                                    submodule=block, outermost=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x)
+        with spatial.level(spatial.input_height(x)):
+            return self.model(x)
 
 
 class NLayerDiscriminator(nn.Module):
@@ -116,6 +140,7 @@ class NLayerDiscriminator(nn.Module):
         self.model = nn.Sequential(*layers)
 
     def forward(self, x: Slices) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return self.model(x)
-        return self.model[1:](sliced_conv2d(tuple(x), self.model[0]))
+        if not isinstance(x, torch.Tensor):
+            return self.model[1:](sliced_conv2d(tuple(x), self.model[0]))
+        x, h = _walk(self.model, x, spatial.input_height(x))
+        return spatial.gather_rows(x) if spatial.splits(h) else x

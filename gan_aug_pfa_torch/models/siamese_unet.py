@@ -10,15 +10,21 @@ models.py:47-145; the JAX package's ``models/siamese_unet.py``).
   * 1x1 head ``conv_last`` producing ``n_classes`` logits (no sigmoid).
 
 41,160,525 parameters, as the reference.
+
+Under the 'spatial' axis (``parallel/spatial.py``) each level runs at its
+global height h (the input's H / 2^l), split over the spatial ranks while
+h divides by their number and whole on each of them below: the pools and
+upsamples move maps between the two as the rule says, and the concatenated
+skips meet maps of the same height, so both sides follow it.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import upsample2x_align_corners
+from ..parallel import spatial
 from .blocks import AttentionGate, DoubleConv
 
 
@@ -69,16 +75,25 @@ class SiameseUNet(nn.Module):
                 m.remat = remat
 
     def encode(self, x: torch.Tensor):
-        c1 = self.dconv_down1(x)
-        c2 = self.dconv_down2(F.max_pool2d(c1, 2, 2))
-        c3 = self.dconv_down3(F.max_pool2d(c2, 2, 2))
-        c4 = self.dconv_down4(F.max_pool2d(c3, 2, 2))
-        b = self.bottleneck(F.max_pool2d(c4, 2, 2))
-        return c1, c2, c3, c4, b
+        """The five levels' features of ``x`` (c1, c2, c3, c4, b)."""
+        h = spatial.input_height(x)
+        feats = []
+        for i, block in enumerate((self.dconv_down1, self.dconv_down2,
+                                   self.dconv_down3, self.dconv_down4,
+                                   self.bottleneck)):
+            if i:
+                x = spatial.max_pool2x(x, h)
+                h //= 2
+            with spatial.level(h):
+                x = block(x)
+            feats.append(x)
+        return tuple(feats)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         """x1, x2: (B, C, H, W) in [-1, 1]. Returns (B, n_classes, H, W)
-        logits."""
+        logits (under a spatial split: this rank's rows of each)."""
+        if self.concat_free:
+            spatial.refuse("--concat-free")
         if self.batched_encoder:
             b = x1.shape[0]
             feats = self.encode(torch.cat([x1, x2], dim=0))
@@ -100,19 +115,16 @@ class SiameseUNet(nn.Module):
             x = self.dconv_last(up + self.att_last(up, (c1a, c1b)))
             return self.conv_last(x)
 
-        up = upsample2x_align_corners(torch.cat([ba, bb], dim=1))
-        s4 = torch.cat([c4a, c4b], dim=1)
-        x = self.dconv_up3(torch.cat([up, self.att3(up, s4)], dim=1))
-
-        up = upsample2x_align_corners(x)
-        s3 = torch.cat([c3a, c3b], dim=1)
-        x = self.dconv_up2(torch.cat([up, self.att2(up, s3)], dim=1))
-
-        up = upsample2x_align_corners(x)
-        s2 = torch.cat([c2a, c2b], dim=1)
-        x = self.dconv_up1(torch.cat([up, self.att1(up, s2)], dim=1))
-
-        up = upsample2x_align_corners(x)
-        s1 = torch.cat([c1a, c1b], dim=1)
-        x = self.dconv_last(torch.cat([up, self.att_last(up, s1)], dim=1))
+        x = torch.cat([ba, bb], dim=1)
+        h = spatial.input_height(x1) // 16
+        for att, block, skip in (
+                (self.att3, self.dconv_up3, (c4a, c4b)),
+                (self.att2, self.dconv_up2, (c3a, c3b)),
+                (self.att1, self.dconv_up1, (c2a, c2b)),
+                (self.att_last, self.dconv_last, (c1a, c1b))):
+            up = spatial.upsample2x(x, h)
+            h *= 2
+            with spatial.level(h):
+                s = torch.cat(skip, dim=1)
+                x = block(torch.cat([up, att(up, s)], dim=1))
         return self.conv_last(x)

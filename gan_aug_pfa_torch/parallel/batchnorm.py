@@ -35,6 +35,14 @@ every rank of the model group computes, block by block.  Outside
 ``global_statistics`` (a replicated step, evaluation) such a module runs
 ``F.batch_norm`` on its gathered leaves and keeps its block of the
 running statistics it updated.
+
+Under the 'spatial' axis (``spatial.py``) a train-mode BatchNorm whose
+map is split (``spatial.here()``) takes its statistics over the split's
+``stats_group``: data x spatial in a sharded step, the spatial group in a
+replicated one.  One whose map runs whole holds the whole map on every
+spatial rank, so it reduces over the data group as above (in a sharded
+step) or not at all.  The running statistics take C1's unbiased form with
+the global count either way.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from . import spatial
 from .tensor import gather_value, own_block, shard_of, whole
 
 # The group whose ranks hold the shards of the batch in flight, set by
@@ -72,7 +81,7 @@ def global_statistics(group=None):
 
 def reducing() -> bool:
     """Whether train-mode BatchNorm reduces over ranks now."""
-    return _ACTIVE
+    return _ACTIVE or spatial.here() is not None
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -106,7 +115,7 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
     model_shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if _ACTIVE and self.training and self.track_running_stats:
+        if reducing() and self.training and self.track_running_stats:
             return self.normalize(x, update_stats=True)
         if self.model_shard is None:
             return super().forward(x)
@@ -139,20 +148,23 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
         """The global train-mode BatchNorm of this rank's shard ``x``
         (N, C, H, W): statistics in float32 (float64 for float64 input),
         the output in ``x``'s dtype; the running statistics updated when
-        ``update_stats``."""
+        ``update_stats``.  Over the split's statistics group when the map
+        is split, else over ``global_statistics``' group."""
         self._check_input_dim(x)
+        split = spatial.here()
+        group = _GROUP if split is None else split.stats_group
         acc = torch.promote_types(x.dtype, torch.float32)
         xf = x.to(acc)
         dims = (0, 2, 3)
         c = x.shape[1]
         local = xf.sum(dims)
         packed = all_reduce_sum(torch.cat([local, local.new_full(
-            (1,), x.numel() // c)]), _GROUP)
+            (1,), x.numel() // c)]), group)
         count = packed[c]
         mean = packed[:c] / count
         centered = xf - mean.view(1, c, 1, 1)
         var = all_reduce_sum((centered * centered).sum(dims),
-                             _GROUP) / count
+                             group) / count
         y = centered * torch.rsqrt(var + self.eps).view(1, c, 1, 1)
         if self.affine:
             y = (y * whole(self, "weight").to(acc).view(1, c, 1, 1)

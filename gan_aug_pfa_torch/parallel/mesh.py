@@ -50,8 +50,17 @@ rows, global BatchNorm, losses and gradient sums read as before, and
 ranks with its data index, which run the same rows).  ``tensor.py``
 shards the wide leaves over the model group.
 
-Not ported: the 'spatial' axis (ROADMAP A4); an extent of 1 is accepted,
-a larger one raises.
+``make_mesh(n, ("data", "spatial"[, "model"]), (d, s[, m]))`` adds the
+'spatial' axis (``spatial.py``; JAX puts the input batches' height on it,
+reached only through the API, as in JAX): rank r of (d, s, m) is data
+index r // (s m), spatial index (r // m) % s and model index r % m.  The
+mesh's ``spatial_size``, ``spatial_rank`` and ``spatial_group`` are its
+spatial axis (the ranks with its data and model index, which hold the
+height blocks of the same rows), and ``data_spatial_group`` the ranks
+with its model index: what a sharded step's split statistics, losses and
+gradients sum over (``sum_group``, ``split``).  A batch that does not
+divide by d is replicated over 'data' and still split over 'spatial', as
+in JAX.
 """
 
 from __future__ import annotations
@@ -68,6 +77,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+from .spatial import Split
 
 TORCHRUN_VARS = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")
 
@@ -95,7 +106,10 @@ class DataMesh:
     ``rank`` of ``world_size`` (its rank in ``group``), its ``device``
     and the group's ``backend``; ``group`` None is the default group.
     Under a 'model' axis (``model_size`` > 1) this process is also
-    ``model_rank`` of the ``model_group`` that shares its rows."""
+    ``model_rank`` of the ``model_group`` that shares its rows; under a
+    'spatial' axis (``spatial_size`` > 1) ``spatial_rank`` of the
+    ``spatial_group`` that splits the height of its rows, and one of the
+    ``data_spatial_group`` that shares its model index."""
 
     world_size: int
     rank: int
@@ -105,16 +119,41 @@ class DataMesh:
     model_size: int = 1
     model_rank: int = 0
     model_group: Any = None
+    spatial_size: int = 1
+    spatial_rank: int = 0
+    spatial_group: Any = None
+    data_spatial_group: Any = None
 
     @property
     def size(self) -> int:
-        """The mesh's ranks: data extent times model extent."""
-        return self.world_size * self.model_size
+        """The mesh's ranks: the product of its three extents."""
+        return self.world_size * self.spatial_size * self.model_size
 
     @property
     def is_main(self) -> bool:
         """Rank 0 of the mesh, the one that prints and writes files."""
-        return self.rank == 0 and self.model_rank == 0
+        return self.rank == 0 and self.spatial_rank == 0 and \
+            self.model_rank == 0
+
+    def sum_group(self, sharded: bool):
+        """(group, ranks) that a step's losses and split BatchNorm
+        statistics sum over: the data group after a sharded step
+        (data x spatial under a 'spatial' axis), the spatial group after a
+        replicated one; None for a replicated step without the axis."""
+        if self.spatial_size == 1:
+            return (self.group, self.world_size) if sharded else None
+        if sharded:
+            return (self.data_spatial_group,
+                    self.world_size * self.spatial_size)
+        return self.spatial_group, self.spatial_size
+
+    def split(self, sharded: bool):
+        """The ``spatial.Split`` of a sharded or replicated step, None
+        without a 'spatial' axis."""
+        if self.spatial_size == 1:
+            return None
+        return Split(self.spatial_group, self.spatial_size,
+                     self.spatial_rank, self.sum_group(sharded)[0])
 
     def rows(self, n: int) -> Optional[slice]:
         """``shard_rows`` of this rank: its block of a batch of ``n``, or
@@ -143,8 +182,10 @@ class DataMesh:
         t = torch.tensor([int(bool(flag))], dtype=torch.int32,
                          device=self.device)
         self.all_reduce_sum(t)
-        if self.model_size > 1:
-            dist.all_reduce(t, group=self.model_group)
+        for size, group in ((self.spatial_size, self.spatial_group),
+                            (self.model_size, self.model_group)):
+            if size > 1:
+                dist.all_reduce(t, group=group)
         return bool(t.item())
 
     def broadcast_values(self, *values: float) -> list:
@@ -152,9 +193,11 @@ class DataMesh:
         value a decision acts on (one host sync)."""
         t = torch.tensor(values, dtype=torch.float64, device=self.device)
         self.broadcast(t)
-        if self.model_size > 1:
-            dist.broadcast(t, dist.get_global_rank(self.model_group, 0),
-                           group=self.model_group)
+        for size, group in ((self.spatial_size, self.spatial_group),
+                            (self.model_size, self.model_group)):
+            if size > 1:
+                dist.broadcast(t, dist.get_global_rank(group, 0),
+                               group=group)
         return t.tolist()
 
     def reduce_gradients(self, params, sharded: bool) -> None:
@@ -163,19 +206,25 @@ class DataMesh:
         the sum over the ranks after a sharded step (each rank's
         backward gives its rows' part of the global loss's gradient),
         rank 0's after a replicated one (every rank holds the whole
-        gradient).  Under a 'model' axis the ranks of a model group
-        computed the same gradient of each replicated leaf, up to the
-        card's atomics; they take model rank 0's, so that their copies
-        stay equal (a sharded leaf's block has one owner)."""
+        gradient).  Under a 'spatial' axis each rank's gradient is its
+        height blocks' part (``spatial.py``): a sharded step sums over
+        data x spatial, a replicated one over the spatial group before
+        it takes data rank 0's.  Under a 'model' axis the ranks of a
+        model group computed the same gradient of each replicated leaf, up
+        to the card's atomics; they take model rank 0's, so that their
+        copies stay equal (a sharded leaf's block has one owner)."""
         params = list(params)
         grads = [p.grad for p in params if p.grad is not None]
         if not grads:
             return
         flat = _flatten_dense_tensors(grads)
         if sharded:
-            self.all_reduce_sum(flat)
+            dist.all_reduce(flat, group=self.sum_group(True)[0])
         else:
-            self.broadcast(flat)
+            if self.spatial_size > 1:
+                dist.all_reduce(flat, group=self.spatial_group)
+            if self.world_size > 1:
+                self.broadcast(flat)
         torch._foreach_copy_(grads, _unflatten_dense_tensors(flat, grads))
         if self.model_size > 1:
             grads = [p.grad for p in params if p.grad is not None
@@ -254,13 +303,15 @@ def make_mesh(n_devices: Optional[int] = None,
               device="cuda") -> DataMesh:
     """The mesh over every rank of the process group (JAX ``make_mesh``,
     mesh.py:28-67), on ``device``'s kind: axes any of "data", "spatial"
-    (extent 1 only: ROADMAP A4) and "model"; ``shape`` by default every
-    rank on the first axis.  Without a group it is one rank on
-    ``device``.  With a 'model' extent m > 1 every rank creates the d
-    data groups and m model groups (``torch.distributed.new_group``, in
-    one order on every rank).  Raises ValueError, with what to do, when
-    ``n_devices`` is not what the group holds, or the shape does not fit
-    the axes or the ranks (JAX's errors)."""
+    and "model"; ``shape`` by default every rank on the first axis.
+    Without a group it is one rank on ``device``.  With a 'spatial' or
+    'model' extent above 1 every rank creates the data groups, the groups
+    of each other axis whose extent is above 1 and (with 'spatial') the
+    data x spatial groups
+    (``torch.distributed.new_group``, in one order on every rank).  Raises
+    ValueError, with what to do, when ``n_devices`` is not what the group
+    holds, or the shape does not fit the axes or the ranks (JAX's
+    errors)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n_devices is not None:
         if n_devices < 1:
@@ -290,46 +341,51 @@ def make_mesh(n_devices: Optional[int] = None,
             or len(set(axis_names)) != len(axis_names)):
         raise ValueError(f"make_mesh axis_names {axis_names}: each of "
                          f"{AXES}, at most once")
-    extent = dict(zip(axis_names, shape))
-    if extent.get("spatial", 1) > 1:
-        raise ValueError(
-            f"make_mesh: a 'spatial' extent of {extent['spatial']} is not "
-            "ported yet (ROADMAP A4: halo exchanges around the convs); use "
-            "'data' and 'model'")
     if int(np.prod(shape)) != world:
         raise ValueError(
             f"make_mesh shape {shape} needs {int(np.prod(shape))} devices "
             f"but {world} are selected (of {world} visible). Pass a shape "
             "whose product matches, or adjust n_devices.")
-    data, model = extent.get("data", 1), extent.get("model", 1)
+    extent = dict(zip(axis_names, shape))
+    data, spatial, model = (extent.get(a, 1) for a in AXES)
     if world == 1:
         dev = torch.device(device)
         return DataMesh(1, 0, dev, dist.get_backend() if
                         dist.is_initialized() else None)
-    if model == 1:
+    if model == 1 and spatial == 1:
         return DataMesh(world, dist.get_rank(), rank_device(device),
                         dist.get_backend())
-    # Row-major ranks, as JAX reshapes its device list; a rank's data
-    # group shares every index but its data index, its model group every
-    # index but its model index.
+    # Row-major ranks, as JAX reshapes its device list; a rank's group on
+    # an axis shares every index but that axis's.
     coords = np.stack(np.unravel_index(np.arange(world), shape), axis=1)
     rank = dist.get_rank()
-    groups = {}
-    for axis in ("data", "model"):
-        # Only an axis of the mesh indexes; an absent one is extent 1.
-        k = axis_names.index(axis) if axis in axis_names else None
-        others = [i for i in range(len(shape)) if i != k]
-        keys = sorted({tuple(c[others]) for c in coords})
-        for key in keys:  # every rank creates every group, in one order
-            ranks = [r for r in range(world) if tuple(coords[r][others])
-                     == key]
+
+    def groups_varying(varying):
+        """The group of this rank among those that share every index but
+        the axes ``varying`` (one group a value of the others, each made
+        on every rank, in one order), and its rank there."""
+        fixed = [i for i, a in enumerate(axis_names) if a not in varying]
+        keys = sorted({tuple(c[fixed]) for c in coords})
+        mine = None
+        for key in keys:
+            ranks = [r for r in range(world)
+                     if tuple(coords[r][fixed]) == key]
             group = dist.new_group(ranks)
             if rank in ranks:
-                groups[axis] = (group, ranks.index(rank))
-    (dgroup, drank), (mgroup, mrank) = groups["data"], groups["model"]
+                mine = group, ranks.index(rank)
+        return mine
+
+    dgroup, drank = groups_varying({"data"})
+    mgroup, mrank = groups_varying({"model"}) if model > 1 else (None, 0)
+    kw = {}
+    if spatial > 1:
+        sgroup, srank = groups_varying({"spatial"})
+        kw = dict(spatial_size=spatial, spatial_rank=srank,
+                  spatial_group=sgroup,
+                  data_spatial_group=groups_varying({"data", "spatial"})[0])
     return DataMesh(data, drank, rank_device(device), dist.get_backend(),
                     group=dgroup, model_size=model, model_rank=mrank,
-                    model_group=mgroup)
+                    model_group=mgroup, **kw)
 
 
 def default_mesh(enabled: bool, device="cuda") -> Optional[DataMesh]:

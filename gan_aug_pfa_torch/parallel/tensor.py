@@ -232,11 +232,12 @@ class _ShardedConv(torch.autograd.Function):
     """``conv``'s convolution of ``x`` with its gathered weight (input
     channels [start, start + count) of it when ``count`` is given) and a
     whole ``bias`` (or None), under the caller's autocast as
-    ``F.conv2d`` runs it.  Keeps the input and the shard for the backward,
-    which gathers the weight again."""
+    ``F.conv2d`` runs it, with ``padding`` in place of the module's when
+    given.  Keeps the input and the shard for the backward, which gathers
+    the weight again."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, conv, start, count):
+    def forward(ctx, x, weight, bias, conv, start, count, padding):
         dev = x.device.type
         low = (torch.get_autocast_dtype(dev)
                if torch.is_autocast_enabled(dev) else None)
@@ -249,7 +250,7 @@ class _ShardedConv(torch.autograd.Function):
 
         w = cast(_conv_weight(conv, weight, start, count))
         xc, bc = cast(x), cast(bias)
-        args = _conv_args(conv)
+        args = _conv_args(conv, padding)
         with torch.autocast(dev, enabled=False):
             y = torch.convolution(xc, w, bc, *args)
         ctx.save_for_backward(xc, weight)
@@ -284,7 +285,7 @@ class _ShardedConv(torch.autograd.Function):
             gw = shard.block(gw, dim)
         if gb is not None:
             gb = gb.to(b_dtype)
-        return gx, gw, gb, None, None, None
+        return gx, gw, gb, None, None, None, None
 
 
 def _conv_weight(conv, weight, start, count):
@@ -297,21 +298,24 @@ def _conv_weight(conv, weight, start, count):
     return w
 
 
-def _conv_args(conv):
+def _conv_args(conv, padding=None):
     """``torch.convolution``'s arguments after the bias, as ``F.conv2d``
-    and ``F.conv_transpose2d`` give them."""
-    return (list(conv.stride), list(conv.padding), list(conv.dilation),
-            conv.transposed, list(conv.output_padding), conv.groups)
+    and ``F.conv_transpose2d`` give them (``padding`` in place of the
+    module's when given)."""
+    return (list(conv.stride), list(padding or conv.padding),
+            list(conv.dilation), conv.transposed, list(conv.output_padding),
+            conv.groups)
 
 
 def sharded_conv(conv: nn.Module, x: torch.Tensor, start: int = 0,
-                 count: Optional[int] = None,
-                 bias: bool = True) -> torch.Tensor:
+                 count: Optional[int] = None, bias: bool = True,
+                 padding=None) -> torch.Tensor:
     """The convolution of a sharded conv module (its bias when ``bias``);
-    of its input channels [start, start + count) when ``count`` is
-    given."""
+    of its input channels [start, start + count) when ``count`` is given;
+    with ``padding`` in place of the module's when given (a block of the
+    'spatial' axis, ``spatial.py``)."""
     b = whole(conv, "bias") if bias else None
-    return _ShardedConv.apply(x, conv.weight, b, conv, start, count)
+    return _ShardedConv.apply(x, conv.weight, b, conv, start, count, padding)
 
 
 class ShardedConv2d(nn.Conv2d):

@@ -53,6 +53,17 @@ are the global batch's on every rank, and the EMA runs on every rank.
 Under a 'model' axis G's and D's wide leaves, their moments and G's EMA
 hold this rank's blocks (``parallel/tensor.py``), as JAX shards the whole
 ``GANState``; ``ema_state_dict`` gathers them.
+
+Under a 'spatial' axis (``parallel/spatial.py``) the step cuts each
+rank's height block of A and B after ``normalize``, as JAX constrains
+them (gan.py:183-185).  G's output is split, so the L1 term is this
+block's part of the mean over the whole output (its count x d x s); D's
+patch map comes out whole on every spatial rank, so its BCE terms are the
+(data d) step's, and each rank's backward takes 1/s of them.  The parts
+summed over data x spatial (the spatial group in a replicated step) are
+the losses, and so are the gradients.  The EMA is unchanged: no leaf is
+split.  ``--concat-free-disc`` is not ported under the axis and raises
+naming itself (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -62,6 +73,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import GANTrainConfig
 from ..data.stream import BatchPut, prefetch_batches
@@ -69,11 +81,17 @@ from ..data.transforms import normalize
 from ..device import resolve_device
 from ..losses import gan_bce_loss, l1_loss
 from ..models.pix2pix import NLayerDiscriminator, UNetGenerator
+from ..parallel import spatial
 from ..parallel.batchnorm import convert_batchnorm, global_statistics
 from ..parallel.tensor import cut_state_dict, shard_model, whole_state_dict
 from ..utils.profiling import step_guard, sync
 from .optim import make_optimizer
-from .siamese import compute_precision, step_label, tf32_off
+from .siamese import (
+    compute_precision,
+    refuse_spatial_knobs,
+    step_label,
+    tf32_off,
+)
 
 
 @torch.no_grad()
@@ -98,6 +116,8 @@ class GANTrainer:
     def __init__(self, config: GANTrainConfig, device="cuda", mesh=None):
         self.config = config
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and self.mesh.spatial_size > 1:
+            refuse_spatial_knobs(concat_free_disc=config.concat_free_disc)
         self.device = (self.mesh.device if self.mesh is not None
                        else resolve_device(device))
         g, d = self.init_models(config.seed)
@@ -182,14 +202,26 @@ class GANTrainer:
         cfg = self.config
         g, d = self.generator, self.discriminator
         real_a, real_b = normalize(a01), normalize(b01)
+        mesh = self.mesh
+        split = mesh.split(sharded) if mesh is not None else None
+        if split is not None:  # the rank's height block
+            real_a, real_b = split.block(real_a, 2), split.block(real_b, 2)
         g.train()
         d.train()
-        mesh = self.mesh
-        # A shard's losses: its part of the global batch's means.
-        world = mesh.world_size if sharded else None
+        # A shard's losses: its part of the global batch's means.  G's
+        # output is split over the spatial ranks; D's patch map is whole
+        # on each, which takes 1/s of its loss.
+        world = mesh.world_size if sharded else 1
+        s = 1 if split is None else split.size
 
-        def total(x):
-            return None if world is None else x.numel() * world
+        def total(x):  # of a split map
+            n = world * s
+            return None if n == 1 else x.numel() * n
+
+        def bce(pred, is_real):  # of D's whole map
+            loss = gan_bce_loss(pred, is_real,
+                                None if world == 1 else pred.numel() * world)
+            return loss if s == 1 else loss / s
 
         def precision():
             return compute_precision(cfg.compute_dtype, self.device.type)
@@ -202,7 +234,7 @@ class GANTrainer:
         with (tf32_off() if cfg.compute_dtype == "float32"
               else contextlib.nullcontext()), (
                 global_statistics(mesh.group) if sharded
-                else contextlib.nullcontext()):
+                else contextlib.nullcontext()), spatial.splitting(split):
             if cfg.shared_gen_fwd:
                 stats, counters, keep = _bn_stats(g)
                 # Copies of s0 in one multi-tensor launch.
@@ -222,9 +254,7 @@ class GANTrainer:
                 else:
                     pred_real = disc(real_a, real_b)
                     pred_fake = disc(real_a, fake)
-            loss_d = 0.5 * (gan_bce_loss(pred_real, True, total(pred_real))
-                            + gan_bce_loss(pred_fake, False,
-                                           total(pred_fake)))
+            loss_d = 0.5 * (bce(pred_real, True) + bce(pred_fake, False))
             self.opt_d.zero_grad(set_to_none=True)
             loss_d.backward()
             if mesh is not None:
@@ -239,7 +269,7 @@ class GANTrainer:
                 with precision():
                     fake = fake_live if cfg.shared_gen_fwd else g(real_a)
                     pred_fake = disc(real_a, fake)
-                loss_g = (gan_bce_loss(pred_fake, True, total(pred_fake))
+                loss_g = (bce(pred_fake, True)
                           + l1_loss(fake, real_b, total(fake))
                           * cfg.lambda_l1)
                 self.opt_g.zero_grad(set_to_none=True)
@@ -260,10 +290,16 @@ class GANTrainer:
 
     def _global_loss(self, loss: torch.Tensor, sharded: bool
                      ) -> torch.Tensor:
-        """The global batch's loss from a shard's part: the parts summed
-        over the ranks (a replicated step's loss is whole already)."""
+        """The global batch's loss from a rank's part: the parts summed
+        over ``sum_group`` (a replicated step's loss without a 'spatial'
+        axis is whole already)."""
         loss = loss.detach()
-        return self.mesh.all_reduce_sum(loss.clone()) if sharded else loss
+        over = self.mesh.sum_group(sharded)
+        if over is None:
+            return loss
+        out = loss.clone()
+        dist.all_reduce(out, group=over[0])
+        return out
 
     @torch.no_grad()
     def _update_ema(self) -> None:

@@ -56,6 +56,22 @@ and so the optimizer's moments, over its model group
 ``group`` are its data axis, which everything above reads: the rows, the
 BatchNorm statistics, the loss's global count and the gradient sums are
 the (data d) mesh's, and the ranks of a model group run the same rows.
+
+A mesh with a 'spatial' axis (``make_mesh(n, ("data", "spatial"[,
+"model"]), (d, s[, m]))``; JAX's ``P(data, spatial, None, None)`` on the
+batch) splits the height of every map the split rule allows over its
+spatial group (``parallel/spatial.py``).  ``_prepare`` augments or
+normalizes the rank's rows whole, as without the axis, and ``train_batch``
+then cuts the rank's height block of the images and labels: each spatial
+rank repeats its rows' augmentation, so the draws and the contrast's
+masked gray mean are per image, the (data d) step's.  A split map's
+BatchNorm statistics, the FocalDice loss (its global form, N = the
+block's elements x d x s) and the gradients sum over data x spatial in a
+sharded step, over the spatial group in a replicated one
+(``DataMesh.sum_group``).  ``validate`` runs split the same way and gives
+every rank the single-device value.  ``--concat-free`` and ``--remat``
+change the convolutions' form and are not ported under the axis: the
+trainer raises naming them (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -77,6 +93,7 @@ from ..data.transforms import (
 from ..device import resolve_device, tf32_off
 from ..models.siamese_unet import SiameseUNet
 from ..ops.kernels.fused_loss import focal_dice_loss_fused
+from ..parallel import spatial
 from ..parallel.batchnorm import convert_batchnorm, global_statistics
 from ..parallel.tensor import shard_model
 from ..utils.profiling import step_guard, sync
@@ -152,6 +169,9 @@ class SiameseTrainer:
         sharded under a 'model' axis), or None."""
         self.config = config
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and self.mesh.spatial_size > 1:
+            refuse_spatial_knobs(concat_free=config.concat_free,
+                                 remat=config.remat)
         self.device = (self.mesh.device if self.mesh is not None
                        else resolve_device(device))
         self.augment = augment
@@ -192,12 +212,16 @@ class SiameseTrainer:
     def loss(self, logits: torch.Tensor, labels: torch.Tensor,
              sharded: bool = False) -> torch.Tensor:
         """FocalDice of (B, 1, H, W) logits against (B, H, W) labels; of
-        the global batch when they are this rank's shard (``sharded``)."""
-        if not sharded:
+        the global batch when they are this rank's shard (``sharded``) or
+        its height block (a 'spatial' axis)."""
+        over = (self.mesh.sum_group(sharded) if self.mesh is not None
+                else None)
+        if over is None:
             return focal_dice_loss_fused(logits, labels, **self.loss_kwargs)
+        group, ranks = over
         return focal_dice_loss_fused(
-            logits, labels, **self.loss_kwargs, group=self.mesh.group,
-            n_total=logits.numel() * self.mesh.world_size)
+            logits, labels, **self.loss_kwargs, group=group,
+            n_total=logits.numel() * ranks)
 
     def _batch(self, cache, idx: torch.Tensor):
         """The gather: the cache rows ``idx`` (a device index tensor) as
@@ -276,6 +300,8 @@ class SiameseTrainer:
         rows' draws) or the whole replicated batch, and the loss is the
         global batch's."""
         img1, img2, labels = self._prepare(img1, img2, labels, sizes, params)
+        split = self.mesh.split(sharded) if self.mesh is not None else None
+        img1, img2, labels = _height_block(split, img1, img2, labels)
         self.model.train()
         # At float32 the backward's convolutions run without TF32 too.
         with (tf32_off() if self.config.compute_dtype == "float32"
@@ -283,7 +309,8 @@ class SiameseTrainer:
                 global_statistics(self.mesh.group) if sharded
                 else contextlib.nullcontext()):
             with compute_precision(self.config.compute_dtype,
-                                   self.device.type):
+                                   self.device.type), \
+                    spatial.splitting(split):
                 logits = self.model(img1, img2)
             loss = (self.loss(logits, labels, sharded=True) if sharded
                     else self.loss(logits, labels))
@@ -378,13 +405,37 @@ class SiameseTrainer:
                                             start + rows.stop, True)
             img1 = normalize(cache.img1[start:stop])
             img2 = normalize(cache.img2[start:stop])
-            with compute_precision(self.config.compute_dtype,
-                                   self.device.type):
-                logits = self.model(img1, img2)
             labels = cache.labels[start:stop]
+            split = (self.mesh.split(sharded) if self.mesh is not None
+                     else None)
+            img1, img2, labels = _height_block(split, img1, img2, labels)
+            with compute_precision(self.config.compute_dtype,
+                                   self.device.type), \
+                    spatial.splitting(split):
+                logits = self.model(img1, img2)
             losses.append(self.loss(logits, labels, sharded=True) if sharded
                           else self.loss(logits, labels))
         return _mean(losses)
+
+
+def _height_block(split, img1, img2, labels):
+    """This rank's height block of NCHW images and (B, H, W) labels under a
+    ``spatial.Split``; all of them without one."""
+    if split is None:
+        return img1, img2, labels
+    return split.block(img1, 2), split.block(img2, 2), split.block(labels, 1)
+
+
+def refuse_spatial_knobs(**knobs) -> None:
+    """Raise ValueError naming each knob (a flag's name, underscored) that
+    is on and not ported under the 'spatial' axis."""
+    on = ["--" + k.replace("_", "-") for k, v in knobs.items() if v]
+    if on:
+        raise ValueError(
+            f"{', '.join(on)} not ported under the 'spatial' axis yet "
+            f"({spatial.ROADMAP_KNOBS}): train without "
+            f"{'it' if len(on) == 1 else 'them'}, or on a mesh without "
+            "'spatial'")
 
 
 def _rows_of(params, rows):

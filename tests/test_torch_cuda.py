@@ -818,6 +818,101 @@ def _model_axis_rank(out_dir):
     return 0
 
 
+def _spatial_axis_rank(out_dir):
+    """One of two gloo ranks sharing the card, a (data 1, spatial 2) mesh:
+    ``halo``, ``gather_rows`` and ``split_rows`` on CUDA tensors, and a
+    3x3 conv, a 4x4 stride-2 conv, a conv-transpose and the upsample on
+    height blocks against the whole ops, forward and backward at float64
+    (cuDNN deterministic); the largest differences, each relative to the
+    whole op's largest value, into ``out_dir/rank<R>.pt``."""
+    import os
+
+    import torch.nn.functional as F
+
+    from gan_aug_pfa_torch.parallel import mesh as pm
+    from gan_aug_pfa_torch.parallel import spatial as sp
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = pm.make_mesh(2, ("data", "spatial"), (1, 2), device="cuda")
+    split = mesh.split(True)
+    k = split.rank
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    x = torch.randn(2, 8, 16, 12, device="cuda", dtype=torch.float64,
+                    generator=gen)
+    diffs = {}
+    with sp.splitting(split):
+        xb = split.block(x, 2).clone().requires_grad_()
+        halo = sp.halo(xb, 1, 1)
+        want = F.pad(x, (0, 0, 1, 1))[:, :, 8 * k:8 * k + 10]
+        halo.sum().backward()
+        rows = torch.ones_like(xb)  # each row read once, edges twice
+        rows[:, :, 0] += k > 0
+        rows[:, :, -1] += k < 1
+        diffs["halo"] = [rel(halo, want), rel(xb.grad, rows)]
+        xb = split.block(x, 2).clone().requires_grad_()
+        whole = sp.gather_rows(xb)
+        (whole * (k + 1)).sum().backward()  # the ranks' seeds sum to 3
+        cut = sp.split_rows(x)
+        diffs["gather_split"] = [rel(whole, x),
+                                 rel(xb.grad, torch.full_like(xb, 3.0)),
+                                 rel(cut, split.block(x, 2))]
+        torch.manual_seed(0)
+        for name, module in (
+                ("conv3x3", torch.nn.Conv2d(8, 16, 3, padding=1)),
+                ("conv4x4s2", torch.nn.Conv2d(8, 16, 4, stride=2, padding=1)),
+                ("convT4x4s2", torch.nn.ConvTranspose2d(8, 16, 4, stride=2,
+                                                        padding=1)),
+                ("upsample", None)):
+            xw = x.clone().requires_grad_()
+            if module is None:
+                yw = F.interpolate(xw, scale_factor=2, mode="bilinear",
+                                   align_corners=True)
+            else:
+                module = module.to("cuda", torch.float64)
+                yw = module(xw)
+            g = torch.randn(yw.shape, device="cuda", dtype=torch.float64,
+                            generator=gen)
+            (yw * g).sum().backward()
+            wgrads = ([] if module is None
+                      else [p.grad.clone() for p in module.parameters()])
+            if module is not None:
+                module.zero_grad()
+            xb = split.block(x, 2).clone().requires_grad_()
+            y = (sp.upsample2x(xb, 16) if module is None
+                 else sp.conv(module, xb, 16)[0])
+            (y * split.block(g, 2)).sum().backward()
+            grads = ([] if module is None
+                     else [p.grad.clone() for p in module.parameters()])
+            for t in grads:
+                torch.distributed.all_reduce(t, group=split.group)
+            diffs[name] = [rel(y, split.block(yw, 2)),
+                           rel(xb.grad, split.block(xw.grad, 2))] + [
+                rel(a, b) for a, b in zip(grads, wgrads)]
+    torch.save(diffs, os.path.join(out_dir, f"rank{k}.pt"))
+    return 0
+
+
+@pytest.mark.cuda
+def test_spatial_axis_exchanges_on_two_ranks(cuda, tmp_path):
+    """``parallel/spatial.py`` on the card: two gloo ranks exchange halo
+    rows and gather and split height blocks with all-reduces of CUDA
+    tensors; the block convs and the block-local upsample equal the whole
+    ops within 1e-12 of their largest values at float64 (each rank's
+    weight gradients summed)."""
+    from gan_aug_pfa_torch.parallel import mesh as pm
+
+    pm.spawn(_spatial_axis_rank, (str(tmp_path),), 2, device="cuda")
+    for rank in range(2):
+        diffs = torch.load(tmp_path / f"rank{rank}.pt")
+        for name, d in diffs.items():
+            assert max(d) <= 1e-12, (rank, name, d)
+
+
 @pytest.mark.cuda
 def test_model_axis_gather_equals_the_whole_conv_on_two_ranks(cuda,
                                                               tmp_path):

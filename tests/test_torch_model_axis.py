@@ -33,8 +33,9 @@ One spawn of four gloo ranks (``_rank_main``) runs every other case at
     process and under (1, 4); a JAX train state (the JAX (2, 2) epoch's,
     saved by its ``save_checkpoint``) resumes into (2, 2) as into one
     process;
-  * the mesh's errors: a 'spatial' extent above 1, a shape that does not
-    fit the axes or the ranks.
+  * the mesh's errors: a shape that does not fit the axes or the ranks;
+    a 'spatial' extent above 1 is no error since the axis is ported
+    (``tests/test_torch_spatial_axis.py``).
 """
 
 import os
@@ -283,16 +284,20 @@ def _counts(trainer):
 
 def _mesh_errors():
     """The messages of ``make_mesh``'s errors on a group of WORLD ranks
-    (raised before any group is made, so every rank takes them alike)."""
+    (raised before any group is made, so every rank takes them alike);
+    for the (data 2, spatial 2) mesh, which it makes, its spatial extent
+    and this rank's place on it."""
     got = {}
     for name, args in (("spatial", (WORLD, ("data", "spatial"), (2, 2))),
                        ("shape", (WORLD, ("data", "model"), (2, 3))),
                        ("dims", (WORLD, ("data", "model"), (4,))),
                        ("count", (2, ("data", "model"), (1, 2)))):
         try:
-            pm.make_mesh(*args, device="cpu")
+            mesh = pm.make_mesh(*args, device="cpu")
         except ValueError as e:
             got[name] = str(e)
+        else:
+            got[name] = (mesh.spatial_size, mesh.spatial_rank, mesh.size)
     return got
 
 
@@ -509,8 +514,7 @@ def test_mesh_on_four_ranks_is_row_major(runs):
 
 def test_mesh_errors_on_four_ranks(runs):
     errors = runs["rank0"]["errors"]
-    assert "'spatial' extent of 2 is not ported yet (ROADMAP A4" in \
-        errors["spatial"]
+    assert errors["spatial"] == (2, 0, WORLD)  # made: the axis is ported
     assert "shape (2, 3) needs 6 devices but 4 are selected" in \
         errors["shape"]
     assert "shape (4,) has 1 dims but axis_names ('data', 'model') has 2" \
@@ -525,7 +529,7 @@ def test_mesh_errors_without_a_group():
     with pytest.raises(ValueError, match="wanted 4 devices but this "
                                          "process group has 1 rank"):
         pm.make_mesh(4, ("data", "model"), (2, 2), device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A4"):
+    with pytest.raises(ValueError, match="shape .1, 2. needs 2 devices"):
         pm.make_mesh(None, ("data", "spatial"), (1, 2), device="cpu")
     with pytest.raises(ValueError, match="at most once"):
         pm.make_mesh(None, ("data", "data"), (1, 1), device="cpu")
