@@ -248,7 +248,11 @@ Phases, each of which fails the run if it fails:
    1e-3; FocalDice (3, 3)/(3, 3) and native photometric counts equal to
    (data 2)'s on every rank; each rank's step peak below the (data 2)
    rank's), and one GAN step at 256x256, batch 1, on (data 1, spatial 4)
-   against one process (losses within 1e-3; peaks printed).
+   against one process (losses within 1e-3; peaks printed); then the same
+   Siamese steps with ``--concat-free --remat`` on both meshes (the same
+   bounds and counts; each rank's peak printed against the plain (2, 2)
+   step's) and the GAN step with ``--concat-free-disc``; the first steps
+   again at float32 (TF32 off) within 1e-5.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -5250,6 +5254,12 @@ SP_GAN_SHAPE = (1, 4)  # the GAN at the reference's batch of 1: height only
 # first step at float32 (TF32 off) at TRAIN_STEP1_RTOL (ROADMAP §C20).
 SP_LOSS_RTOL = DP_LOSS_RTOL
 SP_GAN_RTOL = DP_LOSS_RTOL
+# The knobs that change a conv's form, under the axis: the Siamese steps
+# again with both of these, the GAN step with its own.
+SP_KNOBS = {"concat_free": True, "remat": True}
+SP_GAN_KNOBS = {"concat_free_disc": True}
+# (the split run, the run it is held against): plain, then with SP_KNOBS.
+SP_PAIRS = (("spatial", "data"), ("spatial_knobs", "data_knobs"))
 
 
 def spatial_axis_rank(out_dir, root, device="cuda"):
@@ -5259,10 +5269,11 @@ def spatial_axis_rank(out_dir, root, device="cuda"):
     that share its spatial index (first: it takes the process's first-use
     costs), then on the (data 2, spatial 2) mesh, each with the FocalDice
     and photometric (calls, launches) set to 0 just before and read just
-    after, each step's peak and seconds; then the first step again at
-    float32 (TF32 off) on both.  One GAN step at 256x256, batch 1, on
-    (data 1, spatial 4) with its peak, and at float32 (rank 0: both also
-    in one process).  Into ``out_dir/rank<R>.json``."""
+    after, each step's peak and seconds; then both again with SP_KNOBS;
+    then the first step of each of the four runs again at float32 (TF32
+    off).  One GAN step at 256x256, batch 1, on (data 1, spatial 4) with
+    its peak, and at float32, each without and with SP_GAN_KNOBS (rank 0:
+    all four also in one process).  Into ``out_dir/rank<R>.json``."""
     import gc
 
     import torch
@@ -5324,13 +5335,17 @@ def spatial_axis_rank(out_dir, root, device="cuda"):
             if cuda:
                 torch.cuda.empty_cache()
 
-        def siamese(m, dtype="bfloat16"):
+        def siamese(m, dtype, knobs):
             return SiameseTrainer(SiameseTrainConfig(
-                batch_size=MA_BATCH, seed=SEED, compute_dtype=dtype), device,
-                augment=True, native_out_size=(SUB_SIZE, SUB_SIZE), mesh=m)
+                batch_size=MA_BATCH, seed=SEED, compute_dtype=dtype,
+                **knobs), device, augment=True,
+                native_out_size=(SUB_SIZE, SUB_SIZE), mesh=m)
 
-        for name, m in (("data", data), ("spatial", mesh)):
-            trainer = siamese(m)
+        runs = (("data", data, {}), ("spatial", mesh, {}),
+                ("data_knobs", data, SP_KNOBS),
+                ("spatial_knobs", mesh, SP_KNOBS))
+        for name, m, knobs in runs:
+            trainer = siamese(m, "bfloat16", knobs)
             run = {"loss": [], "peak": [], "seconds": []}
             reset_loss_counts(FocalDiceLossFn)
             reset_photometric_counts(ph)
@@ -5348,8 +5363,8 @@ def spatial_axis_rank(out_dir, root, device="cuda"):
             t0 = time.time()
             del trainer
             release()
-        for name, m in (("data", data), ("spatial", mesh)):
-            trainer = siamese(m, "float32")
+        for name, m, knobs in runs:
+            trainer = siamese(m, "float32", knobs)
             out["runs"][name]["fp32_step1"] = float(trainer.train_step(
                 cache, batches[0]))
             del trainer
@@ -5361,22 +5376,28 @@ def spatial_axis_rank(out_dir, root, device="cuda"):
             samples[:1], (256, 256), verbose=False), dev)
         idx = torch.zeros(1, dtype=torch.int64, device=dev)
 
-        def gan_step(m, dtype):
+        def gan_step(m, dtype, knobs):
             trainer = GANTrainer(GANTrainConfig(seed=SEED,
-                                                compute_dtype=dtype),
+                                                compute_dtype=dtype,
+                                                **knobs),
                                  device, mesh=m)
             losses, peak = peak_of(lambda: trainer.train_step(gan_cache, idx))
             del trainer
             release()
             return [float(v) for v in losses], peak
 
-        out["gan"], out["gan_peak"] = gan_step(gan_mesh, "bfloat16")
-        out["gan32"] = gan_step(gan_mesh, "float32")[0]
+        gans = (("gan", {}), ("gan_cfd", SP_GAN_KNOBS))
+        for name, knobs in gans:
+            out[name], out[f"{name}_peak"] = gan_step(gan_mesh, "bfloat16",
+                                                      knobs)
+            out[f"{name}32"] = gan_step(gan_mesh, "float32", knobs)[0]
         seconds["gan"] = time.time() - t0
         t0 = time.time()
         if rank == 0:
-            out["gan_one"], out["gan_one_peak"] = gan_step(None, "bfloat16")
-            out["gan_one32"] = gan_step(None, "float32")[0]
+            for name, knobs in gans:
+                out[f"{name}_one"], out[f"{name}_one_peak"] = gan_step(
+                    None, "bfloat16", knobs)
+                out[f"{name}_one32"] = gan_step(None, "float32", knobs)[0]
         seconds["gan_one"] = time.time() - t0
     finally:
         dist.destroy_process_group()
@@ -5388,15 +5409,18 @@ def spatial_axis_rank(out_dir, root, device="cuda"):
 def phase_spatial_axis(torch, root, device="cuda"):
     """Phase 21: the 'spatial' axis on SP_WORLD gloo ranks sharing the
     card (``spatial_axis_rank``).  Checks each rank's place on both
-    meshes, each bf16 Siamese step's loss on (data 2, spatial 2) against
-    the (data 2) run's (SP_LOSS_RTOL) and the float32 first step's
+    meshes; for the plain steps and those with SP_KNOBS (SP_PAIRS), each
+    bf16 Siamese step's loss on (data 2, spatial 2) against the (data 2)
+    run's (SP_LOSS_RTOL) and the float32 first step's
     (TRAIN_STEP1_RTOL), the FocalDice (calls, launches) against the steps
-    and the native photometric count against the (data 2) run's, each
-    rank's step peak below the (data 2) rank's, and the GAN step on
-    (data 1, spatial 4) against one process (bf16: SP_GAN_RTOL; float32:
-    TRAIN_STEP1_RTOL).  Prints each rank's peaks against the (data 2)
-    rank's and one process's.  Returns each rank's counts, the peaks and
-    the phase's seconds."""
+    and the native photometric count against the (data 2) run's; each
+    rank's plain step peak below the (data 2) rank's; and the GAN step on
+    (data 1, spatial 4), without and with SP_GAN_KNOBS, against one
+    process (bf16: SP_GAN_RTOL; float32: TRAIN_STEP1_RTOL).  Prints each
+    rank's peaks against the (data 2) rank's, the SP_KNOBS step's against
+    the plain (2, 2) step's, and the GAN's against one process's.  Returns
+    each rank's counts of both split runs, the peaks and the phase's
+    seconds."""
     t0 = time.time()
     card = card_name()
     write_oscd_tree(root)
@@ -5410,70 +5434,88 @@ def phase_spatial_axis(torch, root, device="cuda"):
     want_loss = {"fwd": [MA_STEPS] * 2, "bwd": [MA_STEPS] * 2}
     failures = []
     for rank, rep in enumerate(reports):
-        split, data = rep["runs"]["spatial"], rep["runs"]["data"]
-        rel = [abs(a - b) / abs(b) for a, b in zip(split["loss"],
-                                                   data["loss"])]
-        rel32 = (abs(split["fp32_step1"] - data["fp32_step1"])
-                 / abs(data["fp32_step1"]))
-        ratio = max(split["peak"]) / max(1, max(data["peak"]))
-        print(f"phase 21 rank {rank} ({card}): mesh {rep['mesh']}, GAN "
-              f"mesh {rep['gan_mesh']}; bf16 step losses (2, 2) "
-              f"{split['loss']} vs (data 2) {data['loss']}: rel {rel}; "
-              f"float32 first step {split['fp32_step1']} vs "
-              f"{data['fp32_step1']}: rel {rel32}; step seconds (2, 2) "
-              f"{split['seconds']} vs (data 2) {data['seconds']}; step "
-              f"peaks (2, 2) {split['peak']} vs (data 2) {data['peak']} "
-              f"bytes ({ratio:.3f}x); counts {split['loss_counts']} "
-              f"{split['photometric']} vs {data['loss_counts']} "
-              f"{data['photometric']}")
         if (rep["mesh"][:4] != [2, rank // 2, 2, rank % 2]
-                or rep["gan_mesh"] != [1, 4, rank]
-                or max(rel) > SP_LOSS_RTOL or rel32 > TRAIN_STEP1_RTOL
-                or device == "cuda" and ratio >= 1.0):
-            failures.append(f"rank {rank}: mesh {rep['mesh']}, rel {rel}, "
-                            f"float32 rel {rel32}, peak ratio {ratio}")
-        for name, run in (("spatial", split), ("data", data)):
-            if (run["loss_counts"] != want_loss
-                    or run["photometric"]["flip"] != [0, 0]
-                    or run["photometric"]["native"]
-                    != data["photometric"]["native"]
-                    or run["photometric"]["native"][0] == 0):
-                failures.append(f"rank {rank} {name}: counts "
-                                f"{run['loss_counts']} {run['photometric']}")
-    gans = [r["gan"] for r in reports]
-    one = reports[0]["gan_one"]
-    gan_rel = [abs(a - b) / abs(b) for a, b in zip(gans[0], one)]
-    gans32 = [r["gan32"] for r in reports]
-    gan_rel32 = [abs(a - b) / abs(b)
-                 for a, b in zip(gans32[0], reports[0]["gan_one32"])]
-    gan_ratio = [r["gan_peak"] / max(1, reports[0]["gan_one_peak"])
-                 for r in reports]
-    print(f"phase 21 GAN step at 256x256, batch 1 ({card}): (loss_D, "
-          f"loss_G) on (1, 4) by rank {gans}, one process {one} (rel "
-          f"{gan_rel}); float32 {gans32[0]} vs {reports[0]['gan_one32']} "
-          f"(rel {gan_rel32}); step peaks "
-          f"{[r['gan_peak'] for r in reports]} vs one process "
-          f"{reports[0]['gan_one_peak']} bytes "
-          f"({', '.join(f'{x:.3f}' for x in gan_ratio)}x)")
-    if (max(gan_rel) > SP_GAN_RTOL or max(gan_rel32) > TRAIN_STEP1_RTOL
-            or any(g != gans[0] for g in gans)
-            or any(g != gans32[0] for g in gans32)):
-        failures.append(f"GAN rel {gan_rel}, float32 rel {gan_rel32}, by "
-                        f"rank {gans} {gans32}")
+                or rep["gan_mesh"] != [1, 4, rank]):
+            failures.append(f"rank {rank}: mesh {rep['mesh']}, GAN mesh "
+                            f"{rep['gan_mesh']}")
+        for split_name, data_name in SP_PAIRS:
+            split, data = rep["runs"][split_name], rep["runs"][data_name]
+            rel = [abs(a - b) / abs(b) for a, b in zip(split["loss"],
+                                                       data["loss"])]
+            rel32 = (abs(split["fp32_step1"] - data["fp32_step1"])
+                     / abs(data["fp32_step1"]))
+            ratio = max(split["peak"]) / max(1, max(data["peak"]))
+            print(f"phase 21 rank {rank} {split_name} ({card}): mesh "
+                  f"{rep['mesh']}, GAN mesh {rep['gan_mesh']}; bf16 step "
+                  f"losses (2, 2) {split['loss']} vs (data 2) "
+                  f"{data['loss']}: rel {rel}; float32 first step "
+                  f"{split['fp32_step1']} vs {data['fp32_step1']}: rel "
+                  f"{rel32}; step seconds (2, 2) {split['seconds']} vs "
+                  f"(data 2) {data['seconds']}; step peaks (2, 2) "
+                  f"{split['peak']} vs (data 2) {data['peak']} bytes "
+                  f"({ratio:.3f}x); counts {split['loss_counts']} "
+                  f"{split['photometric']} vs {data['loss_counts']} "
+                  f"{data['photometric']}")
+            if (max(rel) > SP_LOSS_RTOL or rel32 > TRAIN_STEP1_RTOL
+                    or device == "cuda" and split_name == "spatial"
+                    and ratio >= 1.0):
+                failures.append(f"rank {rank} {split_name}: rel {rel}, "
+                                f"float32 rel {rel32}, peak ratio {ratio}")
+            for name, run in ((split_name, split), (data_name, data)):
+                if (run["loss_counts"] != want_loss
+                        or run["photometric"]["flip"] != [0, 0]
+                        or run["photometric"]["native"]
+                        != data["photometric"]["native"]
+                        or run["photometric"]["native"][0] == 0):
+                    failures.append(f"rank {rank} {name}: counts "
+                                    f"{run['loss_counts']} "
+                                    f"{run['photometric']}")
+        knob_peak = max(rep["runs"]["spatial_knobs"]["peak"])
+        plain_peak = max(rep["runs"]["spatial"]["peak"])
+        print(f"phase 21 rank {rank} ({card}): the (2, 2) step peak with "
+              f"--concat-free --remat {knob_peak} against the plain "
+              f"(2, 2) step's {plain_peak} bytes "
+              f"({knob_peak / max(1, plain_peak):.3f}x)")
+    for name, flags in (("gan", ""), ("gan_cfd", " --concat-free-disc")):
+        gans = [r[name] for r in reports]
+        one = reports[0][f"{name}_one"]
+        gan_rel = [abs(a - b) / abs(b) for a, b in zip(gans[0], one)]
+        gans32 = [r[f"{name}32"] for r in reports]
+        gan_rel32 = [abs(a - b) / abs(b) for a, b in
+                     zip(gans32[0], reports[0][f"{name}_one32"])]
+        one_peak = reports[0][f"{name}_one_peak"]
+        gan_ratio = [r[f"{name}_peak"] / max(1, one_peak) for r in reports]
+        print(f"phase 21 GAN step{flags} at 256x256, batch 1 ({card}): "
+              f"(loss_D, loss_G) on (1, 4) by rank {gans}, one process "
+              f"{one} (rel {gan_rel}); float32 {gans32[0]} vs "
+              f"{reports[0][f'{name}_one32']} (rel {gan_rel32}); step "
+              f"peaks {[r[f'{name}_peak'] for r in reports]} vs one "
+              f"process {one_peak} bytes "
+              f"({', '.join(f'{x:.3f}' for x in gan_ratio)}x)")
+        if (max(gan_rel) > SP_GAN_RTOL or max(gan_rel32) > TRAIN_STEP1_RTOL
+                or any(g != gans[0] for g in gans)
+                or any(g != gans32[0] for g in gans32)):
+            failures.append(f"{name} rel {gan_rel}, float32 rel "
+                            f"{gan_rel32}, by rank {gans} {gans32}")
     seconds = time.time() - t0
     print(f"phase 21: each rank's seconds {[r['seconds'] for r in reports]}")
     print(f"phase 21 (the 'spatial' axis) took {seconds:.1f} s")
     if failures:
         raise AssertionError(f"phase 21: {failures}")
-    return {"loss": [r["runs"]["spatial"]["loss_counts"] for r in reports],
-            "photometric": [r["runs"]["spatial"]["photometric"]["native"]
-                            for r in reports],
-            "peaks": {"siamese": [[max(r["runs"][n]["peak"])
-                                   for n in ("spatial", "data")]
-                                  for r in reports],
-                      "gan": [r["gan_peak"] for r in reports],
-                      "gan_one": reports[0]["gan_one_peak"]},
-            "seconds": seconds}
+    result = {run: {"loss": [r["runs"][run]["loss_counts"]
+                             for r in reports],
+                    "photometric": [r["runs"][run]["photometric"]["native"]
+                                    for r in reports]}
+              for run in ("spatial", "spatial_knobs")}
+    result["peaks"] = {
+        "siamese": [[max(r["runs"][n]["peak"]) for n in
+                     ("spatial", "data", "spatial_knobs", "data_knobs")]
+                    for r in reports],
+        "gan": [[r["gan_peak"], r["gan_cfd_peak"]] for r in reports],
+        "gan_one": [reports[0]["gan_one_peak"],
+                    reports[0]["gan_cfd_one_peak"]]}
+    result["seconds"] = seconds
+    return result
 
 
 @functools.lru_cache(maxsize=None)
@@ -5684,7 +5726,10 @@ def main():
                               data_parallel["cli"].items()},
             "tuning_submesh": [r[name] for r in submesh["loss"]],
             "model_axis": [r[name] for r in model_axis["loss"]],
-            "spatial_axis": [r[name] for r in spatial_axis["loss"]],
+            "spatial_axis": [r[name] for r in
+                             spatial_axis["spatial"]["loss"]],
+            "spatial_axis_knobs": [r[name] for r in
+                                   spatial_axis["spatial_knobs"]["loss"]],
             "shape": list(TRAIN_SHAPE),
             "logits": "bfloat16",
             "plan": t["plan"],
@@ -5727,7 +5772,9 @@ def main():
                 "tuning_submesh": [r["native"]
                                    for r in submesh["photometric"]],
                 "model_axis": model_axis["photometric"],
-                "spatial_axis": spatial_axis["photometric"]}
+                "spatial_axis": spatial_axis["spatial"]["photometric"],
+                "spatial_axis_knobs":
+                    spatial_axis["spatial_knobs"]["photometric"]}
                if kind == "native" else {"stream": list(stream["flip"])}),
             "knobs": {run: list(knobs["runs"][run]["photometric"][kind])
                       for run in ("all", "resume")},

@@ -14,9 +14,11 @@ The knobs of the JAX package's ``models/blocks.py``:
     in the backward (``torch.utils.checkpoint``) instead of keeping them.
 
 Under the 'spatial' axis (``parallel/spatial.py``) a DoubleConv's 3x3
-convolutions run on its level's height blocks with halo rows; the 1x1
-convolutions of the attention gate need none.  Neither knob runs there:
-each raises naming itself.
+convolutions run on its level's height blocks with halo rows, its sliced
+first one slice by slice; the 1x1 convolutions of the attention gate need
+none.  A recomputing DoubleConv carries the axis's and the BatchNorms'
+state of its forward into the recomputation, which runs in the backward,
+outside the step's ``spatial.splitting``.
 """
 
 from __future__ import annotations
@@ -28,25 +30,26 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel import spatial
+from ..parallel import batchnorm, spatial
 from ..parallel.batchnorm import GlobalBatchNorm2d, reducing
-from ..parallel.tensor import conv_input_slice, whole
+from ..parallel.tensor import whole
 
 Slices = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
-def sliced_conv2d(xs: Slices, conv: nn.Conv2d) -> torch.Tensor:
+def sliced_conv2d(xs: Slices, conv: nn.Conv2d, h=None) -> torch.Tensor:
     """``conv(cat(xs, dim=1))`` as ``sum_i conv(x_i, W[:, off_i:off_i +
     c_i])``, the bias added after the sum (the JAX package's
     ``SlicedConv``, blocks.py:77-133): the same function up to the order
     of the sums, with ``conv``'s parameters as they are (gathered, when
-    they are sharded over the 'model' axis: ``parallel/tensor.py``)."""
+    they are sharded over the 'model' axis: ``parallel/tensor.py``).
+    Each slice's convolution takes the 'spatial' axis's rule on a map of
+    global height ``h`` (the current level's when None)."""
     if isinstance(xs, torch.Tensor):
-        return spatial.conv(conv, xs)[0]
-    spatial.refuse("--concat-free (channel slices)")
+        return spatial.conv(conv, xs, h)[0]
     out, off = None, 0
     for x in xs:
-        y = conv_input_slice(conv, x, off)
+        y = spatial.conv(conv, x, h, offset=off)[0]
         out = y if out is None else out + y
         off += x.shape[1]
     if off != conv.in_channels:
@@ -64,9 +67,9 @@ def _stateless_bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     never read into the output; no kernel fills them), so that the pass
     saves the same tensors for the backward as ``bn(x)`` does, as
     ``torch.utils.checkpoint`` checks.  A ``GlobalBatchNorm2d`` under a
-    data mesh normalizes with the global batch's statistics, again
-    without an update (``parallel/batchnorm.py``); a sharded one's weight
-    and bias are gathered, its scratch buffers whole."""
+    data mesh, or on a split map, normalizes with the statistics over its
+    group, again without an update (``parallel/batchnorm.py``); a sharded
+    one's weight and bias are gathered, its scratch buffers whole."""
     if isinstance(bn, GlobalBatchNorm2d) and reducing():
         return bn.normalize(x, update_stats=False)
     scratch = [torch.empty(bn.num_features, dtype=t.dtype, device=t.device)
@@ -83,7 +86,8 @@ class DoubleConv(nn.Sequential):
     the backward runs the block again.  The running statistics update
     once, in the first forward; the recomputation normalizes with the
     batch statistics only (the same output), as JAX's ``nn.remat`` leaves
-    them."""
+    them, inside the 'spatial' axis's and the BatchNorms' state of the
+    forward (``spatial.current``, ``batchnorm.current``)."""
 
     remat = False
 
@@ -99,15 +103,15 @@ class DoubleConv(nn.Sequential):
 
     def forward(self, x: Slices) -> torch.Tensor:
         xs = (x,) if isinstance(x, torch.Tensor) else tuple(x)
-        if self.remat:
-            spatial.refuse("--remat")
         if not (self.remat and self.training and torch.is_grad_enabled()):
             return self._run(xs, update_stats=True)
         first = [True]
+        split, stats = spatial.current(), batchnorm.current()
 
         def run(*xs):
             update, first[0] = first[0], False
-            return self._run(xs, update_stats=update)
+            with split, stats:
+                return self._run(xs, update_stats=update)
 
         return checkpoint(run, *xs, use_reentrant=False,
                           preserve_rng_state=False)

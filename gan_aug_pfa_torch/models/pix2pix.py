@@ -26,7 +26,9 @@ with one halo row each side while the maps split, its inner levels whole
 where their height no longer divides (the skip concatenations meet maps of
 one height); the discriminator's stride-2 convs run split, its two
 stride-1 convs (H - 1 rows, which no block layout keeps) whole, and its
-patch map comes out whole on every spatial rank.
+patch map comes out whole on every spatial rank.  The discriminator's
+pair input (``--concat-free-disc``) takes the same walk: its first conv
+runs on the blocks of A and B apart, each slice with its halo rows.
 """
 
 from __future__ import annotations
@@ -120,7 +122,8 @@ class NLayerDiscriminator(nn.Module):
     A first; 256x256 gives (B, 1, 30, 30) patch logits.  The input may be
     the pair (A, B) instead (``--concat-free-disc``): the first conv then
     sums the two convolutions with the halves of its 6-channel weight
-    (``blocks.sliced_conv2d``), and the concatenation is never built."""
+    (``blocks.sliced_conv2d``), and the concatenation is never built.
+    Either way the patch map comes out whole."""
 
     def __init__(self, input_nc: int = 6, ndf: int = 64, n_layers: int = 3):
         super().__init__()
@@ -140,7 +143,8 @@ class NLayerDiscriminator(nn.Module):
         self.model = nn.Sequential(*layers)
 
     def forward(self, x: Slices) -> torch.Tensor:
-        if not isinstance(x, torch.Tensor):
-            return self.model[1:](sliced_conv2d(tuple(x), self.model[0]))
-        x, h = _walk(self.model, x, spatial.input_height(x))
-        return spatial.gather_rows(x) if spatial.splits(h) else x
+        conv0 = self.model[0]
+        h = spatial.input_height(x if isinstance(x, torch.Tensor) else x[0])
+        y = sliced_conv2d(x, conv0, h)
+        y, h = _walk(self.model[1:], y, spatial.conv_height(conv0, h))
+        return spatial.gather_rows(y) if spatial.splits(h) else y

@@ -15,7 +15,8 @@ Under the 'spatial' axis (``parallel/spatial.py``) each level runs at its
 global height h (the input's H / 2^l), split over the spatial ranks while
 h divides by their number and whole on each of them below: the pools and
 upsamples move maps between the two as the rule says, and the concatenated
-skips meet maps of the same height, so both sides follow it.
+skips (or, under ``concat_free``, their slices) meet maps of the same
+height, so both sides follow it.
 """
 
 from __future__ import annotations
@@ -23,9 +24,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.resize import upsample2x_align_corners
 from ..parallel import spatial
-from .blocks import AttentionGate, DoubleConv
+from .blocks import AttentionGate, DoubleConv, Slices
 
 
 class SiameseUNet(nn.Module):
@@ -89,11 +89,17 @@ class SiameseUNet(nn.Module):
             feats.append(x)
         return tuple(feats)
 
+    def _join(self, ts) -> Slices:
+        """A decoder input from its parts ``ts``: one part as it is, else
+        their tuple under ``concat_free`` and their concatenation
+        without."""
+        if len(ts) == 1:
+            return ts[0]
+        return tuple(ts) if self.concat_free else torch.cat(ts, dim=1)
+
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         """x1, x2: (B, C, H, W) in [-1, 1]. Returns (B, n_classes, H, W)
         logits (under a spatial split: this rank's rows of each)."""
-        if self.concat_free:
-            spatial.refuse("--concat-free")
         if self.batched_encoder:
             b = x1.shape[0]
             feats = self.encode(torch.cat([x1, x2], dim=0))
@@ -104,27 +110,23 @@ class SiameseUNet(nn.Module):
             c1a, c2a, c3a, c4a, ba = self.encode(x1)
             c1b, c2b, c3b, c4b, bb = self.encode(x2)
 
-        if self.concat_free:
-            up = (upsample2x_align_corners(ba), upsample2x_align_corners(bb))
-            x = self.dconv_up3(up + self.att3(up, (c4a, c4b)))
-            up = (upsample2x_align_corners(x),)
-            x = self.dconv_up2(up + self.att2(up, (c3a, c3b)))
-            up = (upsample2x_align_corners(x),)
-            x = self.dconv_up1(up + self.att1(up, (c2a, c2b)))
-            up = (upsample2x_align_corners(x),)
-            x = self.dconv_last(up + self.att_last(up, (c1a, c1b)))
-            return self.conv_last(x)
-
-        x = torch.cat([ba, bb], dim=1)
+        # One walk for both forms: under concat_free the bottleneck's two
+        # halves are upsampled apart and no concatenation is built.
+        x = self._join((ba, bb))
         h = spatial.input_height(x1) // 16
         for att, block, skip in (
                 (self.att3, self.dconv_up3, (c4a, c4b)),
                 (self.att2, self.dconv_up2, (c3a, c3b)),
                 (self.att1, self.dconv_up1, (c2a, c2b)),
                 (self.att_last, self.dconv_last, (c1a, c1b))):
-            up = spatial.upsample2x(x, h)
+            up = tuple(spatial.upsample2x(t, h) for t in _parts(x))
             h *= 2
             with spatial.level(h):
-                s = torch.cat(skip, dim=1)
-                x = block(torch.cat([up, att(up, s)], dim=1))
+                gated = att(self._join(up), self._join(skip))
+                x = block(self._join(up + _parts(gated)))
         return self.conv_last(x)
+
+
+def _parts(x: Slices) -> tuple:
+    """The channel slices of ``x``: a tensor is one."""
+    return (x,) if isinstance(x, torch.Tensor) else tuple(x)

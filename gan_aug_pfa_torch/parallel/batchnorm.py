@@ -22,8 +22,9 @@ shard of the batch:
 tensors) nor the recomputation of ``--remat``, which needs a pass that
 leaves the running statistics alone: ``GlobalBatchNorm2d.normalize(x,
 update_stats=False)``, called by ``models/blocks.py``'s stateless pass.
-The group is read when the module runs, so a recomputation inside the
-backward reduces over the same group in the same order on every rank.
+The group is read when the module runs: a recomputation inside the
+backward enters the state its forward saw (``current``), and so reduces
+over the same group in the same order on every rank.
 
 Under the tensor-parallel 'model' axis (``tensor.py``) the group is the
 mesh's data group: the ranks of a model group hold the same rows, so the
@@ -47,8 +48,6 @@ the global count either way.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -65,18 +64,34 @@ _GROUP = None
 _ACTIVE = False
 
 
-@contextlib.contextmanager
-def global_statistics(group=None):
+class _Statistics:
+    """Sets ``_GROUP`` and ``_ACTIVE`` for a block and restores them after
+    (one block at a time: it may be entered again once it has exited)."""
+
+    def __init__(self, group, active):
+        self.state = group, active
+
+    def __enter__(self):
+        global _GROUP, _ACTIVE
+        self.prev = _GROUP, _ACTIVE
+        _GROUP, _ACTIVE = self.state
+
+    def __exit__(self, *exc):
+        global _GROUP, _ACTIVE
+        _GROUP, _ACTIVE = self.prev
+
+
+def global_statistics(group=None) -> _Statistics:
     """Within: train-mode ``GlobalBatchNorm2d`` take their statistics over
     the shards of ``group``'s ranks (None: the default group).  Outside,
     over the rank's own batch, as a replicated step needs."""
-    global _GROUP, _ACTIVE
-    prev = _GROUP, _ACTIVE
-    _GROUP, _ACTIVE = group, True
-    try:
-        yield
-    finally:
-        _GROUP, _ACTIVE = prev
+    return _Statistics(group, True)
+
+
+def current() -> _Statistics:
+    """The state as it is now, to enter again later (a recomputation in
+    the backward, ``models/blocks.py``)."""
+    return _Statistics(_GROUP, _ACTIVE)
 
 
 def reducing() -> bool:

@@ -30,8 +30,10 @@ which gloo also runs on CUDA tensors.
 The split rule (JAX's "XLA splits what it can" as one rule): a map of
 global height h is split when h divides by s, else every spatial rank
 holds it whole.  ``level(h)`` tells the BatchNorms inside which state
-their maps are in; ``conv``, ``max_pool2x`` and ``upsample2x`` take a map
-of height h to the next height and keep the rule:
+their maps are in; ``conv`` (of a whole input, or of one channel slice
+of it with the matching slice of the weight: ``--concat-free``'s sliced
+convs), ``max_pool2x`` and ``upsample2x`` take a map of height h to the
+next height and keep the rule:
 
   * an op whose window is the same on a block as on the map (``conv`` with
     2p + stride = k, a ``ConvTranspose2d`` with k - 2p = stride, the 2x2
@@ -46,6 +48,13 @@ of height h to the next height and keep the rule:
 
 Where the rule leaves a map whole, a stride-2 op's blocks all start on an
 even row: a split output height h/2 = s q makes the input blocks 2q rows.
+
+The state above is read when an op runs.  A block that ``--remat``
+recomputes in the backward, outside ``splitting``, takes ``current()``
+in its forward and re-enters it around the recomputation
+(``models/blocks.py``): every rank holds the same graph, so autograd
+reaches the recomputations, and the exchanges inside them, in one order
+on every rank.
 """
 
 from __future__ import annotations
@@ -62,9 +71,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import upsample2x_align_corners
-from .tensor import shard_of, sharded_conv
-
-ROADMAP_KNOBS = "ROADMAP A5"
+from .tensor import conv_input_slice, shard_of, sharded_conv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +106,8 @@ _HERE = False
 
 
 class _State:
-    """Sets the module's state for a block and restores it after."""
+    """Sets the module's state for a block and restores it after (one
+    block at a time: it may be entered again once it has exited)."""
 
     def __init__(self, split, height, here):
         self.state = split, height, here
@@ -123,6 +131,12 @@ def splitting(split: Optional[Split]):
     if split is None:
         return _NOTHING
     return _State(split, 0, True)
+
+
+def current() -> _State:
+    """The state as it is now, to enter again later (a recomputation in
+    the backward)."""
+    return _State(_SPLIT, _HEIGHT, _HERE)
 
 
 def here() -> Optional[Split]:
@@ -153,14 +167,6 @@ def input_height(x: torch.Tensor) -> int:
     """The global height of a model's input ``x``: its rows times s under
     a split (the trainers cut each rank's block), else its rows."""
     return x.shape[2] * (_SPLIT.size if _SPLIT is not None else 1)
-
-
-def refuse(knob: str) -> None:
-    """Raise when a knob whose convolutions are not ported under the
-    axis would run on split maps."""
-    if _SPLIT is not None:
-        raise ValueError(f"{knob} does not run under the 'spatial' axis "
-                         f"yet ({ROADMAP_KNOBS}); train without it")
 
 
 # -- moving rows --------------------------------------------------------------
@@ -302,14 +308,18 @@ def conv_height(module: nn.Module, h: int) -> int:
     return (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
 
 
-def _block_conv(module: nn.Module, x: torch.Tensor, window) -> torch.Tensor:
-    """``module`` on the split block ``x`` (the rule's first case)."""
+def _block_conv(module: nn.Module, x: torch.Tensor, window,
+                offset: Optional[int] = None) -> torch.Tensor:
+    """``module`` on the split block ``x`` (the rule's first case); of
+    the channel slice at ``offset`` when given (``_whole_conv``)."""
     top, bottom, pad_h = window
     if x.shape[2] % module.stride[0] and not module.transposed:
         raise ValueError(f"blocks of {x.shape[2]} rows under a stride of "
                          f"{module.stride[0]}")
     xh = halo(x, top, bottom) if top or bottom else x
     padding = (pad_h, module.padding[1])
+    if offset is not None:
+        return conv_input_slice(module, xh, offset, padding)
     if shard_of(module) is not None:
         return sharded_conv(module, xh, padding=padding)
     if module.transposed:
@@ -319,6 +329,16 @@ def _block_conv(module: nn.Module, x: torch.Tensor, window) -> torch.Tensor:
                                   module.dilation)
     return F.conv2d(xh, module.weight, module.bias, module.stride, padding,
                     module.dilation, module.groups)
+
+
+def _whole_conv(module: nn.Module, x: torch.Tensor,
+                offset: Optional[int] = None) -> torch.Tensor:
+    """``module(x)``, or without its bias the convolution of the channel
+    slice ``x`` with the input channels [offset, offset + x.shape[1]) of
+    its weight (``tensor.conv_input_slice``)."""
+    if offset is None:
+        return module(x)
+    return conv_input_slice(module, x, offset)
 
 
 def _rule(x, h, h_out, whole_op, block_op):
@@ -335,19 +355,25 @@ def _rule(x, h, h_out, whole_op, block_op):
     return split_rows(y) if s_out else y
 
 
-def conv(module: nn.Module, x: torch.Tensor, h: Optional[int] = None):
+def conv(module: nn.Module, x: torch.Tensor, h: Optional[int] = None,
+         offset: Optional[int] = None):
     """``module(x)`` (a Conv2d or ConvTranspose2d, sharded over 'model' or
     not) on a map of global height ``h`` (the current ``level``'s when
-    None); returns (output, its global height)."""
+    None); with ``offset``, the biasless convolution of the channel slice
+    ``x`` with the matching slice of the weight (``_whole_conv``), whose
+    sum over the slices plus the bias is the conv of their concatenation.
+    Returns (output, its global height)."""
     if _SPLIT is None:
-        y = module(x)
+        y = _whole_conv(module, x, offset)
         return y, y.shape[2]
     h = _HEIGHT if h is None else h
     h_out = conv_height(module, h)
     window = _window(module)
     block_op = (None if window is None
-                else functools.partial(_block_conv, module, window=window))
-    return _rule(x, h, h_out, module, block_op), h_out
+                else functools.partial(_block_conv, module, window=window,
+                                       offset=offset))
+    whole_op = functools.partial(_whole_conv, module, offset=offset)
+    return _rule(x, h, h_out, whole_op, block_op), h_out
 
 
 def max_pool2x(x: torch.Tensor, h: int) -> torch.Tensor:

@@ -340,16 +340,17 @@ class ShardedConvTranspose2d(nn.ConvTranspose2d):
         return sharded_conv(self, x)
 
 
-def conv_input_slice(conv: nn.Conv2d, x: torch.Tensor,
-                     start: int) -> torch.Tensor:
+def conv_input_slice(conv: nn.Conv2d, x: torch.Tensor, start: int,
+                     padding=None) -> torch.Tensor:
     """``conv``'s convolution, without its bias, of ``x`` with the input
     channels [start, start + x.shape[1]) of its weight (the slices of
-    ``models/blocks.sliced_conv2d``)."""
+    ``models/blocks.sliced_conv2d``), with ``padding`` in place of the
+    module's when given (a block of the 'spatial' axis)."""
     count = x.shape[1]
     if shard_of(conv) is None:
         return F.conv2d(x, conv.weight[:, start:start + count], None,
-                        conv.stride, conv.padding)
-    return sharded_conv(conv, x, start, count, bias=False)
+                        conv.stride, padding or conv.padding, conv.dilation)
+    return sharded_conv(conv, x, start, count, bias=False, padding=padding)
 
 
 # -- whole states and their blocks -----------------------------------------

@@ -62,8 +62,8 @@ patch map comes out whole on every spatial rank, so its BCE terms are the
 (data d) step's, and each rank's backward takes 1/s of them.  The parts
 summed over data x spatial (the spatial group in a replicated step) are
 the losses, and so are the gradients.  The EMA is unchanged: no leaf is
-split.  ``--concat-free-disc`` is not ported under the axis and raises
-naming itself (ROADMAP A5).
+split.  ``--concat-free-disc`` runs there too: D's first conv takes the
+blocks of A and B apart (``models/pix2pix.py``).
 """
 
 from __future__ import annotations
@@ -86,12 +86,7 @@ from ..parallel.batchnorm import convert_batchnorm, global_statistics
 from ..parallel.tensor import cut_state_dict, shard_model, whole_state_dict
 from ..utils.profiling import step_guard, sync
 from .optim import make_optimizer
-from .siamese import (
-    compute_precision,
-    refuse_spatial_knobs,
-    step_label,
-    tf32_off,
-)
+from .siamese import compute_precision, step_label, tf32_off
 
 
 @torch.no_grad()
@@ -116,8 +111,6 @@ class GANTrainer:
     def __init__(self, config: GANTrainConfig, device="cuda", mesh=None):
         self.config = config
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
-        if self.mesh is not None and self.mesh.spatial_size > 1:
-            refuse_spatial_knobs(concat_free_disc=config.concat_free_disc)
         self.device = (self.mesh.device if self.mesh is not None
                        else resolve_device(device))
         g, d = self.init_models(config.seed)

@@ -69,9 +69,10 @@ BatchNorm statistics, the FocalDice loss (its global form, N = the
 block's elements x d x s) and the gradients sum over data x spatial in a
 sharded step, over the spatial group in a replicated one
 (``DataMesh.sum_group``).  ``validate`` runs split the same way and gives
-every rank the single-device value.  ``--concat-free`` and ``--remat``
-change the convolutions' form and are not ported under the axis: the
-trainer raises naming them (ROADMAP A5).
+every rank the single-device value.  ``--concat-free`` (its sliced convs
+take the rule slice by slice) and ``--remat`` (each block's recomputation
+in the backward re-enters the state of its forward, exchanges and
+BatchNorm reductions included) run under the axis as without it.
 """
 
 from __future__ import annotations
@@ -169,9 +170,6 @@ class SiameseTrainer:
         sharded under a 'model' axis), or None."""
         self.config = config
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
-        if self.mesh is not None and self.mesh.spatial_size > 1:
-            refuse_spatial_knobs(concat_free=config.concat_free,
-                                 remat=config.remat)
         self.device = (self.mesh.device if self.mesh is not None
                        else resolve_device(device))
         self.augment = augment
@@ -424,18 +422,6 @@ def _height_block(split, img1, img2, labels):
     if split is None:
         return img1, img2, labels
     return split.block(img1, 2), split.block(img2, 2), split.block(labels, 1)
-
-
-def refuse_spatial_knobs(**knobs) -> None:
-    """Raise ValueError naming each knob (a flag's name, underscored) that
-    is on and not ported under the 'spatial' axis."""
-    on = ["--" + k.replace("_", "-") for k, v in knobs.items() if v]
-    if on:
-        raise ValueError(
-            f"{', '.join(on)} not ported under the 'spatial' axis yet "
-            f"({spatial.ROADMAP_KNOBS}): train without "
-            f"{'it' if len(on) == 1 else 'them'}, or on a mesh without "
-            "'spatial'")
 
 
 def _rows_of(params, rows):

@@ -839,6 +839,7 @@ def _spatial_axis_rank(out_dir):
     k = split.rank
 
     def rel(a, b):
+        a, b = a.detach(), b.detach()
         return float((a - b).abs().max()) / float(b.abs().max())
 
     gen = torch.Generator("cuda").manual_seed(1)
@@ -927,3 +928,99 @@ def test_model_axis_gather_equals_the_whole_conv_on_two_ranks(cuda,
         diffs = torch.load(tmp_path / f"rank{rank}.pt")
         for mode, d in diffs.items():
             assert d == [0.0] * len(d), (rank, mode, d)
+
+
+def _spatial_knobs_rank(out_dir):
+    """One of two gloo ranks sharing the card, a (data 1, spatial 2) mesh,
+    float64, cuDNN deterministic: the sliced convs of ``--concat-free``
+    and ``--concat-free-disc`` (two channel slices on height blocks, the
+    bias after their sum) against the conv of the concatenation whole,
+    and a ``--remat`` DoubleConv whose backward runs after
+    ``spatial.splitting`` has exited against the same block without
+    remat; the largest differences, each relative to the reference's
+    largest value, into ``out_dir/rank<R>.pt``."""
+    import copy
+    import os
+
+    from gan_aug_pfa_torch.models.blocks import DoubleConv, sliced_conv2d
+    from gan_aug_pfa_torch.parallel import mesh as pm
+    from gan_aug_pfa_torch.parallel import spatial as sp
+    from gan_aug_pfa_torch.parallel.batchnorm import convert_batchnorm
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = pm.make_mesh(2, ("data", "spatial"), (1, 2), device="cuda")
+    split = mesh.split(True)
+    k = split.rank
+
+    def rel(a, b):
+        a, b = a.detach(), b.detach()
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    gen = torch.Generator("cuda").manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", dtype=torch.float64,
+                           generator=gen)
+
+    diffs = {}
+    torch.manual_seed(0)
+    for name, conv, chans in (
+            ("conv3x3", torch.nn.Conv2d(8, 16, 3, padding=1), (3, 5)),
+            ("conv1x1", torch.nn.Conv2d(8, 16, 1), (3, 5)),
+            ("conv4x4s2", torch.nn.Conv2d(6, 16, 4, stride=2, padding=1),
+             (3, 3))):
+        conv = conv.to("cuda", torch.float64)
+        xs = [randn(2, c, 16, 12) for c in chans]
+        xw = torch.cat(xs, dim=1).requires_grad_()
+        yw = conv(xw)
+        g = randn(*yw.shape)
+        (yw * g).sum().backward()
+        wgrads = [p.grad.clone() for p in conv.parameters()]
+        conv.zero_grad()
+        xbs = [split.block(x, 2).clone().requires_grad_() for x in xs]
+        with sp.splitting(split):
+            y = sliced_conv2d(xbs, conv, 16)
+        (y * split.block(g, 2)).sum().backward()
+        grads = [p.grad.clone() for p in conv.parameters()]
+        for t in grads:
+            torch.distributed.all_reduce(t, group=split.group)
+        gx = torch.cat([x.grad for x in xbs], dim=1)
+        diffs[name] = [rel(y, split.block(yw, 2)),
+                       rel(gx, split.block(xw.grad, 2))] + [
+            rel(a, b) for a, b in zip(grads, wgrads)]
+    torch.manual_seed(1)
+    base = convert_batchnorm(DoubleConv(3, 8).to("cuda", torch.float64))
+    x, g = randn(2, 3, 16, 12), randn(2, 8, 16, 12)
+    runs = []
+    for remat in (False, True):
+        block = copy.deepcopy(base).train()
+        block.remat = remat
+        xb = split.block(x, 2).clone().requires_grad_()
+        with sp.splitting(split), sp.level(16):
+            y = block(xb)
+        (y * split.block(g, 2)).sum().backward()
+        grads = [p.grad.clone() for p in block.parameters()]
+        for t in grads:
+            torch.distributed.all_reduce(t, group=split.group)
+        runs.append([y, xb.grad] + grads + [
+            t for t in block.buffers() if t.is_floating_point()])
+    diffs["remat"] = [rel(a, b) for a, b in zip(runs[1], runs[0])]
+    torch.save(diffs, os.path.join(out_dir, f"rank{k}.pt"))
+    return 0
+
+
+@pytest.mark.cuda
+def test_spatial_knobs_on_two_ranks(cuda, tmp_path):
+    """The knobs under the 'spatial' axis on the card: two gloo ranks run
+    the sliced convs on height blocks with their halo rows (all-reduces
+    of CUDA tensors) within 1e-12 of the whole conv of the concatenation
+    at float64, and a recomputing DoubleConv, its backward called outside
+    the split, within 1e-12 of the block without remat."""
+    from gan_aug_pfa_torch.parallel import mesh as pm
+
+    pm.spawn(_spatial_knobs_rank, (str(tmp_path),), 2, device="cuda")
+    for rank in range(2):
+        diffs = torch.load(tmp_path / f"rank{rank}.pt")
+        for name, d in diffs.items():
+            assert max(d) <= 1e-12, (rank, name, d)
