@@ -125,8 +125,8 @@ Phases, each of which fails the run if it fails:
    within 1e-5 relative of the JAX losses saved beside it;
 15. serve (run last, after phase 18: its sidecar's compile brings
    Inductor into the process): ``python -m gan_aug_pfa_torch.export_model
-   --backend cuda`` at
-   full width from seeded checkpoints (the Siamese net at fp32, bf16 and
+   --backend cuda`` at full width, in three child processes started
+   beside phase 18 (``start_sidecar_export``), from seeded checkpoints (the Siamese net at fp32, bf16 and
    int8, the generator at fp32 and int8, the discriminator at fp32); the
    artifacts loaded in turn in one fresh process that cannot import the
    model code, each
@@ -147,7 +147,9 @@ Phases, each of which fails the run if it fails:
    --serving-aot require`` in a fresh process with ``never``'s report and
    confusion counts (7, 7), cold start and pairs/s against the ``.pt2``,
    a damaged package (``require`` raises naming it, ``auto`` serves the
-   ``.pt2``) and a recompile that leaves no stale package.
+   ``.pt2``), a recompile that leaves no stale package, and the int8
+   artifact's package (compiled in a child process of its own beside the
+   fp32 one) against its ``.pt2`` within 1e-5.
 
 16. stream: hold the C unfilter of ``data/native_loader.py`` (built in
    phase 2) against ``data/png.py`` byte for byte on every file of a
@@ -162,15 +164,17 @@ Phases, each of which fails the run if it fails:
    epoch at batch 4 and 16 and each epoch's peak device memory above the
    step's own (streamed within (depth + 2) batches, resident the corpus);
    then one epoch of ``python -m gan_aug_pfa_torch.train --use-synthetic
-   --stream host`` and ``--stream decode`` (train losses equal to the
-   resident epoch's within 1e-3; fused-loss (calls, launches) set to 0
-   just before each and read just after: a forward a step and a val step,
-   a backward a step); one ``--augment --stream host`` epoch (JAX's
+   --stream host`` and ``--stream decode`` (under deterministic mode, as
+   the resident epoch of their init and order: train losses equal to the
+   resident epoch's in bits, val losses equal to each other; fused-loss
+   (calls, launches) set to 0 just before each and read just after: a
+   forward a step and a val step, a backward a step); one ``--augment
+   --stream host`` epoch (JAX's
    note, the flip kernel once an image a step, the native kernel never);
    ``train_gan`` for one epoch at its defaults resident and ``--stream
-   decode`` (equal losses); ``generate_synthetic --stream decode`` (files
-   byte-identical to the resident run's, cuDNN's deterministic algorithms
-   in both); ``evaluate --stream host`` and ``--stream decode``
+   decode`` (losses equal in bits, both under deterministic mode);
+   ``generate_synthetic --stream decode`` (files byte-identical to the
+   resident run's, both under deterministic mode); ``evaluate --stream host`` and ``--stream decode``
    (confusion counts (7, 7) each, JSON equal to the resident report).
 
 17. knobs: over the phase-6 tree at full width, in this process, ``python
@@ -202,8 +206,9 @@ Phases, each of which fails the run if it fails:
 
 18. data parallel (``parallel/mesh.py``), on the one card: (a) one NCCL
    rank (a group of one in this process) runs a collective, the trainer
-   takes its mesh as none, and a fp32 step on it gives the step without a
-   group's loss bit for bit (its parameters as in (b)); (b) two
+   takes its mesh as none, and a fp32 step on it under deterministic mode
+   gives the step without a group's loss and parameters bit for bit; (b)
+   two
    ranks sharing the card over gloo (child processes with torchrun's
    variables) run one fp32 step of batch 4, 2 rows a rank: the loss
    within 1e-5 of one process, the summed gradients no farther from a
@@ -233,10 +238,10 @@ Phases, each of which fails the run if it fails:
    after and must equal its trials' steps (one launch a call); the study
    holds trials 0 and 1, COMPLETE or PRUNED; the two ranks of a partition
    ran the same epochs with equal losses; each trial's first step loss
-   lies within 1e-3 of the same step run in this process (its first
-   epoch's train and val losses are printed beside two runs of it in this
-   process, which differ from each other on the card); the phase's
-   seconds.
+   lies within 1e-3 of the same step run in this process; two runs of the
+   trial in this process under deterministic mode give its first step and
+   first epoch's train and val losses in equal bits (the ranks' first
+   epoch is printed beside them); the phase's seconds.
 
 20. the tensor-parallel 'model' axis, beside the sidecar's compile: four
    gloo ranks sharing the card as (data 2, model 2) (``phase_model_axis``).
@@ -254,11 +259,24 @@ Phases, each of which fails the run if it fails:
    step's) and the GAN step with ``--concat-free-disc``; the first steps
    again at float32 (TF32 off) within 1e-5.
 
+22. deterministic steps (run after phase 8): under
+   ``torch.use_deterministic_algorithms(True)`` with cuDNN's deterministic
+   algorithms, two bf16 Siamese train steps at the defaults (128x128,
+   batch 4, full width) from one seeded state, run twice, give equal
+   losses, parameters and BatchNorm buffers in bits, plain and with
+   ``--batched-encoder --concat-free --remat``, and one bf16 GAN D+G step
+   at its defaults likewise.
+
+Deterministic mode needs ``CUBLAS_WORKSPACE_CONFIG`` in the environment
+before cuBLAS makes its handle: ``main`` sets it (``:4096:8``) before the
+first CUDA call, so every phase and child process runs with it.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero.
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -268,6 +286,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -331,6 +350,29 @@ GAN_LOSS_D_RTOL = GAN_LOSS_G_RTOL = 1e-5
 # boundary of the truncating byte cast; measured 0.0035% on an H100).
 SYNTH_LSB_SHARE = 0.005
 SUBDIR = "Onera Satellite Change Detection Dataset"
+# cuBLAS's workspace for deterministic mode: torch raises at a cuBLAS call
+# under ``torch.use_deterministic_algorithms(True)`` unless this is in the
+# environment when cuBLAS makes its handle, so ``main`` sets it before the
+# first CUDA call, for every phase and every child process.
+CUBLAS_WORKSPACE = ":4096:8"
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Within: ``torch.use_deterministic_algorithms(True)`` and cuDNN's
+    deterministic algorithms (benchmarking off); the settings before it
+    after.  An op without a deterministic algorithm raises."""
+    cudnn = torch.backends.cudnn
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            cudnn.deterministic, cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        cudnn.deterministic, cudnn.benchmark = prev[2:]
 
 
 def write_png(path, arr, filter_type=None):
@@ -1921,8 +1963,9 @@ def phase_run_control(torch, root):
     """Run control on the card through the CLIs: a Siamese run preempted
     by SIGTERM in epoch 2 (or 3) of 50 with every run-control flag, resumed
     for 2 epochs in this process with the fused-loss counts read; the same
-    for the GAN at its defaults; an evaluation of the deferred
-    best_model.pth with the confusion counts read."""
+    for the GAN at its defaults (its preempted run beside the Siamese
+    part); an evaluation of the deferred best_model.pth with the confusion
+    counts read."""
     from gan_aug_pfa_torch import evaluate
     from gan_aug_pfa_torch import train_gan as gan_cli
     from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
@@ -1934,6 +1977,24 @@ def phase_run_control(torch, root):
     prof = os.path.join(root, "prof")
     flags = ["--root-dir", root, "--save-every", "50", "--log-jsonl", log,
              "--defer-best-ckpt", "--async-ckpt", "--profile-dir", prof]
+    # The GAN's preempted CLI run goes on in a thread of its own beside the
+    # Siamese part (nothing here is timed but the exits, each held to its
+    # bound); its checks follow the Siamese part's.
+    gan_log = os.path.join(root, "gan.jsonl")
+    gan_flags = ["--root-dir", root, "--log-jsonl", gan_log, "--async-ckpt",
+                 "--profile-dir", os.path.join(root, "gan_prof")]
+    gan_run = {}
+
+    def preempted_gan():
+        try:
+            gan_run["out"] = run_child(
+                ["-m", "gan_aug_pfa_torch.train_gan", *gan_flags],
+                sigterm_at=r"^Epoch 1 - ")
+        except BaseException as e:  # raised again in the main thread
+            gan_run["error"] = e
+
+    gan_thread = threading.Thread(target=preempted_gan)
+    gan_thread.start()
     t0 = time.time()
     rc, lines, exit_s = run_child(
         ["-m", "gan_aug_pfa_torch.train", *flags, "--num-epochs", "50"],
@@ -2005,12 +2066,10 @@ def phase_run_control(torch, root):
     if eval_counts != (7, 7):
         raise AssertionError(f"evaluation counts {eval_counts}")
 
-    gan_log = os.path.join(root, "gan.jsonl")
-    gan_flags = ["--root-dir", root, "--log-jsonl", gan_log, "--async-ckpt",
-                 "--profile-dir", os.path.join(root, "gan_prof")]
-    rc, lines, gan_exit_s = run_child(
-        ["-m", "gan_aug_pfa_torch.train_gan", *gan_flags],
-        sigterm_at=r"^Epoch 1 - ")
+    gan_thread.join()
+    if "error" in gan_run:
+        raise gan_run["error"]
+    rc, lines, gan_exit_s = gan_run["out"]
     m = last_epoch(lines, r"^Epoch (\d+) - Avg Loss D")
     gan_dir = os.path.join(root, "gan_checkpoints")
     files = sorted(os.listdir(gan_dir))
@@ -2931,8 +2990,7 @@ def phase_serving(torch, root, device="cuda", sidecar_job=None):
     and first batch latency in a fresh process, evaluation pairs/s at bs 2
     and 16 through each artifact against the checkpoint path, and the fp32
     and int8 artifacts' file and device bytes."""
-    from gan_aug_pfa_torch import checkpoint, evaluate, pipelines
-    from gan_aug_pfa_torch import export_model as export_cli
+    from gan_aug_pfa_torch import evaluate, pipelines
     from gan_aug_pfa_torch import generate_synthetic as synth_cli
     from gan_aug_pfa_torch import quantize as qz
     from gan_aug_pfa_torch import serve
@@ -2940,50 +2998,22 @@ def phase_serving(torch, root, device="cuda", sidecar_job=None):
     from gan_aug_pfa_torch.data import png
     from gan_aug_pfa_torch.data.loader import build_cached_dataset
     from gan_aug_pfa_torch.data.scanner import create_sample_lists
-    from gan_aug_pfa_torch.models import (
-        NLayerDiscriminator,
-        SiameseUNet,
-        UNetGenerator,
-    )
     from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
 
-    # The fp32 Siamese artifact and its sidecar come from the export CLI
-    # with --aot-batch-sizes, started early when the caller gave the job.
+    # Every artifact comes from start_sidecar_export's children, started
+    # early when the caller gave the job.
     job = sidecar_job or start_sidecar_export(torch, root, device)
-    export_wall = finish_sidecar_export(job)
-    torch.manual_seed(SEED)
-    models = {"siamese": seeded_model(torch, SiameseUNet),
-              "generator": UNetGenerator().eval(),
-              "discriminator": NLayerDiscriminator().eval()}
-    stems = {"siamese": "siamese_checkpoints/best_model",
-             "generator": "gan_checkpoints/generator_epoch_1",
-             "discriminator": "gan_checkpoints/discriminator_epoch_1"}
-    pths = {arch: os.path.join(root, stem + ".pth")
-            for arch, stem in stems.items()}
-    for arch, model in models.items():
-        checkpoint.save_model(pths[arch], model)
-    cases = [("siamese", "float32", None), ("siamese", "bfloat16", None),
-             ("siamese", "float32", "int8"), ("generator", "float32", None),
-             ("generator", "float32", "int8"),
-             ("discriminator", "float32", None)]
-    arts = {}
-    for arch, dtype, quant in cases:
-        key = (arch, dtype, quant)
-        arts[key] = os.path.join(
-            root, "artifacts", f"{arch}_{quant or dtype}.pt2")
-        if arts[key] == job["artifact"]:
-            print(f"serving: exported {arch} {dtype} and compiled its sidecar"
-                  f" in {export_wall:.2f} s of a child process "
-                  f"({os.path.getsize(arts[key])} bytes)")
-            continue
-        argv = ["--checkpoint-path", pths[arch], "--output", arts[key],
-                "--backend", device, "--compute-dtype", dtype]
-        t0 = time.perf_counter()
-        run_captured(export_cli.main, argv + (["--quantize", quant]
-                                              if quant else []))
-        print(f"serving: exported {arch} {quant or dtype} in "
-              f"{time.perf_counter() - t0:.2f} s "
-              f"({os.path.getsize(arts[key])} bytes)")
+    walls, children = finish_sidecar_export(job)
+    models = serving_models(torch)
+    pths, arts = serving_paths(root)
+    export_s = children["exports"]["export_s"]
+    for (arch, dtype, quant), path in arts.items():
+        took = (f"in {export_s[path]:.2f} s" if path in export_s else
+                "and compiled its sidecar, done within "
+                f"{walls['float32' if quant is None else 'int8']:.2f} s of "
+                "the children's start")
+        print(f"serving: exported {arch} {quant or dtype} in a child "
+              f"process {took} ({os.path.getsize(path)} bytes)")
 
     # The artifacts in one fresh process, each against the eager model.
     rng = np.random.RandomState(SEED + 15)
@@ -3175,8 +3205,8 @@ def phase_serving(torch, root, device="cuda", sidecar_job=None):
                 (first["load_ms"] + first["batch_ms"]["1"][0]) / 1e3)
     sidecar = phase_serving_sidecar(
         torch, root, siamese_fp32, arts[("siamese", "float32", "int8")],
-        arts[("discriminator", "float32", None)], cache, ds.cities,
-        pt2_cold, device)
+        arts[("discriminator", "float32", None)], children, cache,
+        ds.cities, pt2_cold, device)
     return {"confusion_counts": counts, **sidecar}
 
 
@@ -3187,7 +3217,6 @@ def phase_serving(torch, root, device="cuda", sidecar_job=None):
 AOT_TOL = 1e-5  # max |package - .pt2| on probabilities at batch 2
 AOT_BATCH = 2  # the evaluation CLI's default batch
 AOT_RECOMPILE_BATCH = 4
-AOT_INT8_UNDER_S = 90.0  # compile the int8 artifact only if fp32 took less
 AOT_EXPORT_TIMEOUT_S = 900.0
 
 # The evaluation CLI in a fresh process, timed from its start to its first
@@ -3228,62 +3257,159 @@ print(json.dumps({"counts": [fn.calls, fn.launches],
 """
 
 
+SERVE_CASES = [("siamese", "float32", None), ("siamese", "bfloat16", None),
+               ("siamese", "float32", "int8"), ("generator", "float32", None),
+               ("generator", "float32", "int8"),
+               ("discriminator", "float32", None)]
+SERVE_STEMS = {"siamese": "siamese_checkpoints/best_model",
+               "generator": "gan_checkpoints/generator_epoch_1",
+               "discriminator": "gan_checkpoints/discriminator_epoch_1"}
+
+# Phase 15's exports, in child processes beside phases 18-21.  The int8
+# Siamese artifact's child also holds its package against its .pt2 at
+# AOT_BATCH on seeded inputs; the third child exports the other artifacts
+# and compiles the discriminator's at AOT_RECOMPILE_BATCH beside a stale
+# batch-AOT_BATCH package, which the compile must remove.  Each prints a
+# JSON line last.
+INT8_SIDECAR_CHILD = r"""
+import json, sys, torch
+from gan_aug_pfa_torch import export_model, serve
+pth, artifact, device, bs, seed = sys.argv[1:6]
+bs = int(bs)
+export_model.main(["--checkpoint-path", pth, "--output", artifact,
+                   "--backend", device, "--quantize", "int8",
+                   "--aot-batch-sizes", str(bs)])
+gen = torch.Generator().manual_seed(int(seed))
+xs = [torch.rand((bs, 128, 128, 3), generator=gen) * 2 - 1 for _ in range(2)]
+_, package = serve.load_serving_fn(artifact, aot="require", device=device)
+_, program = serve.load_serving_fn(artifact, aot="never", device=device)
+print(json.dumps({"max_abs_err": float(
+    (package(*xs) - program(*xs)).abs().max())}))
+"""
+EXPORTS_CHILD = r"""
+import json, os, sys, time
+from gan_aug_pfa_torch import export_model, serve
+device, jobs, disc, bs, recompile_bs = sys.argv[1:6]
+seconds = {}
+for out, argv in json.loads(jobs):
+    t = time.perf_counter()
+    export_model.main(argv + ["--output", out, "--backend", device])
+    seconds[out] = time.perf_counter() - t
+with open(f"{disc}.aotc.bs{bs}.pt2", "wb") as f:
+    f.write(b"a stale package")
+t = time.perf_counter()
+serve._main([disc, recompile_bs, "--device", device])
+name = os.path.basename(disc)
+print(json.dumps({"export_s": seconds,
+                  "recompile_s": time.perf_counter() - t,
+                  "left": sorted(f for f in os.listdir(os.path.dirname(disc))
+                                 if f.startswith(name + ".aotc"))}))
+"""
+
+
+def serving_models(torch):
+    """Phase 15's seeded full-width models, equal on every call."""
+    from gan_aug_pfa_torch.models import (
+        NLayerDiscriminator,
+        SiameseUNet,
+        UNetGenerator,
+    )
+
+    with torch.random.fork_rng(devices=[]):
+        return {"siamese": seeded_model(torch, SiameseUNet),
+                "generator": UNetGenerator().eval(),
+                "discriminator": NLayerDiscriminator().eval()}
+
+
+def serving_paths(root):
+    """Phase 15's checkpoints ({arch: path}) and artifacts ({case:
+    path})."""
+    pths = {arch: os.path.join(root, stem + ".pth")
+            for arch, stem in SERVE_STEMS.items()}
+    arts = {case: os.path.join(root, "artifacts",
+                               f"{case[0]}_{case[2] or case[1]}.pt2")
+            for case in SERVE_CASES}
+    return pths, arts
+
+
 def start_sidecar_export(torch, root, device="cuda"):
-    """Phase 15's first step, which may start early: the phase's tree and
-    seeded Siamese checkpoint, then ``python -m
-    gan_aug_pfa_torch.export_model --aot-batch-sizes 2`` on it in a child
-    process (output to a file in ``root``), which exports the fp32
-    artifact and compiles its executable sidecar.  Returns the job."""
+    """Phase 15's exports, which may start early: the phase's tree and
+    seeded checkpoints, then three child processes started together
+    (output to files in ``root``): ``python -m
+    gan_aug_pfa_torch.export_model --aot-batch-sizes 2`` on the fp32
+    Siamese artifact; the same with ``--quantize int8``, then that
+    package against its ``.pt2`` (INT8_SIDECAR_CHILD); and the other
+    artifacts with the discriminator's recompile (EXPORTS_CHILD).
+    Returns the job."""
     from gan_aug_pfa_torch import checkpoint
-    from gan_aug_pfa_torch.models import SiameseUNet
 
     write_oscd_tree(root)
-    pth = os.path.join(root, "siamese_checkpoints", "best_model.pth")
-    with torch.random.fork_rng(devices=[]):
-        checkpoint.save_model(pth, seeded_model(torch, SiameseUNet))
-    artifact = os.path.join(root, "artifacts", "siamese_float32.pt2")
-    log = os.path.join(root, "sidecar_export.log")
-    with open(log, "w") as out:
-        proc = subprocess.Popen(
-            [sys.executable, "-u", "-m", "gan_aug_pfa_torch.export_model",
-             "--checkpoint-path", pth, "--output", artifact, "--backend",
-             device, "--aot-batch-sizes", str(AOT_BATCH)],
-            cwd=REPO, stdout=out, stderr=subprocess.STDOUT, text=True)
-    return {"proc": proc, "log": log, "artifact": artifact,
-            "t0": time.perf_counter()}
+    pths, arts = serving_paths(root)
+    for arch, model in serving_models(torch).items():
+        checkpoint.save_model(pths[arch], model)
+    siamese = pths["siamese"]
+    others = [(arts[case], ["--checkpoint-path", pths[case[0]],
+                            "--compute-dtype", case[1]]
+               + (["--quantize", case[2]] if case[2] else []))
+              for case in SERVE_CASES[1:] if case != SERVE_CASES[2]]
+    commands = {
+        "float32": ["-m", "gan_aug_pfa_torch.export_model",
+                    "--checkpoint-path", siamese, "--output",
+                    arts[SERVE_CASES[0]], "--backend", device,
+                    "--aot-batch-sizes", str(AOT_BATCH)],
+        "int8": ["-c", INT8_SIDECAR_CHILD, siamese, arts[SERVE_CASES[2]],
+                 device, str(AOT_BATCH), str(SEED + 16)],
+        "exports": ["-c", EXPORTS_CHILD, device, json.dumps(others),
+                    arts[SERVE_CASES[5]], str(AOT_BATCH),
+                    str(AOT_RECOMPILE_BATCH)]}
+    children = {}
+    for name, args in commands.items():
+        log = os.path.join(root, f"sidecar_export_{name}.log")
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-u", *args], cwd=REPO, stdout=out,
+                stderr=subprocess.STDOUT, text=True)
+        children[name] = {"proc": proc, "log": log}
+    return {"children": children, "t0": time.perf_counter()}
 
 
 def finish_sidecar_export(job):
-    """Wait for ``start_sidecar_export``'s child (killed after
-    ``AOT_EXPORT_TIMEOUT_S``), echo its output and return its wall
-    seconds; raises if it failed."""
-    proc = job["proc"]
-    try:
-        rc = proc.wait(timeout=max(
-            1.0, AOT_EXPORT_TIMEOUT_S - (time.perf_counter() - job["t0"])))
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-        raise AssertionError("export_model --aot-batch-sizes still running "
-                             f"after {AOT_EXPORT_TIMEOUT_S} s")
-    wall = time.perf_counter() - job["t0"]
-    with open(job["log"]) as f:
-        for line in f.read().splitlines():
-            print(f"  | {line}")
-    if rc != 0:
-        raise AssertionError(f"export_model --aot-batch-sizes exited {rc}")
-    return wall
+    """Wait for ``start_sidecar_export``'s children (killed
+    ``AOT_EXPORT_TIMEOUT_S`` after their start), echo their output and
+    return ({child: its wall seconds from the start, at most}, {child: the
+    JSON of its last line, or None}); raises if one failed."""
+    walls, results = {}, {}
+    for name, child in job["children"].items():
+        proc = child["proc"]
+        try:
+            rc = proc.wait(timeout=max(1.0, AOT_EXPORT_TIMEOUT_S - (
+                time.perf_counter() - job["t0"])))
+        except subprocess.TimeoutExpired:
+            stop_sidecar_export(job)
+            raise AssertionError(f"phase 15's {name} child still running "
+                                 f"after {AOT_EXPORT_TIMEOUT_S} s")
+        walls[name] = time.perf_counter() - job["t0"]
+        with open(child["log"]) as f:
+            lines = f.read().splitlines()
+        for line in lines:
+            print(f"  {name} | {line}")
+        if rc != 0:
+            raise AssertionError(f"phase 15's {name} child exited {rc}")
+        reports = [line for line in lines if line.startswith("{")]
+        results[name] = json.loads(reports[-1]) if reports else None
+    return walls, results
 
 
 def stop_sidecar_export(job):
-    """Kill ``start_sidecar_export``'s child if it still runs."""
-    if job["proc"].poll() is None:
-        job["proc"].kill()
-        job["proc"].wait()
+    """Kill ``start_sidecar_export``'s children that still run."""
+    for child in job["children"].values():
+        if child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait()
 
 
 def phase_serving_sidecar(torch, root, artifact, int8_artifact,
-                          disc_artifact, cache, cities, pt2_cold,
+                          disc_artifact, results, cache, cities, pt2_cold,
                           device="cuda"):
     """Phase 15's executable sidecar of the full-width fp32 Siamese
     artifact, which ``export_model --aot-batch-sizes 2`` wrote: its
@@ -3295,10 +3421,11 @@ def phase_serving_sidecar(torch, root, artifact, int8_artifact,
     import and context, load and first batch, read in phase 15's fresh
     process) and evaluation pairs/s at bs 2, package against ``.pt2``; a
     damaged package (``require`` raises naming it, ``auto`` serves through
-    the ``.pt2``); the full-width discriminator's artifact compiled at
-    batch 4 beside a batch-2 package, which the compile removes (the
-    Siamese net's compile takes minutes); the int8 artifact's package
-    bytes when the fp32 compile took under ``AOT_INT8_UNDER_S``."""
+    the ``.pt2``); and from ``start_sidecar_export``'s children
+    (``results``), the full-width discriminator's artifact compiled at
+    batch 4 beside a stale batch-2 package, which the compile removes (the
+    Siamese net's compile takes minutes), and the int8 artifact's package
+    against its ``.pt2`` within ``AOT_TOL``."""
     from gan_aug_pfa_torch import pipelines, serve
     from gan_aug_pfa_torch.config import EvalConfig
 
@@ -3431,46 +3558,33 @@ def phase_serving_sidecar(torch, root, artifact, int8_artifact,
             printed or dfall > AOT_TOL:
         raise AssertionError("auto did not fall back to the .pt2")
 
-    # A compile at batch 4 removes the batch-2 package an earlier compile
-    # left (the damaged one, copied beside the discriminator's artifact).
-    name = os.path.basename(disc_artifact)
-    shutil.copy(package, f"{disc_artifact}.aotc.bs{AOT_BATCH}.pt2")
-    t0 = time.perf_counter()
-    run_captured(serve._main, [disc_artifact, str(AOT_RECOMPILE_BATCH),
-                               "--device", device])
-    left = sorted(f for f in os.listdir(os.path.dirname(disc_artifact))
-                  if f.startswith(name + ".aotc"))
+    # From the children: the discriminator's compile at batch 4 removed the
+    # stale batch-2 package beside it; the int8 package against its .pt2.
+    name, disc = os.path.basename(disc_artifact), results["exports"]
     print(f"serving sidecar: discriminator compiled at batch "
-          f"{AOT_RECOMPILE_BATCH} in {time.perf_counter() - t0:.2f} s beside "
-          f"a batch-{AOT_BATCH} package; sidecar files {left}")
-    if left != [name + ".aotc", f"{name}.aotc.bs{AOT_RECOMPILE_BATCH}.pt2"]:
+          f"{AOT_RECOMPILE_BATCH} in {disc['recompile_s']:.2f} s beside a "
+          f"stale batch-{AOT_BATCH} package; sidecar files {disc['left']}")
+    if disc["left"] != [name + ".aotc",
+                        f"{name}.aotc.bs{AOT_RECOMPILE_BATCH}.pt2"]:
         raise AssertionError("the compile left a stale package")
-
-    int8_bytes = None
-    if info["compile_s"] < AOT_INT8_UNDER_S:
-        meta8 = serve.compile_artifact(int8_artifact, [AOT_BATCH],
-                                       device=device)
-        int8_bytes = meta8["shapes"][str(AOT_BATCH)]["bytes"]
-        _, q8 = serve.load_serving_fn(int8_artifact, aot="require",
-                                      device=device)
-        _, q8_pt2 = serve.load_serving_fn(int8_artifact, aot="never",
-                                          device=device)
-        err8 = float((q8(*xs) - q8_pt2(*xs)).abs().max())
-        print(f"serving sidecar: int8 package {int8_bytes} bytes against "
-              f"the fp32 package's {info['bytes']} "
-              f"({int8_bytes / info['bytes']:.4f}x; the .pt2 files "
-              f"{os.path.getsize(int8_artifact) / os.path.getsize(artifact):.4f}"
-              f"x), compile {meta8['shapes'][str(AOT_BATCH)]['compile_s']} s"
-              f"; max |package - .pt2| {err8} (limit {AOT_TOL})")
-        if not err8 <= AOT_TOL:
-            raise AssertionError("the int8 package disagrees with its .pt2")
-    else:
-        print(f"serving sidecar: the fp32 compile took {info['compile_s']} s"
-              f" (>= {AOT_INT8_UNDER_S} s): the int8 compile is not run")
+    with open(serve.aot_sidecar_path(int8_artifact), "rb") as f:
+        info8 = json.loads(f.read()[len(serve.AOT_MAGIC):])["shapes"][
+            str(AOT_BATCH)]
+    err8, int8_bytes = results["int8"]["max_abs_err"], info8["bytes"]
+    print(f"serving sidecar: int8 package {int8_bytes} bytes against "
+          f"the fp32 package's {info['bytes']} "
+          f"({int8_bytes / info['bytes']:.4f}x; the .pt2 files "
+          f"{os.path.getsize(int8_artifact) / os.path.getsize(artifact):.4f}"
+          f"x), compile {info8['compile_s']} s; max |package - .pt2| at "
+          f"batch {AOT_BATCH} {err8} (limit {AOT_TOL}, in its child)")
+    if not err8 <= AOT_TOL:
+        raise AssertionError("the int8 package disagrees with its .pt2")
     return {"sidecar_counts": child["counts"],
             "sidecar": {"compile_s": info["compile_s"],
                         "bytes": info["bytes"], "max_abs_err": err,
-                        "int8_bytes": int8_bytes}}
+                        "int8_bytes": int8_bytes,
+                        "int8_compile_s": info8["compile_s"],
+                        "int8_max_abs_err": err8}}
 
 
 # Phase 16: the C PNG decoder, the pooled PNG writer and --stream.
@@ -3655,9 +3769,9 @@ def stream_writer(root):
 
 def stream_cli_training(torch, root, extra):
     """One epoch of ``train --use-synthetic`` over the tree and its
-    synthetic corpus with ``--stream host`` and ``--stream decode``, with
-    the FocalDice (calls, launches) set to 0 just before each and read just
-    after."""
+    synthetic corpus with ``--stream host`` and ``--stream decode``, each
+    under ``deterministic``, with the FocalDice (calls, launches) set to 0
+    just before each and read just after."""
     from gan_aug_pfa_torch.ops.kernels.fused_loss import FocalDiceLossFn
     from gan_aug_pfa_torch.train import __main__ as train_cli
 
@@ -3665,10 +3779,11 @@ def stream_cli_training(torch, root, extra):
     for mode in ("host", "decode"):
         reset_loss_counts(FocalDiceLossFn)
         t0 = time.time()
-        history = train_cli.main(
-            ["--root-dir", root, "--use-synthetic", "--num-epochs", "1",
-             "--stream", mode, "--checkpoint-dir", f"stream_ckpt_{mode}",
-             *extra])
+        with deterministic(torch):
+            history = train_cli.main(
+                ["--root-dir", root, "--use-synthetic", "--num-epochs", "1",
+                 "--stream", mode, "--checkpoint-dir", f"stream_ckpt_{mode}",
+                 *extra])
         wall = time.time() - t0
         runs[mode] = (history["train_loss"][0], history["val_loss"][0],
                       loss_counts(FocalDiceLossFn), wall)
@@ -3680,24 +3795,24 @@ def stream_cli_training(torch, root, extra):
 
 def stream_check_training(runs, resident_loss, n_train, bs=4):
     """The streamed CLI epochs against the resident epoch of the same init
-    and order: train losses within TRAIN_STEP_RTOL (cuDNN's backward is not
-    deterministic on the card; equal bits on the CPU), the val losses of
-    the two streams too; one forward a train and a val step, one backward
-    a train step."""
+    and order, all three under ``deterministic``: train losses equal in
+    bits to the resident epoch's, and the two streams' val losses equal; one
+    forward a train and a val step, one backward a train step."""
     steps = -(-n_train // bs)
     want = {"fwd": (steps + 1, steps + 1), "bwd": (steps, steps)}
     for mode, (loss, val, counts, _) in runs.items():
-        rel = abs(loss - resident_loss) / abs(resident_loss)
         print(f"train --stream {mode} against the resident epoch: train "
-              f"loss {loss!r} against {resident_loss!r}, relative "
-              f"difference {rel!r} (limit {TRAIN_STEP_RTOL})")
-        if rel > TRAIN_STEP_RTOL:
+              f"loss {loss!r} against {resident_loss!r}, difference "
+              f"{loss - resident_loss!r} (must be 0)")
+        if loss != resident_loss:
             raise AssertionError(f"--stream {mode} train loss differs")
         if counts != want:
             raise AssertionError(f"--stream {mode} fused-loss counts "
                                  f"{counts}; expected {want}")
     vals = [run[1] for run in runs.values()]
-    if abs(vals[0] - vals[1]) > TRAIN_STEP_RTOL * abs(vals[0]):
+    print(f"streamed val losses {vals!r}, difference {vals[0] - vals[1]!r} "
+          "(must be 0)")
+    if vals[0] != vals[1]:
         raise AssertionError(f"streamed val losses {vals} differ")
 
 
@@ -3745,8 +3860,8 @@ class StepMemory:
 
 def stream_memory_and_rates(torch, samples, device):
     """In this process, at the Siamese net's full width (128x128, bf16):
-    the resident epoch of a fresh trainer (the streamed CLI epochs' init and
-    order: their reference loss); steps/s of a resident, a ``host`` and a
+    the resident epoch of a fresh trainer under ``deterministic`` (the
+    streamed CLI epochs' init and order: their reference loss); steps/s of a resident, a ``host`` and a
     ``decode`` epoch at batch 4 and 16; and at batch 4 each epoch's device
     memory above what the model, the optimizer and the gradients hold
     (``StepMemory``): streamed, the peak less the largest step's own and
@@ -3769,7 +3884,9 @@ def stream_memory_and_rates(torch, samples, device):
             trainer = SiameseTrainer(SiameseTrainConfig(batch_size=bs),
                                      device)
             cache = DeviceCache.from_dataset(ds, device)
-            loss = trainer.train_epoch(cache, np.random.RandomState(SEED))
+            with (deterministic(torch) if bs == 4
+                  else contextlib.nullcontext()):
+                loss = trainer.train_epoch(cache, np.random.RandomState(SEED))
             if bs == 4:
                 resident_loss = loss
             del cache
@@ -3875,9 +3992,10 @@ def stream_synthesis_files(synth_cli, root, mode, extra):
 
 def stream_gan_synthesis_eval(torch, root, device, extra):
     """``train_gan`` for one epoch at its defaults (256x256, batch 1, bf16,
-    full width), resident and ``--stream decode``: losses equal; then
-    ``generate_synthetic`` with its generator, resident and ``--stream
-    decode``, cuDNN deterministic: files byte-identical; then ``evaluate``
+    full width), resident and ``--stream decode``, under ``deterministic``:
+    losses equal in bits; then ``generate_synthetic`` with its generator,
+    resident and ``--stream decode``, under ``deterministic``: files
+    byte-identical; then ``evaluate``
     of a seeded checkpoint, resident, ``--stream host`` and ``--stream
     decode``, with the confusion counts' (calls, launches) set to 0 just
     before each and read just after: (7, 7) each, the JSON reports
@@ -3891,33 +4009,29 @@ def stream_gan_synthesis_eval(torch, root, device, extra):
     gan = {}
     for mode in ("hbm", "decode"):
         t0 = time.time()
-        history = gan_cli.main([
-            "--root-dir", root, "--num-epochs", "1", "--stream", mode,
-            "--checkpoint-dir", f"stream_gan_{mode}", "--output-dir",
-            f"stream_gan_samples_{mode}", *extra])
+        with deterministic(torch):
+            history = gan_cli.main([
+                "--root-dir", root, "--num-epochs", "1", "--stream", mode,
+                "--checkpoint-dir", f"stream_gan_{mode}", "--output-dir",
+                f"stream_gan_samples_{mode}", *extra])
         gan[mode] = (history["loss_d"][0], history["loss_g"][0],
                      time.time() - t0)
         print(f"train_gan --stream {mode}: wall {gan[mode][2]:.2f} s, loss "
               f"D {gan[mode][0]!r}, loss G {gan[mode][1]!r}")
-    rel = [abs(a - b) / abs(b) for a, b in zip(gan["decode"][:2],
-                                               gan["hbm"][:2])]
-    print(f"train_gan --stream decode against resident: relative "
-          f"differences {rel} (limit {TRAIN_STEP_RTOL})")
-    if max(rel) > TRAIN_STEP_RTOL:
+    diff = [a - b for a, b in zip(gan["decode"][:2], gan["hbm"][:2])]
+    print(f"train_gan --stream decode against resident (both under "
+          f"deterministic mode): loss differences {diff} (must be 0)")
+    if any(diff):
         raise AssertionError("the streamed GAN epoch differs")
 
     # cuDNN's conv-transpose (its backward-data algorithms) may add in any
     # order: both runs take deterministic algorithms, so that the files
     # show what the stream feeds the generator and nothing else.
     synth = {}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic(torch):
         for mode in ("hbm", "decode"):
             synth[mode] = stream_synthesis_files(
                 synth_cli, root, mode, extra)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     differ = sorted(k for k in synth["hbm"]
                     if synth["decode"].get(k) != synth["hbm"][k])
     if differ or len(synth["hbm"]) != 3 * len(CITIES):
@@ -4530,22 +4644,16 @@ def run_ranks(fn, args, timeout=300.0, world=DP_WORLD):
 def dp_nccl_one_rank(torch):
     """(a) one NCCL rank (a group of one, in this process): a collective
     runs on the card, the trainer takes the one-rank mesh as no mesh (no
-    global BatchNorm), and its fp32 step (TF32 off, cuDNN deterministic)
-    gives the step without a group's loss bit for bit and its parameters
-    within the (b) rule (the upsample's backward adds with atomics, so two
-    steps without a group differ too)."""
+    global BatchNorm), and its fp32 step (TF32 off) under ``deterministic``
+    gives the step without a group's loss and parameters bit for bit."""
     import torch.distributed as dist
 
-    from gan_aug_pfa_torch.config import SiameseTrainConfig
     from gan_aug_pfa_torch.parallel.batchnorm import GlobalBatchNorm2d
     from gan_aug_pfa_torch.parallel.mesh import default_mesh, free_port, \
         make_mesh
 
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
                             f"{free_port()}", world_size=1, rank=0)
-    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
-        True, False)
     try:
         mesh = make_mesh(device="cuda")
         t = mesh.all_reduce_sum(torch.arange(4.0, device="cuda"))
@@ -4555,31 +4663,30 @@ def dp_nccl_one_rank(torch):
         if default_mesh(True, "cuda") is not None:
             raise AssertionError("a one-rank group gave the trainers a mesh")
         runs = []
-        for m in (mesh, None):
-            trainer, cache = dp_step_setup(torch, m)
-            if trainer.mesh is not None or any(
-                    isinstance(b, GlobalBatchNorm2d)
-                    for b in trainer.model.modules()):
-                raise AssertionError("a one-rank mesh changed the trainer")
-            loss = trainer.train_step(cache, torch.arange(4, device="cuda"))
-            runs.append((loss, [p.detach().clone()
-                                for p in trainer.model.parameters()]))
+        with deterministic(torch):
+            for m in (mesh, None):
+                trainer, cache = dp_step_setup(torch, m)
+                if trainer.mesh is not None or any(
+                        isinstance(b, GlobalBatchNorm2d)
+                        for b in trainer.model.modules()):
+                    raise AssertionError("a one-rank mesh changed the "
+                                         "trainer")
+                loss = trainer.train_step(cache,
+                                          torch.arange(4, device="cuda"))
+                runs.append((loss, [p.detach().clone()
+                                    for p in trainer.model.parameters()]))
         diffs = torch.cat([(a - b).abs().flatten()
                            for a, b in zip(runs[0][1], runs[1][1])])
-        share = float((diffs <= DP_PARAM_ATOL).double().mean())
         equal = torch.equal(runs[0][0], runs[1][0])
+        same = all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
         print(f"phase 18 (a): one NCCL rank, fp32 step loss "
               f"{float(runs[0][0]):.8f}, equal bits to no group: {equal}; "
-              f"parameters max|d| {float(diffs.max()):.2e}, {share:.4%} "
-              f"within {DP_PARAM_ATOL}")
-        if not (equal and float(diffs.max())
-                <= 2 * SiameseTrainConfig().learning_rate
-                and share >= DP_PARAM_SHARE):
+              f"parameters equal bits: {same} (max|d| "
+              f"{float(diffs.max()):.2e})")
+        if not (equal and same):
             raise AssertionError("a one-rank NCCL step differs from the "
                                  "step without a group")
     finally:
-        (torch.backends.cudnn.deterministic,
-         torch.backends.cudnn.benchmark) = prev
         dist.destroy_process_group()
 
 
@@ -4748,10 +4855,10 @@ SUB_SIZE = 128
 # A trial's first step on two ranks against one process, relative: the
 # same weights, batch and draws, the sums (BatchNorm's, the loss's) in
 # another order, at bf16.  Its first epoch is printed, not held to this:
-# one process differs from itself by up to 5.1e-4 over that epoch (the
-# upsample's backward adds with atomics), and Adam's first steps, lr times
-# the sign of each gradient, turn bf16 rounding into lr-sized moves (the
-# search space's lr reaches 5e-3, 50 times the CLI's).
+# Adam's first steps, lr times the sign of each gradient, turn bf16
+# rounding into lr-sized moves (the search space's lr reaches 5e-3, 50
+# times the CLI's).  Two runs of the trial in one process under
+# ``deterministic`` give equal bits: its first step and first epoch.
 SUB_STEP_RTOL = DP_LOSS_RTOL
 
 
@@ -4841,9 +4948,11 @@ def phase_tuning_submesh(torch, root, device="cuda", size=SUB_SIZE):
     on SUB_WORLD gloo ranks sharing the card: two partitions of two ranks
     (``tune.tune_on_ranks``).  Checks the study's rows (numbers unique,
     COMPLETE or PRUNED), each rank's kernel counts against its trials, the
-    two ranks of a partition against each other, and each trial's first
-    step against the same trial in this process (SUB_STEP_RTOL); prints
-    its first epoch against two runs of it in this process.  Returns each
+    two ranks of a partition against each other, each trial's first step
+    against the same trial in this process (SUB_STEP_RTOL), and two runs of
+    the trial in this process under ``deterministic`` against each other
+    (first step and first epoch equal in bits); prints the ranks' first
+    epoch against them.  Returns each
     rank's counts, the relative differences and the phase's seconds."""
     from gan_aug_pfa_torch import tune
     from gan_aug_pfa_torch.config import DataConfig
@@ -4896,12 +5005,14 @@ def phase_tuning_submesh(torch, root, device="cuda", size=SUB_SIZE):
         for rep in reports[::2]:
             for t in rep["trials"]:
                 ones = []
-                for _ in range(2):  # the one-process run, and its spread
+                for _ in range(2):  # the one-process run, and again
                     first.clear()
                     objective = tune.make_objective(
                         data, verbose=False, trial_epochs=1, device=device,
                         datasets=datasets)
-                    objective(tune.SharedTrial(t["number"], t["params"]))
+                    with deterministic(torch):
+                        objective(tune.SharedTrial(t["number"],
+                                                   t["params"]))
                     ones.append([first[t["number"]]] + [
                         objective.trials[0][k][0]
                         for k in ("train_loss", "val_loss")])
@@ -4912,19 +5023,23 @@ def phase_tuning_submesh(torch, root, device="cuda", size=SUB_SIZE):
                     "batch": t["params"]["batch_size"],
                     "ranks_vs_one": [abs(a - b) / abs(b)
                                      for a, b in zip(got, ones[0])],
-                    "one_vs_one": [abs(a - b) / abs(b)
-                                   for a, b in zip(ones[1], ones[0])]}
+                    "one_vs_one": [a - b for a, b in zip(ones[1],
+                                                         ones[0])]}
     finally:
         undo()
     seconds = time.time() - t0
     print(f"phase 19: each trial's (first step, first epoch's train and "
-          f"val) losses, relative: two ranks vs one process, and one "
-          f"process vs itself: {rel}; ranks' own seconds "
+          f"val) losses: two ranks vs one process, relative, and one "
+          f"process vs itself under deterministic mode, the difference: "
+          f"{rel}; ranks' own seconds "
           f"{[round(r['seconds'], 1) for r in reports]}")
     if sorted(rel) != list(range(SUB_TRIALS)) or max(
             v["ranks_vs_one"][0] for v in rel.values()) > SUB_STEP_RTOL:
         raise AssertionError("phase 19: a sub-mesh trial's first step "
                              "differs from the same step in one process")
+    if any(d != 0 for v in rel.values() for d in v["one_vs_one"]):
+        raise AssertionError("phase 19: a trial run twice in one process "
+                             "under deterministic mode differs")
     print(f"phase 19 (tuning over sub-meshes) took {seconds:.1f} s")
     return {"loss": [r["loss"] for r in reports],
             "photometric": [r["photometric"] for r in reports],
@@ -4939,8 +5054,9 @@ MA_BATCH, MA_STEPS = 4, 3  # the Siamese defaults' batch, 2 rows a data rank
 # within this.  Under bf16 autocast torch casts each weight once a forward
 # and adds the two encoder passes' weight gradients in bf16; a sharded
 # conv casts at each call and adds them in float32, as flax does (ROADMAP
-# §C16: 3.4e-5, then 2.3e-4 relative on the CPU); and on the card cuDNN's
-# bf16 backward and the upsample's backward add with atomics (§C7).
+# §C16: 3.4e-5, then 2.3e-4 relative on the CPU); and on the card these
+# steps run outside deterministic mode, where cuDNN may pick a bf16
+# backward algorithm that adds with atomics (§C7).
 MA_LOSS_RTOL = DP_LOSS_RTOL
 MA_GAN_RTOL = DP_LOSS_RTOL  # one bf16 D+G step, (2, 2) against one process
 
@@ -5148,7 +5264,8 @@ def phase_model_axis(torch, root, device="cuda"):
               + ("equal in bits" if same else
                  f"rel {rel} (not bit-equal after step 1: autocast's cached "
                  "bf16 weights add the encoder passes' gradients in bf16, a "
-                 "sharded conv in float32, ROADMAP §C16; atomics, §C7)"))
+                 "sharded conv in float32, ROADMAP §C16; cuDNN's bf16 "
+                 "backward outside deterministic mode, §C7)"))
         for name, run in (("model", model), ("data", data)):
             (p_exact, p_most), (o_exact, o_most) = want_bytes[name]
             print(f"phase 20 rank {rank} {name} run ({card}): parameter "
@@ -5249,9 +5366,10 @@ SP_GAN_SHAPE = (1, 4)  # the GAN at the reference's batch of 1: height only
 # BatchNorm and loss sums over data x spatial).  Under bf16 autocast every
 # conv rounds its output to bf16 (8 bits) on other shapes, so even the first
 # step's loss differs by more than TRAIN_STEP1_RTOL (8.3e-5 on an H100), and
-# on the card cuDNN's bf16 backward and the upsample's backward add with
-# atomics (ROADMAP §C7): the bf16 steps are held at SP_LOSS_RTOL, and the
-# first step at float32 (TF32 off) at TRAIN_STEP1_RTOL (ROADMAP §C20).
+# on the card these steps run outside deterministic mode, where cuDNN may
+# pick a bf16 backward algorithm that adds with atomics (ROADMAP §C7): the
+# bf16 steps are held at SP_LOSS_RTOL, and the first step at float32 (TF32
+# off) at TRAIN_STEP1_RTOL (ROADMAP §C20).
 SP_LOSS_RTOL = DP_LOSS_RTOL
 SP_GAN_RTOL = DP_LOSS_RTOL
 # The knobs that change a conv's form, under the axis: the Siamese steps
@@ -5518,6 +5636,79 @@ def phase_spatial_axis(torch, root, device="cuda"):
     return result
 
 
+# -- phase 22: deterministic train steps -------------------------------------
+
+# The train steps that phase 22 runs twice from one state under
+# ``deterministic``: the Siamese net at the defaults (128x128, batch 4,
+# bf16, full width), plain and with the model knobs, DET_STEPS steps each;
+# the GAN at its defaults (256x256, batch 1, bf16, full width), one D+G
+# step.  Each pair must give equal bits.
+DET_SIAMESE_FORMS = {
+    "plain": {},
+    "batched_encoder_concat_free_remat": dict(
+        batched_encoder=True, concat_free=True, remat=True)}
+DET_STEPS = 2
+
+
+def state_bits(module):
+    """Every parameter and buffer of ``module``, cloned."""
+    return [t.detach().clone() for t in (*module.parameters(),
+                                         *module.buffers())]
+
+
+def phase_determinism(torch, device="cuda"):
+    """Phase 22: under ``deterministic``, DET_STEPS bf16 Siamese train
+    steps of each DET_SIAMESE_FORMS form from one seeded state, run twice,
+    give equal losses, parameters and buffers in bits, and one bf16 GAN
+    D+G step likewise; no op raises.  Returns its seconds."""
+    from gan_aug_pfa_torch.config import GANTrainConfig, SiameseTrainConfig
+    from gan_aug_pfa_torch.train.gan import GANTrainer
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+
+    t0 = time.time()
+    rng = np.random.RandomState(SEED + 22)
+    siamese = [torch.from_numpy(rng.rand(4, 3, 128, 128).astype(
+        np.float32)).to(device) for _ in range(2)]
+    labels = torch.from_numpy((rng.rand(4, 128, 128) > 0.8).astype(
+        np.float32)).to(device)
+    pair = [torch.from_numpy(rng.rand(1, 3, 256, 256).astype(
+        np.float32)).to(device) for _ in range(2)]
+    runs = {}
+    with deterministic(torch):
+        for name, knobs in DET_SIAMESE_FORMS.items():
+            runs[name] = []
+            for _ in range(2):
+                trainer = SiameseTrainer(SiameseTrainConfig(**knobs), device)
+                losses = torch.stack([trainer.train_batch(*siamese, labels)
+                                      for _ in range(DET_STEPS)])
+                runs[name].append((losses, state_bits(trainer.model)))
+                del trainer
+        runs["gan"] = []
+        for _ in range(2):
+            trainer = GANTrainer(GANTrainConfig(), device)
+            losses = torch.stack(trainer.train_batch(*pair))
+            runs["gan"].append((losses, state_bits(trainer.generator)
+                                + state_bits(trainer.discriminator)))
+            del trainer
+    failed = []
+    for name, ((la, sa), (lb, sb)) in runs.items():
+        equal = torch.equal(la, lb) and all(torch.equal(a, b)
+                                            for a, b in zip(sa, sb))
+        worst = max(float((a.double() - b.double()).abs().max())
+                    for a, b in zip(sa, sb))
+        print(f"phase 22 {name}: losses {la.tolist()} and {lb.tolist()}; "
+              f"{len(sa)} parameters and buffers, max|d| {worst!r}: equal "
+              f"bits {equal}")
+        if not equal:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"phase 22: two runs of {failed} from one "
+                             "state differ under deterministic mode")
+    seconds = time.time() - t0
+    print(f"phase 22 (deterministic steps) took {seconds:.1f} s")
+    return seconds
+
+
 @functools.lru_cache(maxsize=None)
 def card_name():
     """The card's name and power limit, as nvidia-smi gives them."""
@@ -5528,6 +5719,9 @@ def card_name():
 
 
 def main():
+    # Before the first CUDA call, so that deterministic mode may call cuBLAS
+    # (CUBLAS_WORKSPACE); children inherit it.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     import torch
 
     if not torch.cuda.is_available():
@@ -5596,6 +5790,8 @@ def main():
     photo_errs, photo_t = phase_photometric(
         torch, ph, native_shape, native_ds.sizes[:4].tolist())
     stamp("phase 8")
+    phase_determinism(torch)
+    stamp("phase 22")
     with tempfile.TemporaryDirectory() as root:
         phase_gan(torch, root)
         gan_ds = build_cached_dataset(

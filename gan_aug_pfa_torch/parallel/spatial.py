@@ -41,8 +41,9 @@ next height and keep the rule:
     no H-padding (a conv-transpose's padding becomes stride * halo + p,
     which crops its output to the block's rows), when both heights split;
   * the align-corners 2x upsample reads within one row of the block:
-    a 1-row ``halo``, the width interpolated whole, then the rows of the
-    global (2h, h) interpolation matrix that belong to the block;
+    the global (2h, h) interpolation matrix over the block's 1-row
+    ``halo`` in a map of zeros, the block's rows of it, then the whole
+    width matrix;
   * otherwise the input is gathered (when split), the op runs whole, and
     its output is split again when its height divides.
 
@@ -64,13 +65,12 @@ import dataclasses
 import functools
 from typing import Any, Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.resize import upsample2x_align_corners
+from ..ops.resize import upsample2x_align_corners, upsample_matrix
 from .tensor import conv_input_slice, shard_of, sharded_conv
 
 
@@ -391,56 +391,22 @@ def upsample2x(x: torch.Tensor, h: int) -> torch.Tensor:
     return _rule(x, h, 2 * h, upsample2x_align_corners, _upsample_block)
 
 
-@functools.lru_cache(maxsize=64)
-def _upsample_rows(h: int, rank: int, size: int, dtype: torch.dtype,
-                   device: torch.device) -> torch.Tensor:
-    """The rows of the global (2h, h) align-corners interpolation matrix
-    (float64 weights, cast) that spatial rank ``rank`` of ``size`` owns,
-    over its block's input rows with one row of halo each side."""
-    out, n = 2 * h, h // size
-    src = np.arange(out) * ((h - 1) / (out - 1) if out > 1 else 0.0)
-    lo = np.floor(src).astype(np.int64)
-    hi = np.minimum(lo + 1, h - 1)
-    w = src - lo
-    m = np.zeros((out, h + 2))  # columns: rows -1 .. h of the map
-    np.add.at(m, (np.arange(out), lo + 1), 1.0 - w)
-    np.add.at(m, (np.arange(out), hi + 1), w)
-    rows = m[2 * rank * n:2 * (rank + 1) * n, rank * n:rank * n + n + 2]
-    return torch.from_numpy(np.ascontiguousarray(rows)).to(device, dtype)
-
-
-def _upsample_dtype(x: torch.Tensor) -> torch.dtype:
-    """The dtype ``upsample2x_align_corners(x)`` returns under the current
-    autocast: float32 for a bf16 input on CUDA, bf16 on the CPU."""
-    dev = x.device.type
-    if not torch.is_autocast_enabled(dev):
-        return x.dtype
-    return _autocast_upsample_dtype(dev, x.dtype,
-                                    torch.get_autocast_dtype(dev))
-
-
-@functools.lru_cache(maxsize=None)
-def _autocast_upsample_dtype(dev: str, dtype: torch.dtype,
-                             low: torch.dtype) -> torch.dtype:
-    with torch.autocast(dev, dtype=low):
-        return upsample2x_align_corners(
-            torch.zeros(1, 1, 2, 2, dtype=dtype, device=dev)).dtype
-
-
 def _upsample_block(x: torch.Tensor) -> torch.Tensor:
-    """The align-corners 2x upsample of a split block: a 1-row halo, the
-    width interpolated whole (the height kept: an identity at
-    align-corners), then the block's rows of the height matrix; in float32
-    at least, outside autocast, rounded once to the dtype that
-    ``F.interpolate`` gives under it."""
+    """The align-corners 2x upsample of a split block, in the unsplit
+    op's bits.  A BLAS picks its kernel, and with it the order of its
+    sums, by the shapes, so the height product runs at the unsplit op's
+    shapes: the global (2h, h) matrix over the block's 1-row halo placed
+    in a map of zeros (the block's output rows weigh only rows of that
+    halo).  The block's rows of it then meet the whole width matrix."""
     split = _SPLIT
     n = x.shape[2]
-    out = _upsample_dtype(x)
-    acc = torch.promote_types(x.dtype, torch.float32)
-    with torch.autocast(x.device.type, enabled=False):
-        xh = halo(x, 1, 1).to(acc)
-        y = F.interpolate(xh, size=(n + 2, 2 * x.shape[3]), mode="bilinear",
-                          align_corners=True)
-        rows = _upsample_rows(n * split.size, split.rank, split.size, acc,
-                              x.device)
-        return torch.matmul(rows, y).to(out)
+    h, top = n * split.size, split.rank * n
+    # The halo's rows are the map's rows top - 1 .. top + n: padded to
+    # the rows -1 .. h, then cut to 0 .. h - 1.
+    xh = F.pad(halo(x, 1, 1), (0, 0, top, h - top - n))[:, :, 1:h + 1]
+    y = torch.matmul(upsample_matrix(h, x.dtype, x.device), xh)
+    # Contiguous, so that the width product folds the rows into one
+    # matrix product as the unsplit op's does.
+    y = y[:, :, 2 * top:2 * (top + n)].contiguous()
+    return torch.matmul(y, upsample_matrix(x.shape[3], x.dtype,
+                                           x.device).t())

@@ -4,16 +4,22 @@ with a card and PyTorch alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Without a card every test skips (the kernels have no CPU mode)."""
+Without a card every test skips (the kernels have no CPU mode).  The
+deterministic-mode tests need cuBLAS's workspace setting in the
+environment before cuBLAS makes its handle: this module sets
+``CUBLAS_WORKSPACE_CONFIG`` when it is imported, before any CUDA call."""
 
 import dataclasses
+import os
 
-import numpy as np
-import pytest
-import torch
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc
-from gan_aug_pfa_torch.ops.kernels import fused_loss as fl
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from gan_aug_pfa_torch.ops.kernels import confusion_counts as cc  # noqa: E402,E501
+from gan_aug_pfa_torch.ops.kernels import fused_loss as fl  # noqa: E402
 
 SHAPES = [(2, 128, 128), (16, 128, 128), (5, 33, 47), (1, 37, 53),
           (3, 1, 1), (4, 512, 512), (16, 1024, 1024)]
@@ -829,6 +835,7 @@ def _spatial_axis_rank(out_dir):
 
     import torch.nn.functional as F
 
+    from gan_aug_pfa_torch.ops.resize import upsample2x_align_corners
     from gan_aug_pfa_torch.parallel import mesh as pm
     from gan_aug_pfa_torch.parallel import spatial as sp
 
@@ -871,8 +878,7 @@ def _spatial_axis_rank(out_dir):
                 ("upsample", None)):
             xw = x.clone().requires_grad_()
             if module is None:
-                yw = F.interpolate(xw, scale_factor=2, mode="bilinear",
-                                   align_corners=True)
+                yw = upsample2x_align_corners(xw)
             else:
                 module = module.to("cuda", torch.float64)
                 yw = module(xw)
@@ -1024,3 +1030,152 @@ def test_spatial_knobs_on_two_ranks(cuda, tmp_path):
         diffs = torch.load(tmp_path / f"rank{rank}.pt")
         for name, d in diffs.items():
             assert max(d) <= 1e-12, (rank, name, d)
+
+
+# -- deterministic train steps and the matrix upsample ---------------------
+
+
+@pytest.fixture
+def deterministic(cuda):
+    """``torch.use_deterministic_algorithms(True)`` and cuDNN's
+    deterministic algorithms for the test; the settings before it after."""
+    cudnn = torch.backends.cudnn
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            cudnn.deterministic, cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    yield
+    torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    cudnn.deterministic, cudnn.benchmark = prev[2:]
+
+
+def _siamese_batch(seed, size=128, bs=4):
+    rng = np.random.RandomState(seed)
+    imgs = [torch.from_numpy(rng.rand(bs, 3, size, size).astype(
+        np.float32)).cuda() for _ in range(2)]
+    labels = torch.from_numpy((rng.rand(bs, size, size) > 0.8).astype(
+        np.float32)).cuda()
+    return imgs, labels
+
+
+def _state_bits(*modules):
+    return [t.detach().clone() for m in modules
+            for t in (*m.parameters(), *m.buffers())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [{}, dict(batched_encoder=True,
+                                            concat_free=True, remat=True)],
+                         ids=["plain", "knobs"])
+def test_siamese_steps_repeat_in_bits_under_deterministic_mode(
+        deterministic, knobs):
+    """Two bf16 train steps at 128x128, batch 4, full width, from one
+    seeded state, run twice under deterministic mode: equal losses,
+    parameters and BatchNorm buffers, bit for bit (plain, and with
+    ``--batched-encoder --concat-free --remat``)."""
+    from gan_aug_pfa_torch.config import SiameseTrainConfig
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+
+    (img1, img2), labels = _siamese_batch(21)
+    runs = []
+    for _ in range(2):
+        trainer = SiameseTrainer(SiameseTrainConfig(**knobs), "cuda")
+        losses = torch.stack([trainer.train_batch(img1, img2, labels)
+                              for _ in range(2)])
+        runs.append((losses, _state_bits(trainer.model)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.cuda
+def test_gan_step_repeats_in_bits_under_deterministic_mode(deterministic):
+    """One bf16 D+G step at the GAN's defaults (256x256, batch 1, full
+    width) from one seeded state, run twice under deterministic mode:
+    equal losses, parameters and buffers of G and D."""
+    from gan_aug_pfa_torch.config import GANTrainConfig
+    from gan_aug_pfa_torch.train.gan import GANTrainer
+
+    rng = np.random.RandomState(22)
+    a, b = (torch.from_numpy(rng.rand(1, 3, 256, 256).astype(
+        np.float32)).cuda() for _ in range(2))
+    runs = []
+    for _ in range(2):
+        trainer = GANTrainer(GANTrainConfig(), "cuda")
+        losses = torch.stack(trainer.train_batch(a, b))
+        runs.append((losses, _state_bits(trainer.generator,
+                                         trainer.discriminator)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.cuda
+def test_float32_steps_card_against_cpu(cuda):
+    """Three fp32 train steps (TF32 off) at 128x128, batch 4, full width,
+    from one init on the card and on the CPU: the first step's loss
+    within 1e-5 relative, the later ones within 1e-3 (chip_smoke.py's
+    TRAIN_STEP1_RTOL and TRAIN_STEP_RTOL)."""
+    from gan_aug_pfa_torch.config import SiameseTrainConfig
+    from gan_aug_pfa_torch.train.siamese import SiameseTrainer
+
+    (img1, img2), labels = _siamese_batch(23)
+    losses = {}
+    for device in ("cuda", "cpu"):
+        trainer = SiameseTrainer(SiameseTrainConfig(compute_dtype="float32"),
+                                 device)
+        losses[device] = [float(trainer.train_batch(
+            img1.to(device), img2.to(device), labels.to(device)))
+            for _ in range(3)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                               losses["cpu"])]
+    assert rel[0] <= 1e-5 and max(rel) <= 1e-3, (rel, losses)
+
+
+@pytest.mark.cuda
+def test_serving_artifacts_take_the_matrix_upsample(cuda, tmp_path):
+    """The Siamese net exported at fp32 and int8 (64x64, full width) and
+    loaded back on the card: the fp32 artifact within 1e-5 (AOT_TOL) of
+    the eager model, the int8 one within 1e-5 of the eager model with its
+    dequantized weights, both with TF32 off; the upsample's matrices are
+    the programs' float32 lifted constants, and the int8 program's q8
+    buffers are the conv weights alone (4-D, one a quantized leaf)."""
+    from gan_aug_pfa_torch import quantize as qz
+    from gan_aug_pfa_torch import serve
+    from gan_aug_pfa_torch.device import tf32_off
+    from gan_aug_pfa_torch.models import SiameseUNet
+
+    torch.manual_seed(0)
+    model = SiameseUNet().eval()
+    state = model.state_dict()
+    qtree, report = qz.quantize_tree(state,
+                                     out_axes=qz.out_channel_axes(model))
+    dequantized = SiameseUNet().eval()
+    dequantized.load_state_dict(qz.dequantize_tree(qtree), strict=True)
+    gen = torch.Generator().manual_seed(1)
+    xs = [torch.rand(2, 64, 64, 3, generator=gen).cuda() * 2 - 1
+          for _ in range(2)]
+    for name, exported, eager in (
+            ("float32", serve.export_model("siamese", state, 64, 64,
+                                           device="cuda"), model),
+            ("int8", serve.export_model_quantized(
+                "siamese", state, 64, 64, device="cuda")[0], dequantized)):
+        path = str(tmp_path / f"siamese_{name}.pt2")
+        serve.save_artifact(path, exported, {"arch": "siamese"})
+        _, fn = serve.load_serving_fn(path, aot="never", device="cuda")
+        with torch.no_grad(), tf32_off():
+            want = torch.sigmoid(eager.cuda()(
+                *(x.permute(0, 3, 1, 2) for x in xs))).permute(0, 2, 3, 1)
+        got = fn(*xs)
+        assert float((got - want).abs().max()) <= 1e-5, name
+        program = serve.load_artifact(path, device="cuda")[1]
+        mats = list(program.constants.values())
+        assert sorted(tuple(m.shape) for m in mats) == [
+            (2 * h, h) for h in (4, 8, 16, 32)], name
+        assert all(m.dtype == torch.float32 for m in mats), name
+        q8 = [v for k, v in program.state_dict.items()
+              if k.startswith("q8_") and not k.startswith("q8_scale_")]
+        if name == "int8":
+            assert len(q8) == report["quantized"] > 0
+            assert all(v.dtype == torch.int8 and v.dim() == 4 for v in q8)
+        else:
+            assert not q8

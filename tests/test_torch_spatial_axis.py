@@ -10,7 +10,7 @@ four ranks run on both halves of the world at once, each half its own,
 then the eight-rank case:
 
   * each height-split operation (``halo``, ``gather_rows``,
-    ``split_rows``, the block-local upsample, a 4x4 stride-2 conv, a 4x4
+    ``split_rows``, the block upsample, a 4x4 stride-2 conv, a 4x4
     stride-2 conv-transpose, a 3x3 conv, and a 4x4 stride-1 conv that the
     rule runs whole) against the whole op, forward and backward, at
     float64 on s = 4 and s = 2 ranks, within 1e-12;
@@ -54,6 +54,10 @@ from torch import nn
 
 from gan_aug_pfa_torch import checkpoint as ckpt
 from gan_aug_pfa_torch.models import SiameseUNet
+from gan_aug_pfa_torch.ops.resize import (
+    _upsample_matrix,
+    upsample2x_align_corners,
+)
 from gan_aug_pfa_torch.parallel import mesh as pm
 from gan_aug_pfa_torch.parallel import spatial as sp
 from gan_aug_pfa_torch.train import plateau
@@ -123,9 +127,8 @@ def _ops(split):
             "conv4x4s1": nn.Conv2d(3, 5, 4, stride=1, padding=1)}
     ops = {name: (lambda m: lambda t: m(t))(m.double())
            for name, m in mods.items()}
-    ops.update(upsample=lambda t: F.interpolate(
-        t, scale_factor=2, mode="bilinear", align_corners=True),
-        pool=lambda t: F.max_pool2d(t, 2, 2))
+    ops.update(upsample=upsample2x_align_corners,
+               pool=lambda t: F.max_pool2d(t, 2, 2))
     diffs = {}
     with sp.splitting(split):
         for name, op in ops.items():
@@ -438,17 +441,49 @@ def test_split_block_refuses_a_height_that_does_not_divide():
 
 
 def test_upsample_rows_hold_all_weight_within_one_halo_row():
-    """The block's rows of the align-corners matrix over its input rows
-    with one halo row each side: each row's weights sum to 1 (nothing lies
-    beyond the halo), for every rank of s = 2, 4, 8 at h = 8, 16, 64."""
+    """The rows of the align-corners matrix that a rank's block outputs
+    weigh only its input rows with one halo row each side (every other
+    weight of theirs is 0), for every rank of s = 2, 4, 8 at h = 8, 16,
+    64: the block upsample reads nothing beyond its halo."""
     for h in (8, 16, 64):
+        m = _upsample_matrix(h, 2 * h)
         for size in (2, 4, 8):
+            n = h // size
             for rank in range(size):
-                rows = sp._upsample_rows(h, rank, size, torch.float64,
-                                         torch.device("cpu"))
-                assert rows.shape == (2 * h // size, h // size + 2)
-                assert torch.allclose(rows.sum(1), torch.ones(
-                    rows.shape[0], dtype=torch.float64), atol=1e-15)
+                rows = m[2 * rank * n:2 * (rank + 1) * n]
+                lo, hi = max(rank * n - 1, 0), min(rank * n + n + 1, h)
+                assert rows[:, lo:hi].any(axis=1).all()
+                assert not rows[:, :lo].any() and not rows[:, hi:].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("size", [2, 4])
+def test_split_upsample_equals_the_unsplit_one_in_bits(monkeypatch, dtype,
+                                                       size):
+    """``spatial.upsample2x`` of each rank's block equals that rank's rows
+    of ``upsample2x_align_corners`` of the whole map bit for bit on s = 2
+    and 4, at float32, float64 and bf16 under CPU autocast, for every
+    decoder height of a 32x32 or 128x128 input that the rule splits (the
+    halo stood in by the whole map's rows, in this one process)."""
+    for h in (4, 8, 16, 32, 64):
+        if h % size:
+            continue
+        x = torch.randn(2, 5, h, 2 * h, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(h))
+        x = x.to(getattr(torch, dtype))
+        padded, n = F.pad(x, (0, 0, 1, 1)), h // size
+        with torch.autocast("cpu", dtype=torch.bfloat16,
+                            enabled=dtype == "bfloat16"):
+            whole = upsample2x_align_corners(x)
+            for k in range(size):
+                monkeypatch.setattr(
+                    sp, "halo", lambda t, top, bottom, split=None,
+                    k=k: padded[:, :, k * n:k * n + n + 2])
+                with sp.splitting(sp.Split(None, size, k, None)):
+                    y = sp.upsample2x(x[:, :, k * n:(k + 1) * n], h)
+                want = whole[:, :, 2 * k * n:2 * (k + 1) * n]
+                assert y.dtype == want.dtype, (h, k)
+                assert torch.equal(y, want), (h, k)
 
 
 # -- the trainers against the meshes without the axis --------------------

@@ -1,10 +1,11 @@
 """Step-by-step parity of one float64 Siamese epoch, the port against the
 JAX package, on the CPU (ROADMAP §C15).
 
-The port runs with the JAX package's two float32 islands copied in: the
-upsample's float32-rounded interpolation weights
-(``gan_aug_pfa_tpu/ops/resize.py`` ``_upsample_matrix``) and the model's
-float32 logits (``models/siamese_unet.py`` ``out.astype(jnp.float32)``).
+The JAX package's float64 run keeps two float32 islands.  The port has
+the first as the JAX package does: the upsample's float32 interpolation
+weights (``ops/resize.py``, the JAX package's ``_upsample_matrix``).  The
+second is copied in here: the model's float32 logits
+(``models/siamese_unet.py`` ``out.astype(jnp.float32)``).
 Both trainers start from one init and take the 11 pairs of
 ``tests/test_torch_parallel.py`` in one order at batch 4.  After each step
 it prints how far apart the loss, the gradients (relative to each
@@ -43,27 +44,6 @@ from gan_aug_pfa_tpu.data.transforms import normalize  # noqa: E402
 from gan_aug_pfa_tpu.models.siamese_unet import SiameseUNet as JaxModel  # noqa: E402,E501
 from gan_aug_pfa_tpu.train.siamese import SiameseTrainer as JaxTrainer  # noqa: E402,E501
 from gan_aug_pfa_tpu.train.siamese import TrainState  # noqa: E402
-
-
-def jax_upsample_matrix(n):
-    """The JAX package's (2n, n) align_corners upsample matrix
-    (``ops/resize.py`` ``_upsample_matrix``): float32 weights, as
-    float64."""
-    src = np.arange(2 * n) * (n - 1) / (2 * n - 1)
-    lo = np.floor(src).astype(np.int64)
-    w = (src - lo).astype(np.float32)
-    m = np.zeros((2 * n, n), np.float32)
-    np.add.at(m, (np.arange(2 * n), lo), 1 - w)
-    np.add.at(m, (np.arange(2 * n), np.minimum(lo + 1, n - 1)), w)
-    return torch.from_numpy(m.astype(np.float64))
-
-
-def upsample_jax_weights(x):
-    """``upsample2x_align_corners`` on NCHW as the JAX package computes
-    it: two matmuls with the float32-rounded weights."""
-    mh, mw = (jax_upsample_matrix(n).to(x.dtype) for n in x.shape[-2:])
-    return torch.einsum("pw,ncow->ncop", mw,
-                        torch.einsum("oh,nchw->ncow", mh, x))
 
 
 class Float32Is64:  # the JAX FocalDice at float64
@@ -182,7 +162,6 @@ def localize_step_one(trainer, cache, state, nhwc, labels, idx, jt):
 def main():
     global FORWARD
     torch.manual_seed(0)
-    siamese_unet.upsample2x_align_corners = upsample_jax_weights
     forward = FORWARD = siamese_unet.SiameseUNet.forward
     siamese_unet.SiameseUNet.forward = (
         lambda self, *x: forward(self, *x).float().double())
